@@ -1,0 +1,136 @@
+"""Carry a scene across from the JAX package.
+
+`flatten(obj)` turns a tree of frozen dataclasses (the JAX package's Scene,
+or this package's) into a flat dict keyed by dataclass field path, e.g.
+"media.0.gp.cov.sigma": every array leaf becomes a numpy array (through
+`np.asarray`, so JAX arrays convert without importing JAX), Python values
+stay as they are, and each dataclass adds a "<path>__type__" entry with its
+class name.  `scene_from_numpy(tree)` builds this package's Scene from such
+a dict, so both renderers compute from the same parameters.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .models import bsdfs as bs
+from .models import media as md
+from .models import primitives as pr
+from .models.camera import Camera
+from .models.integrator import Scene
+from .ops import sparse_conv as sc
+from .ops.covariance import SquaredExponentialCov
+from .ops.means import HomogeneousMean, SphericalMean
+
+
+def flatten(obj, prefix=""):
+    out = {}
+    if dataclasses.is_dataclass(obj):
+        out[prefix + "__type__"] = type(obj).__name__
+        for f in dataclasses.fields(obj):
+            out.update(flatten(getattr(obj, f.name), f"{prefix}{f.name}."))
+    elif isinstance(obj, (tuple, list)):
+        out[prefix + "__len__"] = len(obj)
+        for i, v in enumerate(obj):
+            out.update(flatten(v, f"{prefix}{i}."))
+    elif obj is None or isinstance(obj, (str, bool, int, float)):
+        out[prefix[:-1]] = obj
+    elif isinstance(obj, torch.Tensor):
+        out[prefix[:-1]] = obj.detach().cpu().numpy()
+    else:
+        out[prefix[:-1]] = np.asarray(obj)
+    return out
+
+
+def _require(cond, what):
+    if not cond:
+        raise NotImplementedError(f"{what} is not ported to "
+                                  "tungsten_tpu_torch")
+
+
+def scene_from_numpy(tree, device="cpu"):
+    """This package's Scene from a flattened JAX Scene (see `flatten`)."""
+    device = torch.device(device)
+
+    def t(key, dtype=torch.float32):
+        return torch.as_tensor(np.array(tree[key]), dtype=dtype,
+                               device=device)
+
+    _require(tree["env.kind"] == 0, "an environment light")
+    _require(not tree["prims.mesh.has"], "a triangle mesh")
+    _require(tree["low_order_scattering"] and tree["include_surfaces"],
+             "low_order_scattering / include_surfaces = false")
+    kinds = np.asarray(tree["prims.kind"])
+    _require(np.isin(kinds, (pr.PRIM_QUAD, pr.PRIM_CUBE)).all(),
+             f"primitive kinds {sorted(set(kinds.tolist()))}")
+    bsdf_kinds = np.asarray(tree["bsdfs.kind"])
+    _require(np.isin(bsdf_kinds, bs.KINDS).all(),
+             f"bsdf kinds {sorted(set(bsdf_kinds.tolist()))}")
+    _require(tree["camera.kind"] == "pinhole"
+             and tree["camera.filter_kind"] == "box",
+             "a non-pinhole camera or non-box filter")
+
+    prims = pr.PrimitiveSoA(**{
+        f.name: t(f"prims.{f.name}",
+                  torch.int64 if f.name in ("kind", "bsdf", "int_medium",
+                                            "ext_medium") else torch.float32)
+        for f in dataclasses.fields(pr.PrimitiveSoA)})
+    bsdfs = bs.BsdfTable(kind=t("bsdfs.kind", torch.int64),
+                         albedo=t("bsdfs.albedo"))
+
+    media = []
+    for i in range(tree["media.__len__"]):
+        m = f"media.{i}."
+        _require(tree[m + "kind"] == "sparse_conv_noise"
+                 and tree[m + "phase_kind"] == "brdf"
+                 and tree[m + "normal_method"] == "conditioned_gaussian"
+                 and tree[m + "law"] is None, "this medium configuration")
+        c = m + "cfg."
+        _require(not (tree[c + "isotropic_3d"] or tree[c + "one_d"]
+                      or tree[c + "surf_vol_phase_separate"]),
+                 "isotropic / 1D / phase-separated sampling")
+        cfg = sc.SparseConvConfig(
+            global_seed=int(tree[c + "global_seed"]),
+            impulse_density=t(c + "impulse_density"), ctxt=tree[c + "ctxt"],
+            use_single_realization=tree[c + "use_single_realization"],
+            impulse_count=tree[c + "impulse_count"])
+        _require(not cfg.activate_conditioning, "renewal conditioning")
+        g = m + "gp."
+        _require(all(tree[g + k] is None for k in (
+            "mean_additional", "csg_right", "global_cond", "color_field",
+            "emission_field")), "a CSG, conditioned or colored GP")
+        _require(tree[g + "cov.__type__"] == "SquaredExponentialCov"
+                 and not tree[g + "cov.use_aniso_mtx"], "this covariance")
+        cov = SquaredExponentialCov(
+            sigma=t(g + "cov.sigma"), l=t(g + "cov.l"),
+            aniso=t(g + "cov.aniso"),
+            kernel_scale=tree[g + "cov.kernel_scale"])
+        mean_type = tree[g + "mean.__type__"]
+        if mean_type == "SphericalMean":
+            mean = SphericalMean(center=t(g + "mean.center"),
+                                 radius=t(g + "mean.radius"))
+        else:
+            _require(mean_type == "HomogeneousMean", f"a {mean_type}")
+            mean = HomogeneousMean(offset=t(g + "mean.offset"))
+        bounds = (None if tree[m + "bounds"] is None
+                  else t(m + "bounds"))
+        media.append(md.Medium(
+            sigma_a=t(m + "sigma_a"), sigma_s=t(m + "sigma_s"),
+            density=t(m + "density"), step_size=t(m + "step_size"),
+            cfg=cfg, gp=sc.GP(mean=mean, cov=cov), bounds=bounds,
+            phase_bsdf=tree[m + "phase_bsdf"], min_step=tree[m + "min_step"],
+            max_march_steps=tree[m + "max_march_steps"]))
+
+    camera = Camera(transform=t("camera.transform"),
+                    fov_deg=t("camera.fov_deg"), res_x=tree["camera.res_x"],
+                    res_y=tree["camera.res_y"])
+    return Scene(
+        prims=prims, bsdfs=bsdfs, media=tuple(media), camera=camera,
+        lights=t("lights", torch.int64),
+        scene_seed=int(tree["scene_seed"]),
+        max_bounces=tree["max_bounces"], min_bounces=tree["min_bounces"],
+        enable_light_sampling=tree["enable_light_sampling"],
+        enable_volume_light_sampling=tree["enable_volume_light_sampling"],
+        cam_medium=tree["cam_medium"], shadow_hops=tree["shadow_hops"])

@@ -1,0 +1,152 @@
+// K1: the raw 3D sparse-convolution noise sum with scalar parameters.
+//
+// Replaces tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_scalar
+// (launched by _noise3d_sum_pallas_s).  For each query point p it sums, over
+// the 27 lattice cells around p and K impulses per cell, w * exp(-q) where
+// the impulse offset and its +-1 weight come from xxhash32 counters keyed by
+// the cell, q is the splat's quadratic form (m6, with qm pre-folded, at cell
+// radius kr), and the sum is cut off at r^2 < 1 in cell units.
+//
+// What bounds it: integer ALU.  A point costs 27 xxhash32_4 cell keys and
+// 27 * 4K xxhash32_2 variates -- about 330 hashes, thousands of 32-bit
+// integer operations -- against 20 bytes moved (12 in, 4 seed, 4 out).
+// The lever for later is data reuse: neighbouring points share most of
+// their 27 cells and all of those cells' impulses, so a block could hash
+// each cell once into shared memory instead of once per point.
+//
+// Design: simple and exact first.  One thread per point, 256 threads per
+// block, a masked tail; p is read as [N,3] AoS; m6 and kr are passed by
+// value; K is a runtime int.  Blocks keep no state between them.  The
+// arithmetic follows the TPU kernel op for op: gx = px * (1/kr), the cell
+// index is (uint32)(int32)floor(g), keys are hashed in (z, y, x, seed)
+// order, variates are (h >> 8) * 2^-24, and the sum runs dx, dy, dz, k.
+// Built without fast math and with -fmad=false, so float rounding follows
+// the plain PyTorch twin (kernels/noise3d.py) operation for operation.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr uint32_t P2 = 2246822519u;
+constexpr uint32_t P3 = 3266489917u;
+constexpr uint32_t P4 = 668265263u;
+constexpr uint32_t P5 = 374761393u;
+
+__device__ __forceinline__ uint32_t rotl17(uint32_t x) {
+  return (x << 17) | (x >> 15);
+}
+
+__device__ __forceinline__ uint32_t final_mix(uint32_t h) {
+  h = P2 * (h ^ (h >> 15));
+  h = P3 * (h ^ (h >> 13));
+  return h ^ (h >> 16);
+}
+
+__device__ __forceinline__ uint32_t xxhash32_2(uint32_t x, uint32_t y) {
+  uint32_t h = y + P5 + x * P3;
+  h = P4 * rotl17(h);
+  return final_mix(h);
+}
+
+__device__ __forceinline__ uint32_t xxhash32_4(uint32_t x, uint32_t y,
+                                               uint32_t z, uint32_t w) {
+  uint32_t h = w + P5 + x * P3;
+  h = P4 * rotl17(h);
+  h = h + y * P3;
+  h = P4 * rotl17(h);
+  h = h + z * P3;
+  h = P4 * rotl17(h);
+  return final_mix(h);
+}
+
+__device__ __forceinline__ float u01(uint32_t u) {
+  return (float)(u >> 8) * (1.0f / 16777216.0f);
+}
+
+__global__ void __launch_bounds__(256)
+noise3d_sum_s_kernel(const float* __restrict__ p,
+                     const uint32_t* __restrict__ seed,
+                     float* __restrict__ out, int n, float kr, float m00,
+                     float m11, float m22, float m01, float m02, float m12,
+                     int impulse_count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float px = p[3 * i + 0];
+  const float py = p[3 * i + 1];
+  const float pz = p[3 * i + 2];
+  const uint32_t sd = seed[i];
+
+  const float inv_r = 1.0f / kr;
+  const float gx = px * inv_r;
+  const float gy = py * inv_r;
+  const float gz = pz * inv_r;
+  const float bx = floorf(gx);
+  const float by = floorf(gy);
+  const float bz = floorf(gz);
+  const float fx = gx - bx;
+  const float fy = gy - by;
+  const float fz = gz - bz;
+  const uint32_t ix = (uint32_t)(int32_t)bx;
+  const uint32_t iy = (uint32_t)(int32_t)by;
+  const uint32_t iz = (uint32_t)(int32_t)bz;
+
+  float total = 0.0f;
+  for (int dx = -1; dx <= 1; ++dx) {
+    for (int dy = -1; dy <= 1; ++dy) {
+      for (int dz = -1; dz <= 1; ++dz) {
+        const uint32_t cx = ix + (uint32_t)dx;
+        const uint32_t cy = iy + (uint32_t)dy;
+        const uint32_t cz = iz + (uint32_t)dz;
+        const uint32_t h = xxhash32_4(cz, cy, cx, sd) + 1u;
+        const float qx = fx - (float)dx;
+        const float qy = fy - (float)dy;
+        const float qz = fz - (float)dz;
+        for (int k = 0; k < impulse_count; ++k) {
+          const uint32_t c = 4u * (uint32_t)k;
+          const float ux = u01(xxhash32_2(h, c));
+          const float uy = u01(xxhash32_2(h, c + 1u));
+          const float uz = u01(xxhash32_2(h, c + 2u));
+          const float uw = u01(xxhash32_2(h, c + 3u));
+          const float ddx = qx - ux;
+          const float ddy = qy - uy;
+          const float ddz = qz - uz;
+          const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
+          const float abx = kr * ddx;
+          const float aby = kr * ddy;
+          const float abz = kr * ddz;
+          const float q = m00 * abx * abx + m11 * aby * aby + m22 * abz * abz
+              + 2.0f * (m01 * abx * aby + m02 * abx * abz + m12 * aby * abz);
+          const float w = uw < 0.5f ? -1.0f : 1.0f;
+          total = total + (r2 < 1.0f ? w * expf(-q) : 0.0f);
+        }
+      }
+    }
+  }
+  out[i] = total;
+}
+
+}  // namespace
+
+// Launches K1 on `stream` of `device`, then makes the caller's current
+// device current again; returns the launch's cudaGetLastError() as an int.
+extern "C" int noise3d_sum_s(const void* p, const void* seed, void* out, int n,
+                             float kr, float m00, float m11, float m22,
+                             float m01, float m02, float m12,
+                             int impulse_count, int device, void* stream) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0) {
+    const int threads = 256;
+    const int blocks = (n + threads - 1) / threads;
+    noise3d_sum_s_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)p, (const uint32_t*)seed, (float*)out, n, kr, m00, m11,
+        m22, m01, m02, m12, impulse_count);
+  }
+  err = cudaGetLastError();
+  const cudaError_t restore = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restore);
+}

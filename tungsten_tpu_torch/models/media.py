@@ -1,0 +1,205 @@
+"""The sparse-convolution GPIS medium, batched over rays (the sparse-conv
+branches of tungsten_tpu/models/media.py).
+
+`sample_distance` marches each ray in fixed steps to the first sign change
+of the GP realization, refines the crossing with 6 Illinois false-position
+steps and samples the surface normal there; `transmittance` runs the same
+march for binary visibility.
+
+The march is a Python loop over steps for the whole batch.  It stops when
+no ray is still marching, which reads `marching.any()` on the host once per
+step.  The JAX package's `[S, R]` step blocking only fills TPU lanes; with
+one step per iteration the evaluated steps are the same.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops import sparse_conv as sc
+from ..ops import sparse_conv_fast as fast
+from ..utils.vecmath import dot
+
+
+@dataclasses.dataclass(frozen=True)
+class Medium:
+    """A sparse-conv GPIS medium with a BRDF phase function."""
+    sigma_a: torch.Tensor  # [3]
+    sigma_s: torch.Tensor  # [3]
+    density: torch.Tensor  # scalar
+    step_size: torch.Tensor  # scalar
+    cfg: sc.SparseConvConfig
+    gp: sc.GP
+    bounds: torch.Tensor | None  # [2, 3] world AABB of the bounding prims
+    phase_bsdf: int  # BsdfTable row of the phase function's BSDF
+    min_step: int = 8
+    max_march_steps: int = 8192
+
+    @property
+    def sigma_t(self):
+        return (self.sigma_a + self.sigma_s) * self.density
+
+
+@dataclasses.dataclass(frozen=True)
+class MediumState:
+    """Per-ray medium memory read by the forward slice: whether the segment
+    starts at a surface (first_scatter) and the last sampled normal."""
+    first_scatter: torch.Tensor  # [R] bool
+    last_aniso: torch.Tensor  # [R, 3]
+
+    @staticmethod
+    def make(n, device):
+        aniso = torch.zeros(n, 3, dtype=torch.float32, device=device)
+        aniso[:, 0] = 1.0
+        return MediumState(first_scatter=torch.ones(n, dtype=torch.bool,
+                                                    device=device),
+                           last_aniso=aniso)
+
+    def reset_where(self, mask):
+        """Fresh state on rays that cross a boundary."""
+        return select(mask, MediumState.make(mask.shape[0], mask.device),
+                      self)
+
+
+def select(mask, a, b):
+    """Field-wise where(mask, a, b) over two MediumStates."""
+    def pick(x, y):
+        return torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 1)),
+                           x, y)
+    return MediumState(**{f.name: pick(getattr(a, f.name), getattr(b, f.name))
+                          for f in dataclasses.fields(MediumState)})
+
+
+def cat_states(a, b):
+    return MediumState(**{f.name: torch.cat([getattr(a, f.name),
+                                             getattr(b, f.name)])
+                          for f in dataclasses.fields(MediumState)})
+
+
+def _clamp_far_to_bounds(med, ro, rd, near, far):
+    """Clamp the march to the exit of the medium's bounding box, so a ray
+    that leaks past the boundary geometry does not march 2000 units."""
+    if med.bounds is None:
+        return far
+    lo, hi = med.bounds[0], med.bounds[1]
+    inv = 1.0 / torch.where(rd.abs() < 1e-9,
+                            torch.where(rd < 0, -1e-9, 1e-9), rd)
+    ta = (lo - ro) * inv
+    tb = (hi - ro) * inv
+    t_exit = torch.maximum(ta, tb).amin(dim=-1)
+    margin = torch.clamp(med.step_size, min=1e-3) * 2.0
+    return torch.minimum(far, torch.maximum(t_exit, near) + margin)
+
+
+def make_value_at(med, scene_seed, ro, rd, pss):
+    """value_at(t [R]) -> (f [R], gp_id [R]) along each ray."""
+    return fast.make_value_at(med.cfg, med.gp, ro, rd, pss, scene_seed)
+
+
+def march(med, value_at, near, far, state, u_jitter, active, refine=True):
+    """Fixed-step sign-change march to the first crossing.
+
+    The first step after an interior scatter is absorbed (it sets the
+    starting sign and cannot flip); a flip records the bracket
+    (t_hi, f_lo, f_hi), which 6 Illinois false-position steps refine.
+    Returns (hit [R], t [R])."""
+    step = torch.clamp(torch.minimum(med.step_size,
+                                     (far - near) / med.min_step), min=1e-6)
+    f0, _ = value_at(near)
+    sign0 = torch.where(f0 < 0, -1, 1)
+    t = near + step * u_jitter
+    pf = f0
+    first = True
+    crossed = torch.zeros_like(active)
+    t_hi, f_hi, f_lo = far, torch.zeros_like(f0), f0
+    marching = active & (t < far)
+    for _ in range(med.max_march_steps):
+        if not bool(marching.any()):
+            break
+        f, _ = value_at(t)
+        signs = torch.where(f < 0, -1, 1)
+        absorb = ~state.first_scatter if first else torch.zeros_like(active)
+        sign0 = torch.where(absorb, signs, sign0)
+        flip = (signs != sign0) & (t < far) & ~absorb & marching
+        crossed = crossed | flip
+        t_hi = torch.where(flip, t, t_hi)
+        f_hi = torch.where(flip, f, f_hi)
+        f_lo = torch.where(flip, pf, f_lo)
+        pf = torch.where(marching, f, pf)
+        t_next = t + step
+        t = torch.where(marching, t_next, t)
+        marching = marching & ~flip & (t_next < far)
+        first = False
+
+    if not refine:
+        return crossed & active, torch.where(crossed, t_hi, far)
+
+    lo = torch.maximum(t_hi - step, near)
+    hi, flo, fhi = t_hi, f_lo, f_hi
+    for _ in range(6):
+        denom = flo - fhi
+        tiny = denom.abs() < 1e-30
+        mid_s = lo + flo * (hi - lo) / torch.where(tiny, 1.0, denom)
+        mid = torch.where(tiny | (mid_s <= lo) | (mid_s >= hi),
+                          0.5 * (lo + hi), mid_s)
+        fm, _ = value_at(torch.where(crossed, mid, near))
+        start_side = torch.where(fm < 0, -1, 1) == sign0
+        lo = torch.where(crossed & start_side, mid, lo)
+        hi = torch.where(crossed & ~start_side, mid, hi)
+        flo, fhi = (torch.where(start_side, fm, flo * 0.5),
+                    torch.where(start_side, fhi * 0.5, fm))
+    t_hit = torch.where(crossed, hi, far)
+    return crossed & active, torch.where(active, t_hit, far)
+
+
+def sample_gradient(med, scene_seed, p, pss):
+    """The conditioned-Gaussian normal: the GP gradient at p [R, 3]."""
+    return sc.eval_gradient(med.cfg, med.gp, p, pss, scene_seed)
+
+
+def _far_eff(med, ro, rd, near, far):
+    # Ray::infinity clamp, then the bounding box
+    far = torch.where(far < 1e30, far, near + 2000.0)
+    return _clamp_far_to_bounds(med, ro, rd, near, far)
+
+
+def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
+                    u_jitter, active):
+    """Batched Medium::sampleDistance.
+
+    Returns (result, new state).  result: exited [R] (no crossing), t [R],
+    weight [R, 3], aniso [R, 3] (the sampled normal), gp_id [R] and failed
+    [R] (wrong-sided, zero or non-finite normal: the path dies)."""
+    far_eff = _far_eff(med, ro, rd, near, far)
+    value_at = make_value_at(med, scene_seed, ro, rd, pss)
+    hit, t = march(med, value_at, near, far_eff, state, u_jitter, active)
+    _, gp_id = value_at(t)
+
+    ip = ro + t[:, None] * rd
+    grad = sample_gradient(med, scene_seed, ip, pss)
+    grad_ok = torch.isfinite(grad.sum(dim=-1))
+    wrong_side = hit & (dot(grad, rd) > 0.0)
+    zero_grad = hit & (dot(grad, grad) < 1e-7)
+    failed = active & (wrong_side | zero_grad | ~grad_ok)
+
+    sig_s = med.sigma_s * med.density
+    sig_t = torch.clamp(med.sigma_t, min=1e-9)
+    weight = torch.where(hit[:, None], (sig_s / sig_t).expand(ro.shape), 1.0)
+    new_state = MediumState(
+        first_scatter=torch.where(active, False, state.first_scatter),
+        last_aniso=torch.where(active[:, None], grad, state.last_aniso))
+    return ({"exited": ~hit, "t": t, "weight": weight, "aniso": grad,
+             "gp_id": gp_id, "failed": failed}, new_state)
+
+
+def transmittance(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
+                  active):
+    """Binary visibility [R, 3] on the realization (1 where the segment
+    crosses no surface, and on inactive rays)."""
+    far_eff = _far_eff(med, ro, rd, near, far)
+    value_at = make_value_at(med, scene_seed, ro, rd, pss)
+    hit, _ = march(med, value_at, near, far_eff, state, u_jitter, active,
+                   refine=False)
+    vis = torch.where(active & hit, 0.0, 1.0)
+    return vis[:, None].expand(-1, 3)

@@ -1,0 +1,357 @@
+"""Tungsten JSON scene -> Scene (the subset of tungsten_tpu/scene/parse.py
+that BASELINE config 1, `scenes/gpis-sphere-box.json`, uses).
+
+Host-side numpy, computed as the JAX package computes it, then moved to
+`device`.  Any type or option the port does not implement yet raises
+NotImplementedError naming it: nothing is silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+
+import numpy as np
+import torch
+
+from ..models import bsdfs as bs
+from ..models import media as md
+from ..models import primitives as pr
+from ..models.camera import Camera
+from ..models.integrator import Scene
+from ..ops import sparse_conv as sc
+from ..ops.covariance import SquaredExponentialCov
+from ..ops.means import HomogeneousMean, SphericalMean
+
+DEFAULT_SEED = 0xBA5EBA11
+
+
+def _unsupported(what):
+    return NotImplementedError(f"{what} is not ported to tungsten_tpu_torch")
+
+
+def _f32(x, device):
+    return torch.tensor(np.float32(x), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Transforms
+# ---------------------------------------------------------------------------
+
+def _gram_schmidt(a, b, c):
+    a = a / max(np.linalg.norm(a), 1e-20)
+    b = b - a * a.dot(b)
+    if np.linalg.norm(b) < 1e-5:
+        b = np.cross(c, a)
+    else:
+        b = b / np.linalg.norm(b)
+    c = c - a * a.dot(c)
+    c = c - b * b.dot(c)
+    if np.linalg.norm(c) < 1e-5:
+        c = np.cross(a, b)
+    else:
+        c = c / np.linalg.norm(c)
+    return a, b, c
+
+
+def _rot_yxz(rot):
+    r = np.asarray(rot, np.float64) * math.pi / 180.0
+    c = np.cos(r)
+    s = np.sin(r)
+    return np.array([
+        [c[1] * c[2] - s[1] * s[0] * s[2],
+         -c[1] * s[2] - s[1] * s[0] * c[2], -s[1] * c[0]],
+        [c[0] * s[2], c[0] * c[2], -s[0]],
+        [s[1] * c[2] + c[1] * s[0] * s[2],
+         -s[1] * s[2] + c[1] * s[0] * c[2], c[1] * c[0]],
+    ], np.float32)
+
+
+def parse_transform(v) -> np.ndarray:
+    """JSON transform -> 4x4 float32 matrix (Tungsten's JsonPtr rules)."""
+    if v is None:
+        return np.eye(4, dtype=np.float32)
+    if isinstance(v, list):
+        return np.asarray(v, np.float32).reshape(4, 4)
+    x = np.array([1.0, 0, 0])
+    y = np.array([0, 1.0, 0])
+    z = np.array([0, 0, 1.0])
+    pos = np.asarray(v.get("position", (0, 0, 0)), np.float64)
+    ex = ey = ez = False
+    if "look_at" in v:
+        z, ez = np.asarray(v["look_at"], np.float64) - pos, True
+    if "up" in v:
+        y, ey = np.asarray(v["up"], np.float64), True
+    if "x_axis" in v:
+        x, ex = np.asarray(v["x_axis"], np.float64), True
+    if "y_axis" in v:
+        y, ey = np.asarray(v["y_axis"], np.float64), True
+    if "z_axis" in v:
+        z, ez = np.asarray(v["z_axis"], np.float64), True
+    case = (4 if ez else 0) + (2 if ey else 0) + (1 if ex else 0)
+    if case == 0 or case >= 4 and case != 5:
+        z, y, x = _gram_schmidt(z, y, x)
+    elif case == 1:
+        x, z, y = _gram_schmidt(x, z, y)
+    elif case == 2:
+        y, z, x = _gram_schmidt(y, z, x)
+    elif case == 3:
+        y, x, z = _gram_schmidt(y, x, z)
+    elif case == 5:
+        z, x, y = _gram_schmidt(z, x, y)
+    if np.cross(x, y).dot(z) < 0:
+        if not ex:
+            x = -x
+        elif not ey:
+            y = -y
+        else:
+            z = -z
+    scale = v.get("scale")
+    if scale is not None:
+        s = np.asarray(scale, np.float64)
+        if s.ndim == 0:
+            s = np.array([s, s, s])
+        x, y, z = x * s[0], y * s[1], z * s[2]
+    rot = v.get("rotation")
+    if rot is not None:
+        m = _rot_yxz(rot)
+        x, y, z = m @ x, m @ y, m @ z
+    tf = np.eye(4, dtype=np.float32)
+    tf[:3, 0], tf[:3, 1], tf[:3, 2], tf[:3, 3] = x, y, z, pos
+    return tf
+
+
+def _rgb(v, default=(1.0, 1.0, 1.0)):
+    if v is None:
+        return np.asarray(default, np.float32)
+    a = np.asarray(v, np.float32)
+    if a.ndim == 0:
+        return np.array([a, a, a], np.float32)
+    return a
+
+
+# ---------------------------------------------------------------------------
+# BSDFs, GP, media
+# ---------------------------------------------------------------------------
+
+_BSDF_KINDS = {"null": bs.NULL, "lambert": bs.LAMBERT, "forward": bs.FORWARD}
+
+
+def parse_bsdf(b: dict) -> dict:
+    t = b.get("type", "lambert")
+    if t not in _BSDF_KINDS:
+        raise _unsupported(f"bsdf type {t!r}")
+    return {"kind": _BSDF_KINDS[t],
+            "albedo": _rgb(b.get("albedo"), (0.8, 0.8, 0.8))}
+
+
+def parse_mean(m: dict, device):
+    t = m.get("type", "homogeneous")
+    for key in ("color", "emission"):
+        if key in m:
+            raise _unsupported(f"mean field {key!r}")
+    if t == "homogeneous":
+        return HomogeneousMean(offset=_f32(m.get("offset", 0.0), device))
+    if t == "spherical":
+        return SphericalMean(
+            center=torch.tensor(np.asarray(m.get("center", (0, 0, 0)),
+                                           np.float32), device=device),
+            radius=_f32(m.get("radius", 1.0), device))
+    raise _unsupported(f"mean type {t!r}")
+
+
+def parse_cov(c: dict, device):
+    t = c.get("type", "squared_exponential")
+    if t != "squared_exponential":
+        raise _unsupported(f"covariance type {t!r}")
+    if "anisoMtx" in c:
+        raise _unsupported("covariance option 'anisoMtx'")
+    return SquaredExponentialCov(
+        sigma=_f32(c.get("sigma", 1.0), device),
+        l=_f32(c.get("lengthScale", 1.0), device),
+        aniso=torch.tensor(np.asarray(c.get("aniso", (1.0, 1.0, 1.0)),
+                                      np.float32), device=device),
+        kernel_scale=float(c.get("localScale", 3.0)))
+
+
+def parse_gp(g: dict, device) -> sc.GP:
+    t = g.get("type", "standard")
+    if t != "standard":
+        raise _unsupported(f"gaussian_process type {t!r}")
+    if "conditioning_data" in g:
+        raise _unsupported("gaussian_process option 'conditioning_data'")
+    return sc.GP(mean=parse_mean(g.get("mean", {}), device),
+                 cov=parse_cov(g.get("covariance", {}), device))
+
+
+_CTXT = {"global": sc.CTXT_GLOBAL, "renewal+": sc.CTXT_RENEWAL_PLUS,
+         "renewal": sc.CTXT_RENEWAL, "none": sc.CTXT_NONE,
+         "goldfish": sc.CTXT_RENEWAL_PLUS}
+
+
+def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
+    t = m.get("type", "sparse_conv_noise")
+    if t != "sparse_conv_noise":
+        raise _unsupported(f"medium type {t!r}")
+    for key in ("isotropic_3D_sampling", "1D_sampling",
+                "surf_vol_phase_separate"):
+        if m.get(key, False):
+            raise _unsupported(f"medium option {key!r}")
+    if m.get("transmittance") is not None:
+        raise _unsupported("medium option 'transmittance'")
+    normal = m.get("normal_method", "conditioned_gaussian")
+    if normal != "conditioned_gaussian":
+        raise _unsupported(f"normal_method {normal!r}")
+    ctxt = m.get("correlation_context", "renewal+")
+    if ctxt not in _CTXT:
+        raise _unsupported(f"correlation_context {ctxt!r}")
+    cfg = sc.SparseConvConfig(
+        global_seed=int(m.get("seed", 0)) & 0xFFFFFFFF,
+        impulse_density=_f32(m.get("impulse_density", 3.0), device),
+        ctxt=_CTXT[ctxt],
+        use_single_realization=bool(m.get("single_realization", False)),
+        impulse_count=int(m.get("impulse_density", 3.0)))
+    if cfg.activate_conditioning:
+        raise _unsupported(f"{ctxt!r} conditioning of per-path "
+                           "realizations")
+    return md.Medium(
+        sigma_a=torch.tensor(_rgb(m.get("sigma_a"), (0, 0, 0)), device=device),
+        sigma_s=torch.tensor(_rgb(m.get("sigma_s"), (1, 1, 1)), device=device),
+        density=_f32(m.get("density", 1.0), device),
+        step_size=_f32(m.get("step_size", 0.01), device),
+        cfg=cfg, gp=parse_gp(m.get("gaussian_process", {}), device),
+        bounds=None, phase_bsdf=phase_bsdf,
+        min_step=int(m.get("min_step", 8)))
+
+
+# ---------------------------------------------------------------------------
+# Scene assembly
+# ---------------------------------------------------------------------------
+
+_PRIM_KINDS = {"quad": pr.PRIM_QUAD, "cube": pr.PRIM_CUBE}
+
+
+def _prim_aabb(p):
+    tf = np.asarray(p["transform"], np.float32)
+    pos, lin = tf[:3, 3], tf[:3, :3]
+    if p["kind"] == pr.PRIM_QUAD:
+        e0 = lin @ np.array([1.0, 0, 0], np.float32)
+        e1 = lin @ np.array([0, 0, 1.0], np.float32)
+        base = pos - 0.5 * e0 - 0.5 * e1
+        cs = np.stack([base, base + e0, base + e1, base + e0 + e1])
+        return cs.min(0), cs.max(0)
+    h = 0.5 * np.abs(lin).sum(axis=1)
+    return pos - h, pos + h
+
+
+def scene_from_dict(doc: dict, seed=DEFAULT_SEED, device="cpu"):
+    """Returns (Scene, renderer settings dict)."""
+    device = torch.device(device)
+    bsdf_list, bsdf_names = [], {}
+    for b in doc.get("bsdfs", []):
+        bsdf_names[b.get("name", f"bsdf{len(bsdf_names)}")] = len(bsdf_list)
+        bsdf_list.append(parse_bsdf(b))
+
+    def bsdf_index(ref):
+        if isinstance(ref, str):
+            return bsdf_names[ref]
+        if isinstance(ref, dict):
+            bsdf_list.append(parse_bsdf(ref))
+            return len(bsdf_list) - 1
+        return 0
+
+    media, medium_names = [], {}
+    for m in doc.get("media", []):
+        pf = m.get("phase_function")
+        if not isinstance(pf, dict) or pf.get("type") != "brdf":
+            raise _unsupported(f"phase function {pf!r}")
+        phase_bsdf = bsdf_index(pf.get("bsdf"))
+        if bsdf_list[phase_bsdf]["kind"] != bs.LAMBERT:
+            raise _unsupported("a BRDF phase function over a non-lambert "
+                               "bsdf")
+        medium_names[m.get("name", f"medium{len(media)}")] = len(media)
+        media.append(parse_medium(m, phase_bsdf, device))
+
+    def medium_index(ref):
+        if ref is None:
+            return -1
+        if not isinstance(ref, str):
+            raise _unsupported("an inline medium")
+        return medium_names[ref]
+
+    prims = []
+    for p in doc.get("primitives", []):
+        t = p.get("type", "quad")
+        if t not in _PRIM_KINDS:
+            raise _unsupported(f"primitive type {t!r}")
+        entry = {
+            "kind": _PRIM_KINDS[t],
+            "transform": parse_transform(p.get("transform")),
+            "emission": _rgb(p.get("emission"), (0, 0, 0)),
+            "bsdf": bsdf_index(p.get("bsdf", 0)),
+            "int_medium": medium_index(p.get("int_medium")),
+            "ext_medium": medium_index(p.get("ext_medium")),
+        }
+        if np.any(entry["emission"] > 0) and entry["kind"] != pr.PRIM_QUAD:
+            raise _unsupported(f"an emissive {t!r}")
+        prims.append(entry)
+
+    cam_doc = doc.get("camera", {})
+    if cam_doc.get("type", "pinhole") != "pinhole":
+        raise _unsupported(f"camera type {cam_doc['type']!r}")
+    filt = cam_doc.get("reconstruction_filter", "box")
+    if filt != "box":
+        raise _unsupported(f"reconstruction_filter {filt!r}")
+    res = cam_doc.get("resolution", [512, 512])
+    if isinstance(res, (int, float)):
+        res = [int(res), int(res)]
+    cam_tf = parse_transform(cam_doc.get("transform")).copy()
+    # Tungsten's Camera::fromJson negates the right axis
+    cam_tf[:3, 0] = -cam_tf[:3, 0]
+    camera = Camera.create(cam_tf, cam_doc.get("fov", 60.0), res, device)
+    cam_medium = medium_index(cam_doc.get("medium"))
+
+    soa = pr.build_soa(prims, device)
+    lights = np.nonzero(np.asarray([np.any(p["emission"] > 0.0)
+                                    for p in prims], bool))[0]
+
+    # each medium's march is clamped to the AABB of the prims that declare
+    # it interior
+    for mi in range(len(media)):
+        boxes = [_prim_aabb(p) for p in prims if p["int_medium"] == mi]
+        if boxes and mi != cam_medium:
+            lo = np.min(np.stack([b[0] for b in boxes]), axis=0) - 1e-3
+            hi = np.max(np.stack([b[1] for b in boxes]), axis=0) + 1e-3
+            media[mi] = dataclasses.replace(
+                media[mi], bounds=torch.tensor(np.stack([lo, hi]),
+                                               device=device))
+
+    integ = doc.get("integrator", {})
+    itype = integ.get("type", "path_tracer")
+    if itype != "path_tracer":
+        raise _unsupported(f"integrator type {itype!r}")
+    for key in ("low_order_scattering", "include_surfaces"):
+        if not integ.get(key, True):
+            raise _unsupported(f"integrator option {key!r} = false")
+    scene = Scene(
+        prims=soa, bsdfs=bs.build_table(bsdf_list, device),
+        media=tuple(media), camera=camera,
+        lights=torch.tensor(lights, dtype=torch.int64, device=device),
+        scene_seed=int(seed) & 0xFFFFFFFF,
+        max_bounces=int(integ.get("max_bounces", 64)),
+        min_bounces=int(integ.get("min_bounces", 0)),
+        enable_light_sampling=bool(integ.get("enable_light_sampling", True)),
+        enable_volume_light_sampling=bool(
+            integ.get("enable_volume_light_sampling", True)),
+        cam_medium=cam_medium,
+        shadow_hops=int(integ.get("shadow_hops", 3)))
+    return scene, dict(doc.get("renderer", {}))
+
+
+def load_scene(path, seed=DEFAULT_SEED, res_override=None, device="cpu"):
+    """Load a scene file onto `device`; returns (Scene, renderer settings)."""
+    with open(path) as f:
+        doc = json.load(f)
+    if res_override is not None:
+        doc.setdefault("camera", {})["resolution"] = list(res_override)
+    return scene_from_dict(doc, seed=seed, device=device)
