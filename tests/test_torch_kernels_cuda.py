@@ -1,5 +1,6 @@
-"""Kernel K1 on the card, against its plain PyTorch twin, and the config-1
-render on the card against the same render on the CPU.
+"""Kernels K1, K5 and K4 on the card, against their plain PyTorch twins,
+and the config-1 and config-4a renders on the card against the same
+renders on the CPU.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they are
 marked `cuda` and skip without one.  They import no JAX, so they run on a
@@ -7,10 +8,14 @@ machine that has only PyTorch:
 `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py`.
 
 Tolerances: K1 vs twin atol 1e-5 (a raw sum of at most 81 unit-bounded
-fp32 terms; measured 0 on an H100).  GPU vs CPU render at 8x8, 1 spp: at
-least 97% of pixels within 1e-3 * (1 + |cpu|) and means within 1% (the
-elementwise math around K1 may round differently on the two devices, and
-an ulp can flip one ray's crossing).
+fp32 terms; measured 0 on an H100).  K5/K4 vs twin on 4096 rays x 1024
+basis functions of config 4a, chunk after chunk: flags or decisions differ
+on at most 0.1% of rays (the warp sums add in another order than the
+twin's, so a value within rounding of 0 may decide otherwise), and every
+column of the other rays within 1e-5 * (1 + |twin|).  GPU vs CPU render
+at 8x8, 1 spp: at least 97% of pixels within 1e-3 * (1 + |cpu|) and means
+within 1% (the elementwise math around the kernels may round differently
+on the two devices, and an ulp can flip one ray's crossing).
 """
 import os
 
@@ -20,10 +25,13 @@ import torch
 
 from tungsten_tpu_torch import render as trender
 from tungsten_tpu_torch.kernels import noise3d
+from tungsten_tpu_torch.kernels import ws_trace as wst
+from tungsten_tpu_torch.models import media as md
 from tungsten_tpu_torch.scene.parse import load_scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = os.path.join(ROOT, "scenes", "gpis-sphere-box.json")
+WS_SCENE = os.path.join(ROOT, "scenes", "gpis-weight-space.json")
 
 
 @pytest.fixture
@@ -54,13 +62,79 @@ def test_k1_kernel_matches_twin_on_the_card(cuda, K):
                                atol=1e-5)
 
 
+def _ws_start(kernel, device, R=4096):
+    """Config 4a's realizations along R rays in its bounding cube, and the
+    kernel's inputs at the start of the march or trace."""
+    scene, _ = load_scene(WS_SCENE, device=device)
+    med = scene.media[0]
+    r = np.random.default_rng(13)
+    u = r.normal(size=(R, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    ro = np.array([0.0, 0.9, 0.0]) + u * r.uniform(0.0, 0.7, (R, 1))
+    rd = r.normal(size=(R, 3))
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    pss = r.integers(0, 2 ** 32, (R, 4), dtype=np.uint64).astype(np.int64)
+    ro, rd, uj = (torch.from_numpy(x.astype(np.float32)).to(device)
+                  for x in (ro, rd, r.uniform(size=R)))
+    near = torch.zeros(R, device=device)
+    far = md._far_eff(med, ro, rd, near,
+                      torch.full((R,), 3e38, device=device))
+    real = md._ws_real(med, torch.from_numpy(pss).to(device))
+    if kernel == "march":
+        step = torch.clamp(torch.minimum(med.step_size,
+                                         (far - near) / med.min_step),
+                           min=1e-6)
+        absorb = torch.arange(R, device=device) % 3 == 0
+        return wst.march_inputs(real, med.gp, ro, rd, near, far, step, uj,
+                                absorb)
+    return wst.trace_inputs(real, med.gp, ro, rd, near, far)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["march", "trace"])
+def test_ws_kernel_matches_twin_on_the_card(cuda, kernel):
+    h, aux, S, params = _ws_start(kernel, cuda)
+    if kernel == "march":
+        launch, twin = wst.march_chunk, wst.march_chunk_ref
+        flags = [wst.M_DONE, wst.M_CROSS, wst.M_SIGN]
+    else:
+        launch, twin = wst.trace_chunk, wst.trace_chunk_ref
+        flags = [wst.C_DONE, wst.C_HIT, wst.C_SIGN]
+    counter = "MARCH_LAUNCHES" if kernel == "march" else "TRACE_LAUNCHES"
+    n_bad, chunks = 0, 0
+    while bool((S[:, flags[0]] < 0.5).any()) and chunks < 16:
+        before = getattr(wst, counter)
+        got = launch(h.a, h.slope, h.amp, aux, S, params, h.spherical)
+        torch.cuda.synchronize()
+        assert getattr(wst, counter) == before + 1
+        want = twin(h.a, h.slope, h.amp, aux, S, params, h.spherical)
+        off = ((got - want).abs() > 1e-5 * (1.0 + want.abs())).any(dim=1)
+        n_bad += int((off | (got[:, flags] != want[:, flags]).any(dim=1))
+                     .sum())
+        S, chunks = got, chunks + 1
+    assert chunks >= 2
+    assert n_bad <= 0.001 * S.shape[0], n_bad
+
+
 @pytest.mark.cuda
 def test_render_on_the_card_goes_through_k1_and_matches_cpu(cuda):
-    scene, _ = load_scene(SCENE, res_override=(8, 8))
+    _render_on_the_card_matches_cpu(cuda, SCENE, "k1")
+
+
+@pytest.mark.cuda
+def test_ws_render_on_the_card_goes_through_k5_and_matches_cpu(cuda):
+    _render_on_the_card_matches_cpu(cuda, WS_SCENE, "k5")
+
+
+def _render_on_the_card_matches_cpu(cuda, path, kernel):
+    scene, _ = load_scene(path, res_override=(8, 8))
     ref = trender.render(scene, 1, device="cpu").numpy()
-    before = noise3d.LAUNCHES
+    noise3d.LAUNCHES = wst.MARCH_LAUNCHES = 0
     got = trender.render(scene, 1, device=cuda).cpu().numpy()
-    assert noise3d.LAUNCHES > before
+    if kernel == "k1":
+        assert noise3d.LAUNCHES > 0
+    else:
+        assert wst.MARCH_LAUNCHES > 0 and noise3d.LAUNCHES == 0
     assert np.isfinite(got).all()
     ok = (np.abs(got - ref) <= 1e-3 * (1.0 + np.abs(ref))).all(axis=-1)
     assert ok.mean() >= 0.97, ok.mean()

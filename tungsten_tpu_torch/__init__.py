@@ -4,8 +4,9 @@ The JAX package `tungsten_tpu` stays the reference; this package mirrors its
 layout so each module has an obvious counterpart:
 
 - `utils/`    xxhash32 counter RNG on int64-held uint32 words, vector math.
-- `ops/`      the sparse-convolution GPIS evaluator (covariance, means, the
-              batched per-ray evaluator and the march-step evaluator).
+- `ops/`      the GPIS evaluators: covariance, means, sparse-convolution
+              noise (the batched per-ray evaluator and the march-step
+              evaluator) and weight-space RFF realizations.
 - `kernels/`  Python wrappers of the hand-written CUDA kernels, each with a
               plain PyTorch twin; `csrc/` holds the `.cu` sources.
 - `models/`   transport: media, BSDFs, phase, primitives, camera and the

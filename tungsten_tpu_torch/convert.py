@@ -83,7 +83,8 @@ def scene_from_numpy(tree, device="cpu"):
     media = []
     for i in range(tree["media.__len__"]):
         m = f"media.{i}."
-        _require(tree[m + "kind"] == "sparse_conv_noise"
+        kind = tree[m + "kind"]
+        _require(kind in (md.GPIS_SPARSE_CONV, md.GPIS_WEIGHT_SPACE)
                  and tree[m + "phase_kind"] == "brdf"
                  and tree[m + "normal_method"] == "conditioned_gaussian"
                  and tree[m + "law"] is None, "this medium configuration")
@@ -96,7 +97,8 @@ def scene_from_numpy(tree, device="cpu"):
             impulse_density=t(c + "impulse_density"), ctxt=tree[c + "ctxt"],
             use_single_realization=tree[c + "use_single_realization"],
             impulse_count=tree[c + "impulse_count"])
-        _require(not cfg.activate_conditioning, "renewal conditioning")
+        _require(kind == md.GPIS_WEIGHT_SPACE or not cfg.activate_conditioning,
+                 "renewal conditioning")
         g = m + "gp."
         _require(all(tree[g + k] is None for k in (
             "mean_additional", "csg_right", "global_cond", "color_field",
@@ -121,7 +123,9 @@ def scene_from_numpy(tree, device="cpu"):
             density=t(m + "density"), step_size=t(m + "step_size"),
             cfg=cfg, gp=sc.GP(mean=mean, cov=cov), bounds=bounds,
             phase_bsdf=tree[m + "phase_bsdf"], min_step=tree[m + "min_step"],
-            max_march_steps=tree[m + "max_march_steps"]))
+            max_march_steps=tree[m + "max_march_steps"], kind=kind,
+            basis_functions=tree[m + "basis_functions"],
+            ws_sphere_trace=tree[m + "ws_sphere_trace"]))
 
     camera = Camera(transform=t("camera.transform"),
                     fov_deg=t("camera.fov_deg"), res_x=tree["camera.res_x"],

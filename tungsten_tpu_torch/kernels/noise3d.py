@@ -7,27 +7,22 @@ A CUDA tensor launches the kernel; a CPU tensor takes the plain twin
 in the same order in PyTorch.
 
 The kernel is built at first use with nvcc into `tungsten_tpu_torch/_build/`
-(a shared library with a plain C interface, loaded with ctypes), once per
-content of the source, nvcc flags and nvcc version.  `LAUNCHES` counts kernel launches, so a run can show
-that its main path went through the kernel.
+(a shared library with a plain C interface, loaded with ctypes; see
+kernels/nvcc.py), once per content of the source, nvcc flags and nvcc
+version.  `LAUNCHES` counts kernel launches, so a run can show that its
+main path went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 
 import torch
 
 from ..utils import rng
+from .nvcc import compile_library
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "noise3d.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "noise3d.cu"
 
 LAUNCHES = 0
 _FN = None
@@ -45,27 +40,7 @@ def build():
     Returns nvcc's output (register and spill report), or "" when the
     library was already built."""
     global _FN
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
-                           + str(SOURCE))
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    version = subprocess.run([nvcc, "--version"], capture_output=True,
-                             text=True, check=True).stdout
-    key = hashlib.sha256(SOURCE.read_bytes())
-    key.update("\0".join((*NVCC_FLAGS, version)).encode())
-    lib = BUILD_DIR / f"libnoise3d_{key.hexdigest()[:16]}.so"
-    log = ""
-    if not lib.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{res.stdout}"
-                               f"{res.stderr}")
-        os.replace(tmp, lib)
-        log = res.stdout + res.stderr
+    lib, log = compile_library(SOURCE)
     if _FN is None:
         fn = ctypes.CDLL(str(lib)).noise3d_sum_s
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]

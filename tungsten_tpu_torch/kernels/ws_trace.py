@@ -1,0 +1,353 @@
+"""K5 and K4: the weight-space fixed-step march and range-bound sphere
+trace (tungsten_tpu/ops/ws_trace_pallas.py), with the glue around them.
+
+`march_chunk` and `trace_chunk` wrap the CUDA kernels of csrc/ws_trace.cu,
+the counterparts of the Pallas `_march_kernel` (K5) and `_trace_kernel`
+(K4).  A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+the plain twin `march_chunk_ref` / `trace_chunk_ref`, which runs the Pallas
+kernel's step body in PyTorch over the whole batch.  `MARCH_LAUNCHES` and
+`TRACE_LAUNCHES` count kernel launches.  The library is built with nvcc at
+first use (kernels/nvcc.py).
+
+`fixed_march_batch` (step_size > 0) and `sphere_trace_batch`
+(step_size == 0) hoist each ray's basis into the affine phases
+a + slope * t, then re-dispatch the chunk until no ray is left: one host
+sync per dispatch (the `any()` that decides whether to launch again), so a
+call makes launches + 1 syncs.  The march's crossing is refined by 6
+Illinois false-position steps in plain tensor code.
+
+State and aux columns are those of the Pallas kernels (see the source).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from pathlib import Path
+
+import torch
+
+from ..ops import weight_space as ws
+from ..ops.covariance import SquaredExponentialCov
+from ..ops.means import HomogeneousMean, SphericalMean
+from .nvcc import compile_library
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ws_trace.cu"
+
+MARCH_CHUNK = 32  # K5 steps per dispatch, as the Pallas kernel
+TRACE_CHUNK = 16  # K4 iterations per dispatch, as the Pallas kernel
+TRACE_MIN_STEP = 1e-3  # K4 converges once its step is this short
+TRACE_MAX_ITERS = 256  # K4 iterations of one ray at most
+
+# K5 state [k, done, crossed, t_hi, f_lo, f_hi, sign0, f_prev]
+M_K, M_DONE, M_CROSS, M_THI, M_FLO, M_FHI, M_SIGN, M_FPREV = range(8)
+# K5 aux [A, B, far, t1, step, absorb, -, -]
+MA_A, MA_B, MA_FAR, MA_T1, MA_STEP, MA_ABS = range(6)
+# K4 state [t, step, done, hit, sign0, it, -, -]; aux [A, B, far, -...]
+C_T, C_STEP, C_DONE, C_HIT, C_SIGN, C_IT = range(6)
+
+MARCH_LAUNCHES = 0
+TRACE_LAUNCHES = 0
+_FNS = {}
+
+
+def build():
+    """Compile (if needed) and load both kernels; returns nvcc's output
+    (register and spill report), or "" when the library was built."""
+    lib, log = compile_library(SOURCE)
+    if not _FNS:
+        dll = ctypes.CDLL(str(lib))
+        for name in ("ws_march_chunk", "ws_trace_chunk"):
+            fn = getattr(dll, name)
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _FNS[name] = fn
+    return log
+
+
+def supports(gp):
+    """The kernels' scope: a stationary covariance and a spherical or
+    homogeneous mean (the port's GP has no additional CSG mean)."""
+    return (isinstance(gp.cov, SquaredExponentialCov)
+            and isinstance(gp.mean, (SphericalMean, HomogeneousMean)))
+
+
+def _check(a, slope, amp, aux, state, params):
+    R, n = a.shape
+    for name, x, shape in (("a", a, (R, n)), ("slope", slope, (R, n)),
+                           ("amp", amp, (R, n)), ("aux", aux, (R, 8)),
+                           ("state", state, (R, 8)), ("params", params, (8,))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if x.device != a.device:
+            raise ValueError("all inputs must be on one device")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if R >= 2 ** 31:
+        raise ValueError("the kernels take fewer than 2^31 rays")
+
+
+def _launch(name, a, slope, amp, aux, state, params, spherical, chunk):
+    params = params.reshape(-1)
+    _check(a, slope, amp, aux, state, params)
+    if a.device.type != "cuda":
+        raise ValueError(f"the kernels run on cuda or cpu tensors, not "
+                         f"{a.device}")
+    if not _FNS:
+        build()
+    out = torch.empty_like(state)
+    err = _FNS[name](a.data_ptr(), slope.data_ptr(), amp.data_ptr(),
+                     aux.data_ptr(), state.data_ptr(), out.data_ptr(),
+                     params.data_ptr(), a.shape[0], a.shape[1], int(chunk),
+                     int(spherical), a.device.index,
+                     torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out
+
+
+def march_chunk(a, slope, amp, aux, state, params, spherical):
+    """K5: MARCH_CHUNK march steps of every ray; returns the new state
+    [R, 8].
+
+    a, slope, amp [R, n]; aux, state [R, 8]; params [8] (scale, radius,
+    mean offset, -...); spherical: whether the mean is spherical."""
+    global MARCH_LAUNCHES
+    if a.device.type == "cpu":
+        return march_chunk_ref(a, slope, amp, aux, state, params, spherical)
+    out = _launch("ws_march_chunk", a, slope, amp, aux, state, params,
+                  spherical, MARCH_CHUNK)
+    MARCH_LAUNCHES += 1
+    return out
+
+
+def trace_chunk(a, slope, amp, aux, state, params, spherical):
+    """K4: TRACE_CHUNK range-bound sphere-trace iterations of every ray;
+    params
+    [8] (scale, min_step, mean Lipschitz, radius, mean offset, -...)."""
+    global TRACE_LAUNCHES
+    if a.device.type == "cpu":
+        return trace_chunk_ref(a, slope, amp, aux, state, params, spherical)
+    out = _launch("ws_trace_chunk", a, slope, amp, aux, state, params,
+                  spherical, TRACE_CHUNK)
+    TRACE_LAUNCHES += 1
+    return out
+
+
+def _mean_at(spherical, A, B, t, radius, m_off):
+    if not spherical:
+        return m_off.expand(t.shape)
+    return torch.sqrt(torch.clamp(A + t * (2.0 * B + t), min=0.0)) - radius
+
+
+def march_chunk_ref(a, slope, amp, aux, state, params, spherical):
+    """Plain PyTorch twin of K5: the Pallas kernel's step body, MARCH_CHUNK
+    times over the whole batch."""
+    params = params.reshape(-1)
+    scale, radius, m_off = params[0], params[1], params[2]
+    A, B, far, t1, step = aux[:, :5].unbind(-1)
+    absorb = aux[:, MA_ABS] > 0.5
+    S = state
+    for _ in range(MARCH_CHUNK):
+        k, done, crossed, t_hi, f_lo, f_hi, sign0, f_prev = S.unbind(-1)
+        done = done > 0.5
+        tc = t1 + step * k
+        nsum = (amp * torch.cos(a + slope * tc[:, None])).sum(dim=1)
+        f = scale * nsum + _mean_at(spherical, A, B, tc, radius, m_off)
+        sgn = torch.where(f < 0.0, -1.0, 1.0)
+        first_abs = absorb & (k < 0.5)
+        sign0 = torch.where(first_abs, sgn, sign0)
+        flip = (sgn != sign0) & (tc < far) & ~first_abs
+        newly = ~done & flip
+        exited = tc >= far
+        adv = ~done & ~flip & ~exited
+        S = torch.stack([
+            k + torch.where(adv, 1.0, 0.0),
+            torch.where(done | flip | exited, 1.0, 0.0),
+            torch.where(newly, 1.0, crossed),
+            torch.where(newly, tc, t_hi),
+            torch.where(newly, f_prev, f_lo),
+            torch.where(newly, f, f_hi),
+            sign0,
+            torch.where(adv, f, f_prev)], dim=-1)
+    return S
+
+
+def trace_chunk_ref(a, slope, amp, aux, state, params, spherical):
+    """Plain PyTorch twin of K4: the Pallas kernel's iteration body,
+    TRACE_CHUNK times over the whole batch."""
+    params = params.reshape(-1)
+    scale, min_step, lip_m, radius, m_off = params[:5].unbind()
+    A, B, far = aux[:, :3].unbind(-1)
+    S = state
+    for _ in range(TRACE_CHUNK):
+        t, step, done, hit, sign0, iters, s6, s7 = S.unbind(-1)
+        upd = done < 0.5
+        th0 = a + slope * t[:, None]
+        th1 = a + slope * (t + step)[:, None]
+        cmin, cmax = ws.cos_interval(torch.minimum(th0, th1),
+                                     torch.maximum(th0, th1))
+        term_lo = torch.minimum(amp * cmin, amp * cmax)
+        term_hi = torch.maximum(amp * cmin, amp * cmax)
+        n_lo = scale * term_lo.sum(dim=1)
+        n_hi = scale * term_hi.sum(dim=1)
+        m_mid = _mean_at(spherical, A, B, t + 0.5 * step, radius, m_off)
+        half = 0.5 * step * lip_m
+        lo_b = n_lo + m_mid - half
+        hi_b = n_hi + m_mid + half
+        no_cross = torch.where(sign0 > 0, lo_b > 0.0, hi_b < 0.0)
+        converged = ~no_cross & (step <= min_step)
+        t_new = torch.where(no_cross, t + step, t)
+        step_new = torch.where(no_cross, step * 1.6, step * 0.5)
+        step_new = torch.maximum(step_new, min_step * 0.5)
+        exited = t_new >= far
+        step_new = torch.minimum(step_new, far - t_new + 1e-6)
+        S = torch.stack([
+            torch.where(upd, t_new, t),
+            torch.where(upd, step_new, step),
+            torch.where(upd & (converged | exited), 1.0, done),
+            torch.where(upd & converged, 1.0, hit),
+            sign0,
+            iters + torch.where(upd, 1.0, 0.0),
+            s6, s7], dim=-1)
+    return S
+
+
+@dataclasses.dataclass(frozen=True)
+class HoistedParams:
+    """Each ray's basis as affine phases a + slope * t [R, n], amp =
+    weights * sqrt(2/n) [R, n], and the mean's constants: the spherical
+    mean is sqrt(A + t (2B + t)) - radius, the homogeneous one m_off."""
+    a: torch.Tensor
+    slope: torch.Tensor
+    amp: torch.Tensor
+    scale: torch.Tensor  # sqrt(cov(0, 0))
+    spherical: bool
+    A: torch.Tensor  # [R] |ro - center|^2
+    B: torch.Tensor  # [R] (ro - center) . rd
+    radius: torch.Tensor
+    m_off: torch.Tensor
+
+    def value_of(self, t):
+        """f at t [R] along each ray."""
+        nsum = (self.amp * torch.cos(self.a + self.slope * t[:, None])).sum(1)
+        return self.scale * nsum + _mean_at(self.spherical, self.A, self.B, t,
+                                            self.radius, self.m_off)
+
+
+def _hoisted_params(real, gp, ro, rd):
+    """HoistedParams of the realizations `real` along rays ro, rd [R, 3]."""
+    b = real.basis
+    dev = ro.device
+    spherical = isinstance(gp.mean, SphericalMean)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if spherical:
+        oc = ro - gp.mean.center
+        A, B = (oc * oc).sum(dim=-1), (oc * rd).sum(dim=-1)
+        radius, m_off = gp.mean.radius.to(torch.float32), zero
+    else:
+        A = B = torch.zeros(ro.shape[0], dtype=torch.float32, device=dev)
+        radius, m_off = zero, gp.mean.offset.to(torch.float32)
+    origin = torch.zeros(3, dtype=torch.float32, device=dev)
+    return HoistedParams(
+        a=(b.freqs * ws.project(b.dirs, ro) + b.offsets).contiguous(),
+        slope=(b.freqs * ws.project(b.dirs, rd)).contiguous(),
+        amp=(real.weights * ws.sqrt_2_over_n(b.n, dev)).contiguous(),
+        scale=torch.sqrt(gp.cov.cov(origin, origin)), spherical=spherical,
+        A=A, B=B, radius=radius, m_off=m_off)
+
+
+def _params(*vals):
+    """[8] float32 on the device of the first tensor, zero-padded."""
+    dev = next(v.device for v in vals if isinstance(v, torch.Tensor))
+    v = [torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+         for x in vals]
+    v += [torch.zeros((), dtype=torch.float32, device=dev)] * (8 - len(v))
+    return torch.stack(v)
+
+
+def march_inputs(real, gp, ro, rd, near, far, step, u_jitter, absorb):
+    """K5's inputs for rays [R] at their start: (hoisted basis, aux [R, 8],
+    state [R, 8], params [8]).  f0 at `near` fixes sign0."""
+    R = ro.shape[0]
+    h = _hoisted_params(real, gp, ro, rd)
+    f0 = h.value_of(near)
+    sign0 = torch.where(f0 < 0.0, -1.0, 1.0)
+    t1 = near + step * u_jitter
+    zeros = torch.zeros(R, dtype=torch.float32, device=ro.device)
+    aux = torch.stack([h.A, h.B, far, t1, step, absorb.to(torch.float32),
+                       zeros, zeros], dim=-1).contiguous()
+    state = torch.stack([zeros, zeros, zeros, far, f0, zeros, sign0, f0],
+                        dim=-1).contiguous()
+    return h, aux, state, _params(h.scale, h.radius, h.m_off)
+
+
+def trace_inputs(real, gp, ro, rd, near, far):
+    """K4's inputs for rays [R] at their start: (hoisted basis, aux [R, 8],
+    state [R, 8], params [8]).  The first step is 5% of [near, far]."""
+    R = ro.shape[0]
+    h = _hoisted_params(real, gp, ro, rd)
+    f0, _ = ws.evaluate(real, gp, ro + near[:, None] * rd)
+    sign0 = torch.where(f0 < 0.0, -1.0, 1.0)
+    zeros = torch.zeros(R, dtype=torch.float32, device=ro.device)
+    aux = torch.stack([h.A, h.B, far] + [zeros] * 5, dim=-1).contiguous()
+    step0 = torch.clamp((far - near) * 0.05, min=TRACE_MIN_STEP)
+    state = torch.stack([near, step0, zeros, zeros, sign0, zeros, zeros,
+                         zeros], dim=-1).contiguous()
+    params = _params(h.scale, TRACE_MIN_STEP, gp.mean.lipschitz(), h.radius,
+                     h.m_off)
+    return h, aux, state, params
+
+
+def fixed_march_batch(real, gp, ro, rd, near, far, step, u_jitter, absorb,
+                      max_steps, refine=True):
+    """Fixed-step sign-change march of every ray [R] over its realization,
+    then 6 Illinois false-position steps inside [t_hi - step, t_hi].
+
+    f0 at `near` fixes sign0, the first step sits at near + step * u_jitter,
+    the first step after an interior scatter (`absorb`) sets the sign and
+    cannot flip, flips count only before `far`, and no ray takes more than
+    `max_steps` steps (rounded up to whole chunks).  Returns
+    dict(hit [R], t [R], sign0 [R])."""
+    h, aux, S, params = march_inputs(real, gp, ro, rd, near, far, step,
+                                     u_jitter, absorb)
+    for _ in range(-(-max_steps // MARCH_CHUNK)):
+        if not bool((S[:, M_DONE] < 0.5).any()):
+            break
+        S = march_chunk(h.a, h.slope, h.amp, aux, S, params, h.spherical)
+    crossed = S[:, M_CROSS] > 0.5
+    t_hi = S[:, M_THI]
+    sign0 = S[:, M_SIGN]
+    if not refine:
+        return {"hit": crossed, "t": torch.where(crossed, t_hi, far),
+                "sign0": sign0}
+
+    lo = torch.maximum(t_hi - step, near)
+    hi, flo, fhi = t_hi, S[:, M_FLO], S[:, M_FHI]
+    for _ in range(6):
+        denom = flo - fhi
+        tiny = denom.abs() < 1e-30
+        mid_s = lo + flo * (hi - lo) / torch.where(tiny, 1.0, denom)
+        mid = torch.where(tiny | (mid_s <= lo) | (mid_s >= hi),
+                          0.5 * (lo + hi), mid_s)
+        fm = h.value_of(torch.where(crossed, mid, near))
+        start_side = torch.where(fm < 0, -1.0, 1.0) == sign0
+        lo = torch.where(crossed & start_side, mid, lo)
+        hi = torch.where(crossed & ~start_side, mid, hi)
+        flo, fhi = (torch.where(start_side, fm, flo * 0.5),
+                    torch.where(start_side, fhi * 0.5, fm))
+    return {"hit": crossed, "t": torch.where(crossed, hi, far),
+            "sign0": sign0}
+
+
+def sphere_trace_batch(real, gp, ro, rd, near, far):
+    """Adaptive range-bound sphere trace of every ray [R] over [near, far];
+    returns (hit [R], t_hit [R]) (t_hit = far where nothing was hit)."""
+    h, aux, S, params = trace_inputs(real, gp, ro, rd, near, far)
+    for _ in range(-(-TRACE_MAX_ITERS // TRACE_CHUNK)):
+        if not bool((S[:, C_DONE] < 0.5).any()):
+            break
+        S = trace_chunk(h.a, h.slope, h.amp, aux, S, params, h.spherical)
+    hit = S[:, C_HIT] > 0.5
+    return hit, torch.where(hit, S[:, C_T], far)

@@ -1,15 +1,22 @@
-"""The sparse-convolution GPIS medium, batched over rays (the sparse-conv
-branches of tungsten_tpu/models/media.py).
+"""GPIS media batched over rays: the sparse-convolution and weight-space
+branches of tungsten_tpu/models/media.py.
 
-`sample_distance` marches each ray in fixed steps to the first sign change
-of the GP realization, refines the crossing with 6 Illinois false-position
-steps and samples the surface normal there; `transmittance` runs the same
-march for binary visibility.
+`sample_distance` marches each ray to the first sign change of its GP
+realization, refines the crossing and samples the surface normal there;
+`transmittance` runs the same search for binary visibility.
 
-The march is a Python loop over steps for the whole batch.  It stops when
-no ray is still marching, which reads `marching.any()` on the host once per
-step.  The JAX package's `[S, R]` step blocking only fills TPU lanes; with
-one step per iteration the evaluated steps are the same.
+Sparse-conv noise: the march is a Python loop over steps for the whole
+batch, with the raw noise sum in K1.  It stops when no ray is still
+marching, which reads `marching.any()` on the host once per step.  The JAX
+package's `[S, R]` step blocking only fills TPU lanes; with one step per
+iteration the evaluated steps are the same.
+
+Weight space: each ray synthesises its RFF realization from its (pixel,
+sample, bounce) words, then marches it with K5 in fixed steps (step_size
+> 0) or sphere-traces it with K4 (step_size == 0); see kernels/ws_trace.py.
+Only the active rays are gathered into these calls (the results of the
+others are masked anyway), which bounds the [R, n] basis tensors by the
+rays in the medium.
 """
 from __future__ import annotations
 
@@ -17,14 +24,20 @@ import dataclasses
 
 import torch
 
+from ..kernels import ws_trace as wst
 from ..ops import sparse_conv as sc
 from ..ops import sparse_conv_fast as fast
+from ..ops import weight_space as ws
 from ..utils.vecmath import dot
+
+GPIS_SPARSE_CONV = "sparse_conv_noise"
+GPIS_WEIGHT_SPACE = "weight_space"
 
 
 @dataclasses.dataclass(frozen=True)
 class Medium:
-    """A sparse-conv GPIS medium with a BRDF phase function."""
+    """A sparse-conv or weight-space GPIS medium with a BRDF phase
+    function.  `cfg` carries the realization seeding of both."""
     sigma_a: torch.Tensor  # [3]
     sigma_s: torch.Tensor  # [3]
     density: torch.Tensor  # scalar
@@ -35,6 +48,9 @@ class Medium:
     phase_bsdf: int  # BsdfTable row of the phase function's BSDF
     min_step: int = 8
     max_march_steps: int = 8192
+    kind: str = GPIS_SPARSE_CONV
+    basis_functions: int = 300  # weight space: RFF basis size n
+    ws_sphere_trace: bool = False  # weight space with step_size == 0
 
     @property
     def sigma_t(self):
@@ -153,8 +169,44 @@ def march(med, value_at, near, far, state, u_jitter, active, refine=True):
     return crossed & active, torch.where(active, t_hit, far)
 
 
-def sample_gradient(med, scene_seed, p, pss):
-    """The conditioned-Gaussian normal: the GP gradient at p [R, 3]."""
+def _ws_real(med, pss):
+    """Each ray's RFF realization, re-synthesized from its words pss [R, 4]
+    (a single realization takes the words of pixel 0, sample 0).  The
+    profiler range "ws_realization" lets a trace split off its cost."""
+    cfg = med.cfg
+    if cfg.use_single_realization:
+        pss, is_global = torch.zeros_like(pss), True
+    else:
+        is_global = cfg.ctxt == sc.CTXT_GLOBAL
+    with torch.profiler.record_function("ws_realization"):
+        return ws.sample_realization(med.gp.cov, med.basis_functions, pss,
+                                     cfg.global_seed, is_global)
+
+
+def _ws_search(med, ro, rd, near, far, first_scatter, pss, u_jitter,
+               refine=True):
+    """The first crossing of weight-space rays (all active): K5's march for
+    step_size > 0, K4's sphere trace for step_size == 0.  Returns (hit,
+    t, realization); t = far where nothing was hit."""
+    real = _ws_real(med, pss)
+    if med.ws_sphere_trace:
+        # a segment that starts at an interior scatter skips its surface
+        near_st = near + torch.where(first_scatter, 0.0, 2e-3)
+        hit, t = wst.sphere_trace_batch(real, med.gp, ro, rd, near_st, far)
+        return hit, t, real
+    step = torch.clamp(torch.minimum(med.step_size,
+                                     (far - near) / med.min_step), min=1e-6)
+    m = wst.fixed_march_batch(real, med.gp, ro, rd, near, far, step,
+                              u_jitter, ~first_scatter,
+                              max_steps=med.max_march_steps, refine=refine)
+    return m["hit"], m["t"], real
+
+
+def sample_gradient(med, scene_seed, p, pss, real=None):
+    """The conditioned-Gaussian normal: the GP gradient at p [R, 3]; a
+    weight-space medium takes the rays' realization `real`."""
+    if med.kind == GPIS_WEIGHT_SPACE:
+        return ws.evaluate_gradient(real, med.gp, p)
     return sc.eval_gradient(med.cfg, med.gp, p, pss, scene_seed)
 
 
@@ -162,6 +214,29 @@ def _far_eff(med, ro, rd, near, far):
     # Ray::infinity clamp, then the bounding box
     far = torch.where(far < 1e30, far, near + 2000.0)
     return _clamp_far_to_bounds(med, ro, rd, near, far)
+
+
+def _crossing_ws(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
+                 active):
+    """(hit, t, normal, gp_id) of the weight-space search, computed on the
+    active rays only; inactive rays get no hit, t = far and their last
+    normal."""
+    hit = torch.zeros_like(active)
+    t = far.clone()
+    grad = state.last_aniso.clone()
+    gp_id = torch.zeros(active.shape, dtype=torch.int64, device=ro.device)
+    idx = torch.nonzero(active).squeeze(1)
+    if idx.numel():
+        ro_a, rd_a, pss_a = ro[idx], rd[idx], pss[idx]
+        hit_a, t_a, real = _ws_search(
+            med, ro_a, rd_a, near[idx], far[idx], state.first_scatter[idx],
+            pss_a, u_jitter[idx])
+        ip = ro_a + t_a[:, None] * rd_a
+        _, gp_id[idx] = ws.evaluate(real, med.gp, ip)
+        grad[idx] = sample_gradient(med, scene_seed, ip, pss_a, real)
+        hit[idx] = hit_a
+        t[idx] = t_a
+    return hit, t, grad, gp_id
 
 
 def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
@@ -172,12 +247,16 @@ def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
     weight [R, 3], aniso [R, 3] (the sampled normal), gp_id [R] and failed
     [R] (wrong-sided, zero or non-finite normal: the path dies)."""
     far_eff = _far_eff(med, ro, rd, near, far)
-    value_at = make_value_at(med, scene_seed, ro, rd, pss)
-    hit, t = march(med, value_at, near, far_eff, state, u_jitter, active)
-    _, gp_id = value_at(t)
+    if med.kind == GPIS_WEIGHT_SPACE:
+        hit, t, grad, gp_id = _crossing_ws(med, scene_seed, ro, rd, near,
+                                           far_eff, state, pss, u_jitter,
+                                           active)
+    else:
+        value_at = make_value_at(med, scene_seed, ro, rd, pss)
+        hit, t = march(med, value_at, near, far_eff, state, u_jitter, active)
+        _, gp_id = value_at(t)
+        grad = sample_gradient(med, scene_seed, ro + t[:, None] * rd, pss)
 
-    ip = ro + t[:, None] * rd
-    grad = sample_gradient(med, scene_seed, ip, pss)
     grad_ok = torch.isfinite(grad.sum(dim=-1))
     wrong_side = hit & (dot(grad, rd) > 0.0)
     zero_grad = hit & (dot(grad, grad) < 1e-7)
@@ -198,8 +277,18 @@ def transmittance(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
     """Binary visibility [R, 3] on the realization (1 where the segment
     crosses no surface, and on inactive rays)."""
     far_eff = _far_eff(med, ro, rd, near, far)
-    value_at = make_value_at(med, scene_seed, ro, rd, pss)
-    hit, _ = march(med, value_at, near, far_eff, state, u_jitter, active,
-                   refine=False)
+    if med.kind == GPIS_WEIGHT_SPACE:
+        hit = torch.zeros_like(active)
+        idx = torch.nonzero(active).squeeze(1)
+        if idx.numel():
+            hit_a, _, _ = _ws_search(
+                med, ro[idx], rd[idx], near[idx], far_eff[idx],
+                state.first_scatter[idx], pss[idx], u_jitter[idx],
+                refine=False)
+            hit[idx] = hit_a
+    else:
+        value_at = make_value_at(med, scene_seed, ro, rd, pss)
+        hit, _ = march(med, value_at, near, far_eff, state, u_jitter, active,
+                       refine=False)
     vis = torch.where(active & hit, 0.0, 1.0)
     return vis[:, None].expand(-1, 3)

@@ -1,6 +1,7 @@
-"""The squared-exponential covariance and its sparse-convolution splat in
-world space (the part of tungsten_tpu/ops/covariance.py::
-SquaredExponentialCov that stationary world-space sampling reaches).
+"""The squared-exponential covariance, its sparse-convolution splat in
+world space and its spectral density (the part of
+tungsten_tpu/ops/covariance.py::SquaredExponentialCov that stationary
+world-space sampling and weight-space realizations reach).
 
 cov(a, b) = sigma^2 exp(-|a - b|^2_aniso / (2 l^2)); the splat kernel has
 length l_conv = l sqrt(2)/2 so that splat * splat reproduces cov.  Only the
@@ -15,6 +16,7 @@ import math
 
 import torch
 
+from ..utils import rng
 from ..utils.vecmath import dot
 
 _SQRT2_OVER_2 = math.sqrt(2.0) / 2.0
@@ -60,3 +62,19 @@ class SquaredExponentialCov:
                                   * kernel_radius)
         la = self.l_aniso
         return dens * (math.pi ** 1.5) * (la[0] * la[1] * la[2])
+
+    def cov(self, pa, pb):
+        """cov(pa, pb) over [..., 3] points."""
+        d = pa - pb
+        r2 = dot(d * self.aniso, d)
+        return self.sigma * self.sigma * torch.exp(
+            -r2 / (2.0 * (self.l * self.l)))
+
+    def sample_spectral_3d(self, key, ctr):
+        """omega ~ the spectral density, Gaussian with standard deviation
+        sqrt(aniso) / l per axis: stream `key` [...], counter words ctr [...]
+        -> [..., 3]."""
+        n0, n1 = rng.normal2(key, 3 * ctr)
+        n2, _ = rng.normal2(key, 3 * ctr + 1)
+        g = torch.stack([n0, n1, n2], dim=-1)
+        return g / self.l * torch.sqrt(self.aniso)

@@ -19,6 +19,9 @@ class HomogeneousMean:
     def grad(self, p):
         return torch.zeros_like(p)
 
+    def lipschitz(self):
+        return 0.0
+
 
 @dataclasses.dataclass(frozen=True)
 class SphericalMean:
@@ -30,3 +33,6 @@ class SphericalMean:
 
     def grad(self, p):
         return safe_normalize(p - self.center)
+
+    def lipschitz(self):
+        return 1.0

@@ -43,6 +43,11 @@ class GP:
         return self.mean.mean(p), torch.zeros(p.shape[:-1], dtype=torch.int64,
                                               device=p.device)
 
+    def mean_grad_by_id(self, p, gp_id):
+        """Gradient of the mean that supplied the value (with one mean,
+        that mean's)."""
+        return self.mean.grad(p)
+
 
 @dataclasses.dataclass(frozen=True)
 class SparseConvConfig:

@@ -1,0 +1,141 @@
+"""Weight-space GP: random Fourier feature (RFF) realizations, batched over
+rays (tungsten_tpu/ops/weight_space.py).
+
+A realization is
+f(p) = sqrt(cov(p, p)) sqrt(2/n) sum_i w_i cos(freq_i dir_i . p + offset_i)
+       + mean(p)
+with (dir_i, freq_i) drawn from the covariance's spectral density and
+w_i ~ N(0, 1).  The basis is a pure function of the ray's (pixel, sample,
+bounce) words through the counter RNG, so it is re-synthesized wherever it
+is needed instead of stored.  Every ray carries its own realization: dirs
+[R, n, 3], freqs, offsets and weights [R, n].
+
+Projections onto the basis directions are written out as three products
+and two sums in full float32 (the JAX package asks for
+precision="highest"); no TF32 enters.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..utils import rng
+from ..utils.vecmath import dot
+
+_TWO_PI = 6.2831855  # float32(2 pi)
+_PI = 3.1415927  # float32(pi)
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightSpaceBasis:
+    dirs: torch.Tensor  # [R, n, 3] unit
+    freqs: torch.Tensor  # [R, n]
+    offsets: torch.Tensor  # [R, n]
+
+    @property
+    def n(self):
+        return self.dirs.shape[-2]
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightSpaceRealization:
+    basis: WeightSpaceBasis
+    weights: torch.Tensor  # [R, n] ~ N(0, 1)
+
+
+def sqrt_2_over_n(n, device):
+    """sqrt(2/n) rounded as float32 arithmetic rounds it."""
+    return torch.sqrt(torch.tensor(2.0 / n, dtype=torch.float32,
+                                   device=device))
+
+
+def project(dirs, v):
+    """dirs [R, n, 3] . v [R, 3] -> [R, n]."""
+    return (dirs[..., 0] * v[:, None, 0] + dirs[..., 1] * v[:, None, 1]
+            + dirs[..., 2] * v[:, None, 2])
+
+
+def sample_basis(cov, n, key):
+    """n spectral samples for each stream key [R] (words)."""
+    ctr = torch.arange(n, dtype=torch.int64, device=key.device)
+    k = key[:, None]
+    offsets = rng.uniform(k, 1_000_000 + ctr) * (2.0 * math.pi)
+    omega = cov.sample_spectral_3d(k, ctr)  # [R, n, 3]
+    freqs = torch.sqrt(torch.clamp(dot(omega, omega), min=1e-20))
+    dirs = omega / freqs[..., None]
+    return WeightSpaceBasis(dirs=dirs, freqs=freqs, offsets=offsets)
+
+
+def sample_weights(n, key):
+    """n N(0, 1) weights for each stream key [R]: Box-Muller pairs at
+    counters 2,000,000 + i."""
+    idx = torch.arange((n + 1) // 2, dtype=torch.int64, device=key.device)
+    a, b = rng.normal2(key[:, None], 2_000_000 + idx)
+    return torch.stack([a, b], dim=-1).reshape(key.shape[0], -1)[:, :n]
+
+
+def realization_key(pss, global_seed, is_global_ctxt):
+    """Stream key [R] from the (pixel.x, pixel.y, spp, bounce) words pss
+    [R, 4]; the Global context strips the bounce."""
+    w = torch.zeros_like(pss[:, 3]) if is_global_ctxt else pss[:, 3]
+    h = rng.xxhash32_4(pss[:, 0], pss[:, 1], pss[:, 2], w)
+    return (h + global_seed) & rng.MASK32
+
+
+def sample_realization(cov, n, pss, global_seed, is_global_ctxt):
+    key = realization_key(pss, global_seed, is_global_ctxt)
+    basis = sample_basis(cov, n, key)
+    weights = sample_weights(n, (key + 0x9E3779B9) & rng.MASK32)
+    return WeightSpaceRealization(basis=basis, weights=weights)
+
+
+def evaluate(real, gp, p):
+    """f at one point per ray, p [R, 3]; returns (val [R], gp_id [R])."""
+    b = real.basis
+    scale = torch.sqrt(gp.cov.cov(p, p))
+    phase = project(b.dirs, p) * b.freqs + b.offsets
+    s = (real.weights * torch.cos(phase)).sum(dim=-1) \
+        * sqrt_2_over_n(b.n, p.device)
+    m, gp_id = gp.mean_and_id(p)
+    return scale * s + m, gp_id
+
+
+def evaluate_gradient(real, gp, p):
+    """Analytic gradient of f at p [R, 3] -> [R, 3]."""
+    b = real.basis
+    scale = torch.sqrt(gp.cov.cov(p, p))
+    phase = project(b.dirs, p) * b.freqs + b.offsets
+    coeff = -torch.sin(phase) * b.freqs * real.weights
+    g = torch.einsum("rn,rnd->rd", coeff, b.dirs) \
+        * sqrt_2_over_n(b.n, p.device)
+    _, gp_id = gp.mean_and_id(p)
+    return scale[:, None] * g + gp.mean_grad_by_id(p, gp_id)
+
+
+def lipschitz(real, gp):
+    """A Lipschitz bound of each ray's realization -> [R]."""
+    b = real.basis
+    dev = b.freqs.device
+    l = (real.weights * b.freqs).abs().sum(dim=-1) * sqrt_2_over_n(b.n, dev)
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    return torch.sqrt(gp.cov.cov(zero, zero)) * l + gp.mean.lipschitz()
+
+
+def cos_interval(lo, hi):
+    """Exact range (cmin, cmax) of cos over the phase interval [lo, hi],
+    elementwise: the max is 1 iff the interval holds an even multiple of pi,
+    the min -1 iff it holds an odd one; otherwise both sit at the ends.  The
+    floors divide by float32(2 pi) (not a reciprocal), as the kernels do."""
+    c_lo = torch.cos(lo)
+    c_hi = torch.cos(hi)
+    cmin = torch.minimum(c_lo, c_hi)
+    cmax = torch.maximum(c_lo, c_hi)
+    k_even = (torch.floor(hi / _TWO_PI) - torch.floor(lo / _TWO_PI)) >= 1.0
+    k_odd = (torch.floor((hi - _PI) / _TWO_PI)
+             - torch.floor((lo - _PI) / _TWO_PI)) >= 1.0
+    wide = (hi - lo) >= _TWO_PI
+    cmax = torch.where(k_even | wide, 1.0, cmax)
+    cmin = torch.where(k_odd | wide, -1.0, cmin)
+    return cmin, cmax

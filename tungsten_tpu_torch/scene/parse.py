@@ -1,5 +1,6 @@
 """Tungsten JSON scene -> Scene (the subset of tungsten_tpu/scene/parse.py
-that BASELINE config 1, `scenes/gpis-sphere-box.json`, uses).
+that BASELINE config 1, `scenes/gpis-sphere-box.json`, and config 4a,
+`scenes/gpis-weight-space.json`, use).
 
 Host-side numpy, computed as the JAX package computes it, then moved to
 `device`.  Any type or option the port does not implement yet raises
@@ -16,6 +17,7 @@ import torch
 
 from ..models import bsdfs as bs
 from ..models import media as md
+from ..kernels import ws_trace as wst
 from ..models import primitives as pr
 from ..models.camera import Camera
 from ..models.integrator import Scene
@@ -189,10 +191,16 @@ _CTXT = {"global": sc.CTXT_GLOBAL, "renewal+": sc.CTXT_RENEWAL_PLUS,
          "goldfish": sc.CTXT_RENEWAL_PLUS}
 
 
+_MEDIUM_KINDS = {"sparse_conv_noise": md.GPIS_SPARSE_CONV,
+                 "weight_space_gaussian_process": md.GPIS_WEIGHT_SPACE,
+                 "weight_space": md.GPIS_WEIGHT_SPACE}
+
+
 def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
     t = m.get("type", "sparse_conv_noise")
-    if t != "sparse_conv_noise":
+    if t not in _MEDIUM_KINDS:
         raise _unsupported(f"medium type {t!r}")
+    kind = _MEDIUM_KINDS[t]
     for key in ("isotropic_3D_sampling", "1D_sampling",
                 "surf_vol_phase_separate"):
         if m.get(key, False):
@@ -211,17 +219,26 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
         ctxt=_CTXT[ctxt],
         use_single_realization=bool(m.get("single_realization", False)),
         impulse_count=int(m.get("impulse_density", 3.0)))
-    if cfg.activate_conditioning:
+    gp = parse_gp(m.get("gaussian_process", {}), device)
+    if kind == md.GPIS_WEIGHT_SPACE:
+        # a weight-space realization is drawn fresh per segment and
+        # conditions nothing, whatever the context
+        if not wst.supports(gp):
+            raise _unsupported("a weight-space GP outside the K4/K5 kernels' "
+                               "scope")
+    elif cfg.activate_conditioning:
         raise _unsupported(f"{ctxt!r} conditioning of per-path "
                            "realizations")
+    step_size = float(m.get("step_size", 0.01))
     return md.Medium(
         sigma_a=torch.tensor(_rgb(m.get("sigma_a"), (0, 0, 0)), device=device),
         sigma_s=torch.tensor(_rgb(m.get("sigma_s"), (1, 1, 1)), device=device),
         density=_f32(m.get("density", 1.0), device),
-        step_size=_f32(m.get("step_size", 0.01), device),
-        cfg=cfg, gp=parse_gp(m.get("gaussian_process", {}), device),
-        bounds=None, phase_bsdf=phase_bsdf,
-        min_step=int(m.get("min_step", 8)))
+        step_size=_f32(step_size, device),
+        cfg=cfg, gp=gp, bounds=None, phase_bsdf=phase_bsdf,
+        min_step=int(m.get("min_step", 8)), kind=kind,
+        basis_functions=int(m.get("basis_functions", 300)),
+        ws_sphere_trace=kind == md.GPIS_WEIGHT_SPACE and step_size == 0.0)
 
 
 # ---------------------------------------------------------------------------

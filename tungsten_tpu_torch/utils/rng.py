@@ -7,6 +7,8 @@ that no product passes 2^48 and nothing relies on signed overflow.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -80,6 +82,20 @@ def u32_to_uniform(u):
 def uniform(key, ctr):
     """The ctr-th U[0,1) variate of stream `key` (broadcasting words)."""
     return u32_to_uniform(xxhash32_2(key, ctr))
+
+
+def uniform2(key, ctr):
+    """The variates at counters 2 ctr and 2 ctr + 1 of stream `key`."""
+    c = (2 * u32(ctr)) & MASK32
+    return uniform(key, c), uniform(key, (c + 1) & MASK32)
+
+
+def normal2(key, ctr):
+    """A Box-Muller pair of N(0, 1) variates from uniform2(key, ctr)."""
+    u1, u2 = uniform2(key, ctr)
+    r = torch.sqrt(-2.0 * torch.log1p(-u1))
+    a = 2.0 * math.pi * u2
+    return r * torch.cos(a), r * torch.sin(a)
 
 
 def bernoulli_pm1(u):
