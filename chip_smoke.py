@@ -2,13 +2,16 @@
 
 Builds the port's CUDA kernels from tungsten_tpu_torch/csrc/ (one nvcc per
 source, all started together) and holds each against its plain PyTorch
-twin on the card: K1 (noise3d.cu) and K5/K4 (ws_trace.cu).  Then it drives
-the port's main paths through tungsten_tpu_torch.render, each with the
-launch counts set to 0 just before and read just after:
+twin on the card: K1 (noise3d.cu), K3 (noise1d.cu) and K5/K4
+(ws_trace.cu).  Then it drives the port's main paths through
+tungsten_tpu_torch.render, each with the launch counts set to 0 just
+before and read just after:
 - BASELINE config 1 (scenes/gpis-sphere-box.json, sparse-conv noise, K1);
 - BASELINE config 4a (scenes/gpis-weight-space.json, weight-space RFF,
   1024 basis functions, K5's fixed-step march);
-- config 4a with step_size 0 (K4's range-bound sphere trace).
+- config 4a with step_size 0 (K4's range-bound sphere trace);
+- BASELINE configs 3 and 3b (scenes/gpis-mirror-1d{,-corrxy}.json, 1D
+  sparse-conv sampling with renewal+ conditioning and mirror NEE/MIS, K3).
 It checks each image, times the renders, and compares 64x64 renders with
 the committed reference goldens by bucket means.  Each phase that fails
 raises, so the script exits non-zero; it needs CUDA and never imports JAX
@@ -18,9 +21,9 @@ device.
 
 `python3 chip_smoke.py --profile` adds phases that measure where the
 renders' time goes (PERF.md section 5): config 1 at 1, 4 and 16 spp per ray
-batch and config 4a (both step sizes) at 8 spp, each with its launches and
-host syncs, and one render of each under torch.profiler, whose op tables
-it writes to chiprun_out/.
+batch, config 4a (both step sizes) at 8 spp and config 3 at 16 spp, each
+with its launches and host syncs, and one render of each under
+torch.profiler, whose op tables it writes to chiprun_out/.
 """
 import argparse
 import concurrent.futures
@@ -40,6 +43,10 @@ SCENE = os.path.join(ROOT, "scenes", "gpis-sphere-box.json")
 GOLDEN = os.path.join(ROOT, "goldens", "gpis-sphere-box.pfm")
 WS_SCENE = os.path.join(ROOT, "scenes", "gpis-weight-space.json")
 WS_GOLDEN = os.path.join(ROOT, "goldens", "gpis-weight-space.pfm")
+M1D_SCENES = {name: (os.path.join(ROOT, "scenes", f"gpis-{stem}.json"),
+                     os.path.join(ROOT, "goldens", f"gpis-{stem}.pfm"))
+              for name, stem in (("config 3", "mirror-1d"),
+                                 ("config 3b", "mirror-1d-corrxy"))}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 K1_ATOL = 1e-5  # raw sum of at most 81 unit-bounded terms, fp32
 TWIN_POINTS = 1 << 20
@@ -50,6 +57,12 @@ K1_MAIN_POINTS = 1 << 18  # config 1's 16-spp batch at 128x128
 WS_RAYS = (16384, 65536, 131072, 262144, 524288)
 WS_LINE_RAYS = 131072
 WS_RTOL = 1e-5  # float columns within WS_RTOL * (1 + |twin|)
+K3_ATOL = 1e-5  # raw sum of at most 9 unit-bounded terms, fp32
+# Up to 2^20 points, past the most a render launches K3 on: the [2R] shadow
+# batch of render.MAX_RAYS camera rays, 524,288.  The kernels line gives
+# the numbers at config 3's 16-spp camera batch, K3_LINE_POINTS.
+K3_POINTS = (16384, 65536, 131072, 262144, 524288, 1 << 20)
+K3_LINE_POINTS = 262144
 WS_MAX_SHARE = 1e-3  # rays whose flags or decisions may differ
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s
@@ -66,6 +79,11 @@ K1_OPS_CELL, K1_OPS_IMPULSE = 33, 4 * 15 + 4 * 3 + 48
 OPS_COSF, OPS_DIV = 20, 10
 # K5 per basis function and step: phase (2), cosf, amp * cos and the sum (2)
 K5_OPS = 4 + OPS_COSF
+# K3, per cell: xxhash32_2 (15 ops) + 6 coordinate/index ops; per impulse:
+# 2 xxhash32_2 (15 each), 2 variates (3 each), the sign select, d, kr * d,
+# d * d and its compare, the splat's products and sum (8) and a precise
+# expf (~20)
+K3_OPS_CELL, K3_OPS_IMPULSE = 21, 2 * 15 + 2 * 3 + 8 + 20
 # K4 per basis function and iteration: 2 phases (4), 2 cosf, 4 divides,
 # 4 floors, 2 subtracts, min/max and selects (10), 2 products, 2 min/max
 # and 2 sums
@@ -98,6 +116,26 @@ def median_ms(fn, reps=20):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def kernel_device_ms(fn, kernel, reps=20):
+    """Mean device time of the CUDA kernel named `kernel` per call of fn(),
+    from torch.profiler over `reps` calls after one warm-up: the kernel
+    alone, without the host work and gaps a CUDA-event window around a
+    short launch also holds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    if us <= 0:
+        raise RuntimeError(f"the profiler saw no device time for {kernel}")
+    return us / reps / 1e3
 
 
 def bound_ms(n_bytes, n_ops):
@@ -319,6 +357,55 @@ def check_image(img, what):
     return lum
 
 
+def k3_checks(noise1d, dev, card_line):
+    """K3 against its twin at K3_POINTS random iso-ray coordinates (both
+    signs, many cells) and seeds; returns (max |diff|, {N: (kernel device
+    ms, twin ms, bound ms, bound_by)}).  The seeds are int32 words, as
+    the march passes them."""
+    rs = np.random.default_rng(3)
+    n_max = max(K3_POINTS)
+    pz = torch.from_numpy(rs.uniform(-40.0, 40.0, n_max).astype(
+        np.float32)).to(dev)
+    seed = torch.from_numpy(rs.integers(0, 2 ** 32, n_max, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+    kr, K = 3.0, 3
+    err_max, times = 0.0, {}
+    for n in K3_POINTS:
+        pk, sk = pz[:n].contiguous(), seed[:n].contiguous()
+        got = noise1d.noise1d_sum(pk, sk, kr, K)
+        want = noise1d.noise1d_sum_ref(pk, sk, kr, K)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError("K3 returned non-finite values")
+        err = float((got - want).abs().max())
+        err_max = max(err_max, err)
+        if err > K3_ATOL:
+            raise RuntimeError(f"K3 disagrees with its twin at N={n}: {err}")
+        t_w = median_ms(lambda: noise1d.noise1d_sum(pk, sk, kr, K))
+        t_k = kernel_device_ms(lambda: noise1d.noise1d_sum(pk, sk, kr, K),
+                               "noise1d_sum_kernel")
+        t_p = median_ms(lambda: noise1d.noise1d_sum_ref(pk, sk, kr, K))
+        b_ms, b_by = bound_ms(12 * n, n * 3 * (K3_OPS_CELL
+                                                + K * K3_OPS_IMPULSE))
+        times[n] = (t_k, t_p, b_ms, b_by)
+        print(f"K3 K={K} N={n}: max |kernel - twin| = {err:.3e} (atol "
+              f"{K3_ATOL}); kernel {t_k:.4f} ms of device time (mean of 20, "
+              f"torch.profiler), wrapper call {t_w:.4f} ms and twin "
+              f"{t_p:.4f} ms (median of 20, CUDA events; {card_line}); "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return err_max, times
+
+
+def check_k3_points(noise1d, what):
+    """The render's largest K3 launch lies within the points K3 was
+    checked on."""
+    print(f"{what}: K3 launched on at most {noise1d.MOST_POINTS} points "
+          f"(checked against its twin up to {max(K3_POINTS)})", flush=True)
+    if noise1d.MOST_POINTS > max(K3_POINTS):
+        raise RuntimeError(f"{what} launched K3 on {noise1d.MOST_POINTS} "
+                           "points, more than the twin check covers")
+
+
 def profile_table(prof, name):
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, name)
@@ -420,6 +507,51 @@ def profile(trender, noise3d, wst, scene, ws_scene, ws_trace_scene, dev,
             raise RuntimeError(f"the profiler saw no device time for {what}")
 
 
+def profile_mirror(trender, noise1d, scene, dev, card_line):
+    """Where config 3's 128x128, 16-spp render spends its time: walls and
+    K3 launches of two runs, host syncs of a third, and one run under
+    torch.profiler (op table in chiprun_out/)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    walls, counts = [], []
+    for _ in range(2):
+        noise1d.LAUNCHES = 0
+        walls.append(timed(lambda: trender.render(scene, 16, device=dev)))
+        counts.append(noise1d.LAUNCHES)
+    syncs = host_syncs(lambda: trender.render(scene, 16, device=dev))
+    rates = ", ".join(f"{128 * 128 * 16 / w / 1e3:.2f}" for w in walls)
+    print(f"config 3, 16 spp in one batch: {walls[0]:.4f} s, {walls[1]:.4f} "
+          f"s ({rates} Ksamples/s); K3 launches {counts}; host syncs "
+          f"{syncs} ({card_line})", flush=True)
+    noise1d.LAUNCHES = 0
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        wall = timed(lambda: trender.render(scene, 16, device=dev))
+    n_k3 = noise1d.LAUNCHES
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    k3_ms = sum(e.self_device_time_total for e in kern
+                if "noise1d_sum_kernel" in e.key) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    launch = [e for e in events if e.key.startswith("cudaLaunchKernel")]
+    table = profile_table(prof, "profile_mirror1d_16spp.txt")
+    print(f"config 3, 16 spp under torch.profiler: wall {wall * 1e3:.1f} ms,"
+          f" device {dev_ms:.1f} ms (busy {dev_ms / (wall * 1e3):.3f} of the"
+          f" profiled wall, {dev_ms / (min(walls) * 1e3):.3f} of the fastest"
+          f" unprofiled wall), K3 {k3_ms:.1f} ms over {n_k3} launches "
+          f"({k3_ms / max(n_k3, 1):.4f} ms each); cudaLaunchKernel "
+          f"x{sum(e.count for e in launch)}, "
+          f"{sum(e.cpu_time_total for e in launch) / 1e3:.1f} ms host "
+          f"({card_line}); top kernels: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
+                      f" x{e.count}" for e in top)
+          + f"; table in {table}", flush=True)
+    if dev_ms <= 0 or k3_ms <= 0:
+        raise RuntimeError("the profiler saw no device time for config 3")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -435,7 +567,7 @@ def main():
     sys.path.insert(0, ROOT)
     from tungsten_tpu_torch import render as trender
     from tungsten_tpu_torch.io.image import read_pfm
-    from tungsten_tpu_torch.kernels import noise3d
+    from tungsten_tpu_torch.kernels import noise1d, noise3d
     from tungsten_tpu_torch.kernels import ws_trace as wst
     from tungsten_tpu_torch.scene.parse import load_scene, scene_from_dict
     dev = torch.device("cuda")
@@ -445,15 +577,16 @@ def main():
     def done(t0):
         print(f"-- {time.perf_counter() - t0:.1f} s", flush=True)
 
-    phase("build K1 and K5/K4, in parallel")
+    phase("build K1, K3 and K5/K4, in parallel")
     t0 = time.perf_counter()
 
     def build(mod):
         t = time.perf_counter()
         return mod.build(), time.perf_counter() - t
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        jobs = {mod: pool.submit(build, mod) for mod in (noise3d, wst)}
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = {mod: pool.submit(build, mod)
+                for mod in (noise3d, noise1d, wst)}
     for mod, job in jobs.items():
         log, secs = job.result()
         print(f"built {os.path.relpath(mod.SOURCE, ROOT)} for sm_90a in "
@@ -507,6 +640,11 @@ def main():
               f"(median of 20, CUDA events; {card_line}); bound "
               f"{b_ms:.4f} ms ({b_by})", flush=True)
     del p, seed
+    done(t0)
+
+    phase("K3 against its plain twin")
+    t0 = time.perf_counter()
+    k3_err, k3_times = k3_checks(noise1d, dev, card_line)
     done(t0)
 
     phase("K5 and K4 against their plain twins (config 4a rays, n=1024)")
@@ -567,11 +705,36 @@ def main():
         check_rays(most_rays, "K4")
         done(t0)
 
+        m1d = {}
+        for what, (path, _) in M1D_SCENES.items():
+            phase(f"{what} (128x128, 16 spp) through the CLI")
+            t0 = time.perf_counter()
+            noise3d.LAUNCHES = noise1d.LAUNCHES = noise1d.MOST_POINTS = 0
+            wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
+            img, wall, peak = render_cli(trender, path, 16, tmp,
+                                         os.path.basename(path)[:-5])
+            m1d[what] = noise1d.LAUNCHES
+            lum = check_image(img, what)
+            print(f"mean luminance {lum:.4f}, K3 launches {noise1d.LAUNCHES}"
+                  f", K1 launches {noise3d.LAUNCHES}; {wall:.2f} s with scene"
+                  f" load ({128 * 128 * 16 / wall / 1e3:.2f} Ksamples/s), "
+                  f"peak device memory {peak / 2 ** 30:.2f} GiB "
+                  f"({card_line})", flush=True)
+            if (noise1d.LAUNCHES <= 0 or noise3d.LAUNCHES
+                    or wst.MARCH_LAUNCHES or wst.TRACE_LAUNCHES):
+                raise RuntimeError(f"the {what} render did not go through "
+                                   "K3 alone")
+            check_k3_points(noise1d, what)
+            done(t0)
+
     phase("timing runs (128x128)")
     t0 = time.perf_counter()
+    noise1d.MOST_POINTS = 0
     scene128, _ = load_scene(SCENE, res_override=(128, 128), device=dev)
     ws128, _ = load_scene(WS_SCENE, res_override=(128, 128), device=dev)
-    for what, sc, spp in (("config 1", scene128, 16), ("config 4a", ws128, 8)):
+    m1d128, _ = load_scene(M1D_SCENES["config 3"][0], device=dev)
+    for what, sc, spp in (("config 1", scene128, 16), ("config 4a", ws128, 8),
+                          ("config 3", m1d128, 16)):
         film = None
 
         def run():
@@ -596,7 +759,9 @@ def main():
             ("config 4a, step_size 0 (record only: the golden was "
              "rendered with the fixed-step march)",
              scene_from_dict(ws_doc(0.0, (64, 64)), device=dev)[0],
-             WS_GOLDEN, False)):
+             WS_GOLDEN, False),
+            *((what, load_scene(path, res_override=(64, 64), device=dev)[0],
+               gold, True) for what, (path, gold) in M1D_SCENES.items())):
         ours = (trender.render(sc, 48, device=dev) / 48).cpu().numpy()
         ratio, frac_bad = golden_bucket_test(ours, read_pfm(gold), 48)
         print(f"{what}: energy ratio {ratio:.4f} (0.9-1.1), frac_bad "
@@ -605,6 +770,7 @@ def main():
             raise RuntimeError(f"the golden bucket test of {what} failed")
     for name in ("K5", "K4"):  # the timing and golden renders too
         check_rays(most_rays, name)
+    check_k3_points(noise1d, "the timing and golden renders")
     done(t0)
 
     if args.profile:
@@ -612,6 +778,8 @@ def main():
         t0 = time.perf_counter()
         profile(trender, noise3d, wst, scene128, ws128,
                 scene_from_dict(ws_doc(0.0), device=dev)[0], dev, card_line)
+        profile_mirror(trender, noise1d, m1d128, dev, card_line)
+        check_k3_points(noise1d, "the profiled renders")
         done(t0)
 
     if "jax" in sys.modules or "tungsten_tpu" in sys.modules:
@@ -627,6 +795,14 @@ def main():
         "launches": k1_launches, "max_abs_err": k1_err, "ms": t_k,
         "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
+    t_k, t_p, b_ms, b_by = k3_times[K3_LINE_POINTS]
+    kernels.append({
+        "name": "K3 noise1d_sum", "route": "cuda",
+        "source": "tungsten_tpu_torch/csrc/noise1d.cu",
+        "replaces": "tungsten_tpu/ops/sparse_conv_pallas.py:321",
+        "launches": m1d["config 3"], "max_abs_err": k3_err, "ms": t_k,
+        "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
     for name, fn, line, n in (("K5", "ws_march_chunk", 169, k5_launches),
                               ("K4", "ws_trace_chunk", 45, k4_launches)):
         kernels.append({

@@ -1,6 +1,6 @@
-"""Kernels K1, K5 and K4 on the card, against their plain PyTorch twins,
-and the config-1 and config-4a renders on the card against the same
-renders on the CPU.
+"""Kernels K1, K3, K5 and K4 on the card, against their plain PyTorch
+twins, and the config-1, config-4a and config-3 renders on the card
+against the same renders on the CPU.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they are
 marked `cuda` and skip without one.  They import no JAX, so they run on a
@@ -8,7 +8,8 @@ machine that has only PyTorch:
 `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py`.
 
 Tolerances: K1 vs twin atol 1e-5 (a raw sum of at most 81 unit-bounded
-fp32 terms; measured 0 on an H100).  K5/K4 vs twin on 4096 rays x 1024
+fp32 terms; measured 0 on an H100); K3 vs twin atol 1e-5 (at most 9
+such terms).  K5/K4 vs twin on 4096 rays x 1024
 basis functions of config 4a, chunk after chunk: flags or decisions differ
 on at most 0.1% of rays (the warp sums add in another order than the
 twin's, so a value within rounding of 0 may decide otherwise), and every
@@ -24,7 +25,7 @@ import pytest
 import torch
 
 from tungsten_tpu_torch import render as trender
-from tungsten_tpu_torch.kernels import noise3d
+from tungsten_tpu_torch.kernels import noise1d, noise3d
 from tungsten_tpu_torch.kernels import ws_trace as wst
 from tungsten_tpu_torch.models import media as md
 from tungsten_tpu_torch.scene.parse import load_scene
@@ -32,6 +33,7 @@ from tungsten_tpu_torch.scene.parse import load_scene
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = os.path.join(ROOT, "scenes", "gpis-sphere-box.json")
 WS_SCENE = os.path.join(ROOT, "scenes", "gpis-weight-space.json")
+M1D_SCENE = os.path.join(ROOT, "scenes", "gpis-mirror-1d-corrxy.json")
 
 
 @pytest.fixture
@@ -44,7 +46,7 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [1, 3])
 def test_k1_kernel_matches_twin_on_the_card(cuda, K):
-    scene, _ = load_scene(SCENE)
+    scene, _ = load_scene(SCENE, device="cpu")
     cov = scene.media[0].gp.cov
     m6 = cov.splat_form().tolist() + [0.0, 0.0, 0.0]
     kr = float(cov.splat_radius())
@@ -58,6 +60,23 @@ def test_k1_kernel_matches_twin_on_the_card(cuda, K):
     torch.cuda.synchronize()
     assert noise3d.LAUNCHES == before + 1
     want = noise3d.noise3d_sum_s_ref(p, seed, kr, m6, K)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_k3_kernel_matches_twin_on_the_card(cuda, K):
+    r = np.random.default_rng(17)
+    n = (1 << 16) + 5  # a ragged tail
+    pz = torch.from_numpy(r.uniform(-40.0, 40.0, n).astype(np.float32))
+    seed = torch.from_numpy(r.integers(0, 2 ** 32, n, dtype=np.uint64)
+                            .astype(np.int64))
+    before = noise1d.LAUNCHES
+    got = noise1d.noise1d_sum(pz.to(cuda), seed.to(cuda), 3.0, K)
+    torch.cuda.synchronize()
+    assert noise1d.LAUNCHES == before + 1 and noise1d.MOST_POINTS >= n
+    want = noise1d.noise1d_sum_ref(pz, seed, 3.0, K)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=1e-5)
 
@@ -126,13 +145,20 @@ def test_ws_render_on_the_card_goes_through_k5_and_matches_cpu(cuda):
     _render_on_the_card_matches_cpu(cuda, WS_SCENE, "k5")
 
 
+@pytest.mark.cuda
+def test_mirror_1d_render_on_the_card_goes_through_k3_and_matches_cpu(cuda):
+    _render_on_the_card_matches_cpu(cuda, M1D_SCENE, "k3")
+
+
 def _render_on_the_card_matches_cpu(cuda, path, kernel):
-    scene, _ = load_scene(path, res_override=(8, 8))
+    scene, _ = load_scene(path, res_override=(8, 8), device="cpu")
     ref = trender.render(scene, 1, device="cpu").numpy()
-    noise3d.LAUNCHES = wst.MARCH_LAUNCHES = 0
+    noise3d.LAUNCHES = noise1d.LAUNCHES = wst.MARCH_LAUNCHES = 0
     got = trender.render(scene, 1, device=cuda).cpu().numpy()
     if kernel == "k1":
-        assert noise3d.LAUNCHES > 0
+        assert noise3d.LAUNCHES > 0 and noise1d.LAUNCHES == 0
+    elif kernel == "k3":
+        assert noise1d.LAUNCHES > 0 and noise3d.LAUNCHES == 0
     else:
         assert wst.MARCH_LAUNCHES > 0 and noise3d.LAUNCHES == 0
     assert np.isfinite(got).all()

@@ -31,7 +31,7 @@ def _setup():
     jscene, _ = jload_scene(SCENE)
     jscene = dataclasses.replace(jscene, media=tuple(
         dataclasses.replace(m, march_block=1) for m in jscene.media))
-    tscene = convert.scene_from_numpy(convert.flatten(jscene))
+    tscene = convert.scene_from_numpy(convert.flatten(jscene), device="cpu")
     r = np.random.default_rng(3)
     center = np.array([0.0, 0.9, 0.0], np.float32)
     # half the origins inside the sphere (radius 0.45), half outside it

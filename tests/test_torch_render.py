@@ -49,20 +49,21 @@ def _assert_trees_equal(a, b):
 
 def test_load_scene_equals_converted_jax_scene():
     jscene, _ = jload_scene(SCENE)
-    tscene, rdoc = tload_scene(SCENE)
+    tscene, rdoc = tload_scene(SCENE, device="cpu")
     assert rdoc["spp"] == 4
     assert tscene.camera.res_x == 128 and tscene.media[0].bounds is not None
     _assert_trees_equal(
         convert.flatten(tscene),
-        convert.flatten(convert.scene_from_numpy(convert.flatten(jscene))))
+        convert.flatten(convert.scene_from_numpy(convert.flatten(jscene),
+                                                 device="cpu")))
 
 
 def test_unported_types_raise():
     from tungsten_tpu_torch.scene.parse import scene_from_dict
     with pytest.raises(NotImplementedError, match="mirror"):
-        scene_from_dict({"bsdfs": [{"type": "mirror"}]})
+        scene_from_dict({"bsdfs": [{"type": "mirror"}]}, device="cpu")
     with pytest.raises(NotImplementedError, match="sphere"):
-        scene_from_dict({"primitives": [{"type": "sphere"}]})
+        scene_from_dict({"primitives": [{"type": "sphere"}]}, device="cpu")
 
 
 def test_render_16x16_matches_jax():
@@ -75,7 +76,7 @@ def test_render_16x16_matches_jax():
                     for m in jscene.media))
     f = jax.jit(jrender_pass)
     ref = sum(np.asarray(f(jscene, jnp.int32(s))) for s in range(2))
-    tscene = convert.scene_from_numpy(convert.flatten(jscene))
+    tscene = convert.scene_from_numpy(convert.flatten(jscene), device="cpu")
     got = trender.render(tscene, 2, device="cpu").numpy()
     assert got.shape == (16, 16, 3) and np.isfinite(got).all()
     ok = (np.abs(got - ref) <= 1e-3 * (1.0 + np.abs(ref))).all(axis=-1)
@@ -86,7 +87,7 @@ def test_render_16x16_matches_jax():
 
 def test_samples_in_one_batch_equal_one_batch_each():
     from tungsten_tpu_torch.models.integrator import render_pass
-    tscene, _ = tload_scene(SCENE, res_override=(8, 8))
+    tscene, _ = tload_scene(SCENE, res_override=(8, 8), device="cpu")
     both = render_pass(tscene, torch.tensor([0, 1]))
     each = render_pass(tscene, 0) + render_pass(tscene, 1)
     np.testing.assert_array_equal(both.numpy(), each.numpy())
@@ -94,7 +95,7 @@ def test_samples_in_one_batch_equal_one_batch_each():
 
 def test_render_on_cuda_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    tscene, _ = tload_scene(SCENE, res_override=(4, 4))
+    tscene, _ = tload_scene(SCENE, res_override=(4, 4), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         trender.render(tscene, 1, device="cuda")
 

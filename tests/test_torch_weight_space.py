@@ -78,7 +78,8 @@ def _doc(step_size=0.02, n=N_BASIS, res=None):
 def _scenes(step_size=0.02, res=None):
     """(JAX scene, the port's scene converted from it)."""
     jscene, _ = jscene_from_dict(_doc(step_size, res=res))
-    return jscene, convert.scene_from_numpy(convert.flatten(jscene))
+    return jscene, convert.scene_from_numpy(convert.flatten(jscene),
+                                            device="cpu")
 
 
 def _t(a):
@@ -334,14 +335,15 @@ def test_media_match_jax(monkeypatch, step_size):
 def test_load_scene_equals_converted_jax_scene(tmp_path, step_size):
     path = tmp_path / "ws.json"
     path.write_text(json.dumps(_doc(step_size, n=1024)))
-    tscene, rdoc = tload_scene(str(path))
+    tscene, rdoc = tload_scene(str(path), device="cpu")
     assert rdoc["spp"] == 8
     med = tscene.media[0]
     assert (med.kind, med.basis_functions, med.ws_sphere_trace) == (
         tmd.GPIS_WEIGHT_SPACE, 1024, step_size == 0.0)
     jscene, _ = jscene_from_dict(_doc(step_size, n=1024))
     a = convert.flatten(tscene)
-    b = convert.flatten(convert.scene_from_numpy(convert.flatten(jscene)))
+    b = convert.flatten(convert.scene_from_numpy(convert.flatten(jscene),
+                                                 device="cpu"))
     assert a.keys() == b.keys()
     for k, va in a.items():
         if isinstance(va, np.ndarray):
@@ -355,7 +357,7 @@ def test_unsupported_weight_space_gp_raises():
     doc = _doc()
     doc["media"][0]["gaussian_process"]["mean"] = {"type": "linear"}
     with pytest.raises(NotImplementedError, match="linear"):
-        scene_from_dict(doc)
+        scene_from_dict(doc, device="cpu")
 
 
 @pytest.mark.parametrize("step_size", [0.02, 0.0])

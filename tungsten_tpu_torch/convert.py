@@ -23,6 +23,7 @@ from .models.integrator import Scene
 from .ops import sparse_conv as sc
 from .ops.covariance import SquaredExponentialCov
 from .ops.means import HomogeneousMean, SphericalMean
+from .scene.parse import check_device
 
 
 def flatten(obj, prefix=""):
@@ -50,9 +51,9 @@ def _require(cond, what):
                                   "tungsten_tpu_torch")
 
 
-def scene_from_numpy(tree, device="cpu"):
+def scene_from_numpy(tree, device="cuda"):
     """This package's Scene from a flattened JAX Scene (see `flatten`)."""
-    device = torch.device(device)
+    device = check_device(device)
 
     def t(key, dtype=torch.float32):
         return torch.as_tensor(np.array(tree[key]), dtype=dtype,
@@ -68,6 +69,12 @@ def scene_from_numpy(tree, device="cpu"):
     bsdf_kinds = np.asarray(tree["bsdfs.kind"])
     _require(np.isin(bsdf_kinds, bs.KINDS).all(),
              f"bsdf kinds {sorted(set(bsdf_kinds.tolist()))}")
+    # a mirror is ported as the phase function of a medium only
+    mirrors = set(np.nonzero(bsdf_kinds == bs.MIRROR)[0].tolist())
+    _require(not (mirrors - {tree[f"media.{i}.phase_bsdf"]
+                             for i in range(tree["media.__len__"])}
+                  or mirrors & set(np.asarray(tree["prims.bsdf"]).tolist())),
+             "a mirror bsdf outside a BRDF phase function")
     _require(tree["camera.kind"] == "pinhole"
              and tree["camera.filter_kind"] == "box",
              "a non-pinhole camera or non-box filter")
@@ -78,7 +85,8 @@ def scene_from_numpy(tree, device="cpu"):
                                             "ext_medium") else torch.float32)
         for f in dataclasses.fields(pr.PrimitiveSoA)})
     bsdfs = bs.BsdfTable(kind=t("bsdfs.kind", torch.int64),
-                         albedo=t("bsdfs.albedo"))
+                         albedo=t("bsdfs.albedo"),
+                         kinds=tuple(int(k) for k in bsdf_kinds))
 
     media = []
     for i in range(tree["media.__len__"]):
@@ -89,16 +97,23 @@ def scene_from_numpy(tree, device="cpu"):
                  and tree[m + "normal_method"] == "conditioned_gaussian"
                  and tree[m + "law"] is None, "this medium configuration")
         c = m + "cfg."
-        _require(not (tree[c + "isotropic_3d"] or tree[c + "one_d"]
+        _require(not (tree[c + "isotropic_3d"]
                       or tree[c + "surf_vol_phase_separate"]),
-                 "isotropic / 1D / phase-separated sampling")
+                 "isotropic / phase-separated sampling")
         cfg = sc.SparseConvConfig(
             global_seed=int(tree[c + "global_seed"]),
             impulse_density=t(c + "impulse_density"), ctxt=tree[c + "ctxt"],
             use_single_realization=tree[c + "use_single_realization"],
-            impulse_count=tree[c + "impulse_count"])
-        _require(kind == md.GPIS_WEIGHT_SPACE or not cfg.activate_conditioning,
-                 "renewal conditioning")
+            impulse_count=tree[c + "impulse_count"],
+            one_d=tree[c + "one_d"], scheme=tree[c + "scheme"],
+            correlation_xy=tree[c + "correlation_xy"])
+        _require(not (cfg.one_d and kind == md.GPIS_WEIGHT_SPACE),
+                 "1D sampling of a weight-space medium")
+        _require(cfg.one_d or bsdf_kinds[tree[m + "phase_bsdf"]] != bs.MIRROR,
+                 "a mirror phase function without 1D sampling")
+        _require(kind == md.GPIS_WEIGHT_SPACE or not cfg.activate_conditioning
+                 or (cfg.one_d and cfg.ctxt == sc.CTXT_RENEWAL_PLUS),
+                 "renewal conditioning of 3D realizations")
         g = m + "gp."
         _require(all(tree[g + k] is None for k in (
             "mean_additional", "csg_right", "global_cond", "color_field",

@@ -1,5 +1,5 @@
 """BSDFs in a small table, evaluated per hit by row index (the lambert,
-null and forward kinds of tungsten_tpu/models/bsdfs.py).
+null, mirror and forward kinds of tungsten_tpu/models/bsdfs.py).
 
 All functions work in the local shading frame (+z = normal) and are batched
 over the leading dimensions of `bi` / `wi`.
@@ -14,14 +14,17 @@ import torch
 # kind numbers are the JAX package's, so converted tables stay valid
 NULL = 0
 LAMBERT = 1
+MIRROR = 2
 FORWARD = 6
-KINDS = (NULL, LAMBERT, FORWARD)
+KINDS = (NULL, LAMBERT, MIRROR, FORWARD)
+SPECULAR_KINDS = (MIRROR,)  # the ported kinds of the JAX SPECULAR_KINDS
 
 
 @dataclasses.dataclass(frozen=True)
 class BsdfTable:
     kind: torch.Tensor  # [B] int64
     albedo: torch.Tensor  # [B, 3]
+    kinds: tuple  # the kinds again, on the host, for static queries
 
 
 def build_table(bsdfs, device):
@@ -34,7 +37,8 @@ def build_table(bsdfs, device):
         kind=torch.tensor([b["kind"] for b in rows], dtype=torch.int64,
                           device=device),
         albedo=torch.tensor([list(b["albedo"]) for b in rows],
-                            dtype=torch.float32, device=device))
+                            dtype=torch.float32, device=device),
+        kinds=tuple(int(b["kind"]) for b in rows))
 
 
 def is_forward(table, bi):
@@ -45,6 +49,10 @@ def is_null(table, bi):
     return table.kind[bi] == NULL
 
 
+def is_pure_specular(table, bi):
+    return table.kind[bi] == MIRROR
+
+
 def cosine_hemisphere(u1, u2):
     phi = u1 * 2.0 * math.pi
     r = torch.sqrt(u2)
@@ -53,7 +61,8 @@ def cosine_hemisphere(u1, u2):
 
 
 def eval_bsdf(table, bi, wi, wo):
-    """f(wi, wo) * |cos(wo)|; the Dirac kinds (null, forward) give 0."""
+    """f(wi, wo) * |cos(wo)|; the Dirac kinds (null, mirror, forward)
+    give 0."""
     k = table.kind[bi]
     czi, czo = wi[..., 2], wo[..., 2]
     f_lam = table.albedo[bi] / math.pi * torch.clamp(czo, min=0.0)[..., None]
@@ -78,10 +87,14 @@ def sample_bsdf(table, bi, wi, u):
     pdf_d = torch.clamp(wo_d[..., 2], min=1e-6) / math.pi
     lam = k == LAMBERT
     fwd = k == FORWARD
-    wo = torch.where(fwd[..., None], -wi, wo_d)
-    weight = torch.where(lam[..., None], albedo,
+    mir = k == MIRROR
+    wo_m = torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+    wo = torch.where(fwd[..., None], -wi,
+                     torch.where(mir[..., None], wo_m, wo_d))
+    weight = torch.where((lam | mir)[..., None], albedo,
                          torch.where(fwd[..., None], 1.0, 0.0))
     pdf = torch.where(lam, pdf_d, 1.0)
+    # a mirror reflects from either side
     valid = torch.where(lam, wi[..., 2] > 0, k != NULL)
-    return {"wo": wo, "weight": weight, "pdf": pdf, "specular": fwd,
+    return {"wo": wo, "weight": weight, "pdf": pdf, "specular": fwd | mir,
             "valid": valid}

@@ -7,6 +7,10 @@ material sampling), share one shadow walk over a [2R] ray batch per bounce.
 NEE sees the next segment's realization (pss with bounce + 1).  Emissive
 hits count only after specular chains, since NEE already carries the
 material-sampling half.  Forward (boundary) hops do not consume bounces.
+A mirror phase function (on a 1D-sampled medium) is a Dirac lobe: NEE
+samples the normal the light direction needs and weighs it with the pdf of
+sampling that normal (`sparse_conv.nee_pdf`), gated by the crossing's 1D
+sampling scheme.
 
 A loop ends early when no ray is left to advance, and a medium or shadow
 hop is skipped when no ray is in it: every result there is masked, so the
@@ -18,9 +22,10 @@ import dataclasses
 
 import torch
 
+from ..ops import sparse_conv as sc
 from ..utils import rng
 from ..utils.vecmath import (dot, frame_to_local, frame_to_world,
-                             tangent_frame)
+                             safe_normalize, tangent_frame)
 from . import bsdfs as bs
 from . import media as md
 from . import phase as ph
@@ -107,10 +112,13 @@ def _next_bounce(pss):
     return torch.cat([pss[:, :3], pss[:, 3:] + 1], dim=1)
 
 
-def next_event(scene, p_vtx, is_vol, rd, aniso, normal, tfr, bfr, wi_local,
-               bsdf_idx, med_idx, med_state, pss_next, draw, bounce, gate):
+def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
+               bfr, wi_local, bsdf_idx, med_idx, med_state, pss_next, draw,
+               bounce, gate):
     """One-light NEE with both MIS strategies for surface and volume
-    vertices, in one [2R] shadow walk.  Returns radiance [R, 3]."""
+    vertices, in one [2R] shadow walk.  scheme and t_seg are the 1D
+    sampling scheme and segment length of each volume vertex.  Returns
+    radiance [R, 3]."""
     R = p_vtx.shape[0]
     nl = scene.lights.shape[0]
     if nl == 0:
@@ -133,21 +141,40 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, normal, tfr, bfr, wi_local,
     wo_local = frame_to_local(tfr, bfr, normal, d1)
     f_surf = bs.eval_bsdf(scene.bsdfs, bsdf_idx, wi_local, wo_local)
     pdf_surf = bs.pdf_bsdf(scene.bsdfs, bsdf_idx, wi_local, wo_local)
-    # forward and null are Dirac: light sampling cannot reach them
-    pure_spec = (bs.is_forward(scene.bsdfs, bsdf_idx)
+    # null, mirror and forward are Dirac: light sampling cannot reach them
+    pure_spec = (bs.is_pure_specular(scene.bsdfs, bsdf_idx)
+                 | bs.is_forward(scene.bsdfs, bsdf_idx)
                  | bs.is_null(scene.bsdfs, bsdf_idx))
     f_vol = torch.zeros_like(f_surf)
     pdf_vol = torch.zeros_like(pdf_surf)
+    aniso_shadow = aniso
+    vol_lvalid = torch.ones_like(is_vol)
+    disable_mis = torch.zeros_like(is_vol)
     for mi, medium in enumerate(scene.media):
         in_m = is_vol & (med_idx == mi)
-        f_vol = _where3(in_m, ph.eval_phase(medium, scene.bsdfs, rd, d1,
-                                            aniso), f_vol)
-        pdf_vol = torch.where(in_m, ph.pdf_phase(medium, scene.bsdfs, rd, d1,
-                                                 aniso), pdf_vol)
+        # a Dirac phase (the parser takes one on 1D media only)
+        if ph.phase_is_specular(medium, scene.bsdfs):
+            half_n = safe_normalize(-rd + d1)
+            npdf = sc.nee_pdf(medium.cfg, medium.gp, med_state.coeff1, rd,
+                              half_n, p_vtx, t_seg, pss_next,
+                              scene.scene_seed)
+            f_m = scene.bsdfs.albedo[medium.phase_bsdf] * npdf[:, None]
+            pdf_m = npdf
+            g_ov = sc.nee_grad(medium.cfg, medium.gp, med_state.coeff1, rd,
+                               half_n, p_vtx, pss_next, scene.scene_seed)
+            aniso_shadow = _where3(in_m, g_ov, aniso_shadow)
+            vol_lvalid = vol_lvalid & torch.where(
+                in_m, scheme != sc.SCHEME_UNI, True)
+            disable_mis = disable_mis | (in_m & (scheme == sc.SCHEME_NEE))
+        else:
+            f_m = ph.eval_phase(medium, scene.bsdfs, rd, d1, aniso)
+            pdf_m = ph.pdf_phase(medium, scene.bsdfs, rd, d1, aniso)
+        f_vol = _where3(in_m, f_m, f_vol)
+        pdf_vol = torch.where(in_m, pdf_m, pdf_vol)
     f1 = _where3(is_vol, f_vol, f_surf)
     mat_pdf1 = torch.where(is_vol, pdf_vol, pdf_surf)
     valid1 = gate & lvalid & (f1.amax(dim=-1) > 0.0)
-    valid1 = valid1 & (is_vol | ~pure_spec)
+    valid1 = valid1 & torch.where(is_vol, vol_lvalid, ~pure_spec)
     o1 = p_vtx + _where3(is_vol, 0.0, normal * torch.sign(wo_local[:, 2:3])
                          * EPS)
 
@@ -162,8 +189,18 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, normal, tfr, bfr, wi_local,
         psamp = ph.sample_phase(medium, scene.bsdfs, rd, aniso, u)
         d2 = _where3(in_m, psamp["w"], d2)
         w2 = _where3(in_m, psamp["weight"], w2)
-        pdf2 = torch.where(in_m, psamp["pdf"], pdf2)
-        valid2 = valid2 | (gate & in_m & psamp["valid"])
+        v_m = psamp["valid"]
+        if ph.phase_is_specular(medium, scene.bsdfs):
+            spdf = sc.nee_pdf(medium.cfg, medium.gp, med_state.coeff1, rd,
+                              safe_normalize(-rd + psamp["w"]), p_vtx, t_seg,
+                              pss_next, scene.scene_seed)
+            pdf2 = torch.where(in_m, spdf, pdf2)
+            # UNI: the main walk collects direct hits; NEE: light sampling
+            # alone
+            v_m = v_m & (scheme == sc.SCHEME_MIS)
+        else:
+            pdf2 = torch.where(in_m, psamp["pdf"], pdf2)
+        valid2 = valid2 | (gate & in_m & v_m)
     o2 = p_vtx + _where3(is_vol, 0.0, normal
                          * torch.sign(s_surf["wo"][:, 2:3]) * EPS)
     isect2 = pr.intersect(prims, o2, d2, EPS, INF)
@@ -174,19 +211,22 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, normal, tfr, bfr, wi_local,
     ld_pdf2 = pr.direct_pdf(prims, light, d2, t2)
 
     # ---- one combined shadow walk ----------------------------------------
-    # surface NEE starts a blank segment; volume NEE keeps the state
-    state = md.select(is_vol, med_state, med_state.reset_where(
-        torch.ones_like(is_vol)))
+    # surface NEE starts a blank segment; volume NEE keeps the state, with
+    # the light-sampled normal in place of the sampled one for strategy 1
+    blank = med_state.reset_where(torch.ones_like(is_vol))
+    state1 = md.select(is_vol, dataclasses.replace(
+        med_state, last_aniso=aniso_shadow), blank)
+    state2 = md.select(is_vol, med_state, blank)
     uj = draw(bounce, 43)
     tr = shadow_walk(
         scene, torch.cat([o1, o2]), torch.cat([d1, d2]),
         torch.cat([torch.where(valid1, ldist, 1.0), t2]),
         torch.cat([light, light]), torch.cat([med_idx, med_idx]),
-        md.cat_states(state, state), torch.cat([pss_next, pss_next]),
+        md.cat_states(state1, state2), torch.cat([pss_next, pss_next]),
         torch.cat([uj, uj]), torch.cat([valid1, hit_light2]))
     tr1, tr2 = tr[:R], tr[R:]
 
-    mis1 = _power_heuristic(lpdf, mat_pdf1)
+    mis1 = torch.where(disable_mis, 1.0, _power_heuristic(lpdf, mat_pdf1))
     w_est1 = tr1 * (mis1 / torch.clamp(lpdf, min=1e-9) * float(nl))[:, None]
     c1 = _where3(valid1 & (tr1.amax(dim=-1) > 0), f1 * light_e * w_est1, 0.0)
     mis2 = _power_heuristic(pdf2, ld_pdf2)
@@ -238,6 +278,7 @@ def trace(scene, px, py, spp_idx):
         med_t = far
         med_aniso = med_state.last_aniso
         med_weight = torch.ones_like(throughput)
+        scheme = torch.zeros_like(bounce)
         for mi, medium in enumerate(scene.media):
             in_m = active & (med_idx == mi)
             if not bool(in_m.any()):
@@ -250,6 +291,7 @@ def trace(scene, px, py, spp_idx):
             med_t = torch.where(in_m & ~res["exited"], res["t"], med_t)
             med_aniso = _where3(in_m, res["aniso"], med_aniso)
             med_weight = _where3(in_m, res["weight"], med_weight)
+            scheme = torch.where(in_m, res["scheme"], scheme)
             failed = failed | (in_m & res["failed"])
 
         active = active & ~failed
@@ -285,9 +327,9 @@ def trace(scene, px, py, spp_idx):
         vol_gate = vol_event & last & scene.enable_volume_light_sampling
         gate = surf_gate | vol_gate
         p_vtx = _where3(vol_event, vol_p, hit_p)
-        c = next_event(scene, p_vtx, vol_event, rd, med_aniso, sh_normal, tfr,
-                       bfr, wi_local, bsdf_idx, med_idx, med_state, pss_next,
-                       draw, bounce, gate)
+        c = next_event(scene, p_vtx, vol_event, rd, med_aniso, scheme, med_t,
+                       sh_normal, tfr, bfr, wi_local, bsdf_idx, med_idx,
+                       med_state, pss_next, draw, bounce, gate)
         emission = emission + _where3(gate, throughput * c, 0.0)
 
         # ---- volume scattering --------------------------------------------
@@ -300,6 +342,9 @@ def trace(scene, px, py, spp_idx):
             new_rd = _where3(in_m, psamp["w"], new_rd)
             throughput = throughput * _where3(in_m, psamp["weight"], 1.0)
             phase_ok = phase_ok & torch.where(in_m, psamp["valid"], True)
+            # the JAX package's ~(enable_volume_light_sampling &
+            # (medium_bounces > 0 | low_order_scattering)), with
+            # low_order_scattering true (the only setting the parser takes)
             was_specular = torch.where(
                 in_m, not scene.enable_volume_light_sampling, was_specular)
         active = active & (phase_ok | ~vol_event)

@@ -6,10 +6,12 @@ realization, refines the crossing and samples the surface normal there;
 `transmittance` runs the same search for binary visibility.
 
 Sparse-conv noise: the march is a Python loop over steps for the whole
-batch, with the raw noise sum in K1.  It stops when no ray is still
-marching, which reads `marching.any()` on the host once per step.  The JAX
-package's `[S, R]` step blocking only fills TPU lanes; with one step per
-iteration the evaluated steps are the same.
+batch, with the raw noise sum in K1 (3D) or K3 (1D sampling).  It stops
+when no ray is still marching, which reads `marching.any()` on the host
+once per step.  The JAX package's `[S, R]` step blocking only fills TPU
+lanes; with one step per iteration the evaluated steps are the same.
+Per-path 1D realizations under renewal+ are first conditioned at the
+segment start on the value and normal the path carries (`_precondition`).
 
 Weight space: each ray synthesises its RFF realization from its (pixel,
 sample, bounce) words, then marches it with K5 in fixed steps (step_size
@@ -59,38 +61,57 @@ class Medium:
 
 @dataclasses.dataclass(frozen=True)
 class MediumState:
-    """Per-ray medium memory read by the forward slice: whether the segment
-    starts at a surface (first_scatter) and the last sampled normal."""
+    """Per-ray medium memory: whether the segment starts at a surface
+    (first_scatter), the last sampled normal and the field value at the
+    last segment end (the targets of renewal conditioning), the path length
+    through media so far (info_t), the 1D sampling scheme at the last
+    crossing, and the 1D conditioning coefficients of the current
+    segment."""
     first_scatter: torch.Tensor  # [R] bool
     last_aniso: torch.Tensor  # [R, 3]
+    last_val: torch.Tensor  # [R]
+    info_t: torch.Tensor  # [R]
+    scheme: torch.Tensor  # [R] int64
+    coeff1: sc.Coeffs
 
     @staticmethod
     def make(n, device):
         aniso = torch.zeros(n, 3, dtype=torch.float32, device=device)
         aniso[:, 0] = 1.0
-        return MediumState(first_scatter=torch.ones(n, dtype=torch.bool,
-                                                    device=device),
-                           last_aniso=aniso)
+        zeros = torch.zeros(n, dtype=torch.float32, device=device)
+        return MediumState(
+            first_scatter=torch.ones(n, dtype=torch.bool, device=device),
+            last_aniso=aniso, last_val=zeros, info_t=zeros,
+            scheme=torch.zeros(n, dtype=torch.int64, device=device),
+            coeff1=sc.Coeffs.zeros(n, device))
 
     def reset_where(self, mask):
-        """Fresh state on rays that cross a boundary."""
-        return select(mask, MediumState.make(mask.shape[0], mask.device),
-                      self)
+        """Fresh state on rays that cross a boundary; the path length
+        through media is kept."""
+        fresh = dataclasses.replace(
+            MediumState.make(mask.shape[0], mask.device), info_t=self.info_t)
+        return select(mask, fresh, self)
+
+
+def _map_fields(fn, a, b):
+    """fn over the tensor leaves of two MediumStates or two Coeffs."""
+    return type(a)(**{
+        f.name: (_map_fields(fn, getattr(a, f.name), getattr(b, f.name))
+                 if dataclasses.is_dataclass(getattr(a, f.name))
+                 else fn(getattr(a, f.name), getattr(b, f.name)))
+        for f in dataclasses.fields(a)})
 
 
 def select(mask, a, b):
-    """Field-wise where(mask, a, b) over two MediumStates."""
+    """Field-wise where(mask, a, b) over two MediumStates or two Coeffs."""
     def pick(x, y):
         return torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 1)),
                            x, y)
-    return MediumState(**{f.name: pick(getattr(a, f.name), getattr(b, f.name))
-                          for f in dataclasses.fields(MediumState)})
+    return _map_fields(pick, a, b)
 
 
 def cat_states(a, b):
-    return MediumState(**{f.name: torch.cat([getattr(a, f.name),
-                                             getattr(b, f.name)])
-                          for f in dataclasses.fields(MediumState)})
+    return _map_fields(lambda x, y: torch.cat([x, y]), a, b)
 
 
 def _clamp_far_to_bounds(med, ro, rd, near, far):
@@ -108,9 +129,25 @@ def _clamp_far_to_bounds(med, ro, rd, near, far):
     return torch.minimum(far, torch.maximum(t_exit, near) + margin)
 
 
-def make_value_at(med, scene_seed, ro, rd, pss):
+def make_value_at(med, scene_seed, ro, rd, pss, state):
     """value_at(t [R]) -> (f [R], gp_id [R]) along each ray."""
+    if med.cfg.one_d:
+        return fast.make_value_at_1d(med.cfg, med.gp, state.coeff1, ro, rd,
+                                     pss, scene_seed)
     return fast.make_value_at(med.cfg, med.gp, ro, rd, pss, scene_seed)
+
+
+def _precondition(med, scene_seed, ro, rd, near, state, pss, active):
+    """Condition each fresh per-path realization at its segment start on
+    the value and normal the path carries (rays that start at a surface
+    keep their coefficients)."""
+    if med.kind != GPIS_SPARSE_CONV or not med.cfg.activate_conditioning:
+        return state
+    new = sc.conditioning(med.cfg, med.gp, state.coeff1,
+                          ro + near[:, None] * rd, rd, state.last_val,
+                          state.last_aniso, pss, scene_seed)
+    return dataclasses.replace(state, coeff1=select(
+        active & ~state.first_scatter, new, state.coeff1))
 
 
 def march(med, value_at, near, far, state, u_jitter, active, refine=True):
@@ -202,12 +239,16 @@ def _ws_search(med, ro, rd, near, far, first_scatter, pss, u_jitter,
     return m["hit"], m["t"], real
 
 
-def sample_gradient(med, scene_seed, p, pss, real=None):
+def sample_gradient(med, scene_seed, p, pss, real=None, rd=None,
+                    t_segment=None, coeff1=None):
     """The conditioned-Gaussian normal: the GP gradient at p [R, 3]; a
-    weight-space medium takes the rays' realization `real`."""
+    weight-space medium takes the rays' realization `real`, a 1D-sampled
+    one the rays' directions, distances from the segment start and
+    conditioning coefficients."""
     if med.kind == GPIS_WEIGHT_SPACE:
         return ws.evaluate_gradient(real, med.gp, p)
-    return sc.eval_gradient(med.cfg, med.gp, p, pss, scene_seed)
+    return sc.eval_gradient(med.cfg, med.gp, p, pss, scene_seed, ray_dir=rd,
+                            t_segment=t_segment, coeff1=coeff1)
 
 
 def _far_eff(med, ro, rd, near, far):
@@ -218,12 +259,13 @@ def _far_eff(med, ro, rd, near, far):
 
 def _crossing_ws(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
                  active):
-    """(hit, t, normal, gp_id) of the weight-space search, computed on the
-    active rays only; inactive rays get no hit, t = far and their last
-    normal."""
+    """(hit, t, normal, value at t, gp_id) of the weight-space search,
+    computed on the active rays only; inactive rays get no hit, t = far,
+    their last normal and their last value."""
     hit = torch.zeros_like(active)
     t = far.clone()
     grad = state.last_aniso.clone()
+    val = state.last_val.clone()
     gp_id = torch.zeros(active.shape, dtype=torch.int64, device=ro.device)
     idx = torch.nonzero(active).squeeze(1)
     if idx.numel():
@@ -232,11 +274,11 @@ def _crossing_ws(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
             med, ro_a, rd_a, near[idx], far[idx], state.first_scatter[idx],
             pss_a, u_jitter[idx])
         ip = ro_a + t_a[:, None] * rd_a
-        _, gp_id[idx] = ws.evaluate(real, med.gp, ip)
+        val[idx], gp_id[idx] = ws.evaluate(real, med.gp, ip)
         grad[idx] = sample_gradient(med, scene_seed, ip, pss_a, real)
         hit[idx] = hit_a
         t[idx] = t_a
-    return hit, t, grad, gp_id
+    return hit, t, grad, val, gp_id
 
 
 def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
@@ -244,18 +286,23 @@ def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
     """Batched Medium::sampleDistance.
 
     Returns (result, new state).  result: exited [R] (no crossing), t [R],
-    weight [R, 3], aniso [R, 3] (the sampled normal), gp_id [R] and failed
-    [R] (wrong-sided, zero or non-finite normal: the path dies)."""
+    weight [R, 3], aniso [R, 3] (the sampled normal), gp_id [R], scheme [R]
+    (the 1D sampling scheme at the crossing) and failed [R] (wrong-sided,
+    zero or non-finite normal: the path dies)."""
     far_eff = _far_eff(med, ro, rd, near, far)
     if med.kind == GPIS_WEIGHT_SPACE:
-        hit, t, grad, gp_id = _crossing_ws(med, scene_seed, ro, rd, near,
-                                           far_eff, state, pss, u_jitter,
-                                           active)
+        hit, t, grad, end_val, gp_id = _crossing_ws(
+            med, scene_seed, ro, rd, near, far_eff, state, pss, u_jitter,
+            active)
     else:
-        value_at = make_value_at(med, scene_seed, ro, rd, pss)
+        state = _precondition(med, scene_seed, ro, rd, near, state, pss,
+                              active)
+        value_at = make_value_at(med, scene_seed, ro, rd, pss, state)
         hit, t = march(med, value_at, near, far_eff, state, u_jitter, active)
-        _, gp_id = value_at(t)
-        grad = sample_gradient(med, scene_seed, ro + t[:, None] * rd, pss)
+        end_val, gp_id = value_at(t)
+        grad = sample_gradient(med, scene_seed, ro + t[:, None] * rd, pss,
+                               rd=rd, t_segment=t - near,
+                               coeff1=state.coeff1)
 
     grad_ok = torch.isfinite(grad.sum(dim=-1))
     wrong_side = hit & (dot(grad, rd) > 0.0)
@@ -265,11 +312,19 @@ def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
     sig_s = med.sigma_s * med.density
     sig_t = torch.clamp(med.sigma_t, min=1e-9)
     weight = torch.where(hit[:, None], (sig_s / sig_t).expand(ro.shape), 1.0)
-    new_state = MediumState(
+    scheme = torch.where(
+        hit, sc.sampling_scheme(med.cfg, med.gp, ro + t[:, None] * rd),
+        sc.SCHEME_UNI)
+    new_state = dataclasses.replace(
+        state,
         first_scatter=torch.where(active, False, state.first_scatter),
-        last_aniso=torch.where(active[:, None], grad, state.last_aniso))
+        last_aniso=torch.where(active[:, None], grad, state.last_aniso),
+        last_val=torch.where(active, torch.where(hit, 0.0, end_val),
+                             state.last_val),
+        info_t=torch.where(active, state.info_t + t - near, state.info_t),
+        scheme=torch.where(active, scheme, state.scheme))
     return ({"exited": ~hit, "t": t, "weight": weight, "aniso": grad,
-             "gp_id": gp_id, "failed": failed}, new_state)
+             "gp_id": gp_id, "scheme": scheme, "failed": failed}, new_state)
 
 
 def transmittance(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
@@ -287,7 +342,9 @@ def transmittance(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
                 refine=False)
             hit[idx] = hit_a
     else:
-        value_at = make_value_at(med, scene_seed, ro, rd, pss)
+        state = _precondition(med, scene_seed, ro, rd, near, state, pss,
+                              active)
+        value_at = make_value_at(med, scene_seed, ro, rd, pss, state)
         hit, _ = march(med, value_at, near, far_eff, state, u_jitter, active,
                        refine=False)
     vis = torch.where(active & hit, 0.0, 1.0)

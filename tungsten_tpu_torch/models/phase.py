@@ -26,6 +26,12 @@ def pdf_phase(med, table, wi, wo, aniso):
     return bsdfs.pdf_bsdf(table, med.phase_bsdf, wil, wol)
 
 
+def phase_is_specular(med, table):
+    """Whether the phase function's BSDF is a Dirac lobe (a static query
+    on the table's host-side kinds)."""
+    return table.kinds[med.phase_bsdf] in bsdfs.SPECULAR_KINDS
+
+
 def sample_phase(med, table, wi, aniso, u):
     """Sample wo.  Returns dict(w, weight [R, 3], pdf, specular, valid)."""
     n = safe_normalize(aniso)

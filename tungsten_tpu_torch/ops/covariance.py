@@ -1,19 +1,24 @@
-"""The squared-exponential covariance, its sparse-convolution splat in
-world space and its spectral density (the part of
-tungsten_tpu/ops/covariance.py::SquaredExponentialCov that stationary
-world-space sampling and weight-space realizations reach).
+"""The squared-exponential covariance, its sparse-convolution splats in
+world space and along the iso-ray axis, and its spectral density (the part
+of tungsten_tpu/ops/covariance.py::SquaredExponentialCov that stationary
+world-space sampling, 1D sampling and weight-space realizations reach).
 
 cov(a, b) = sigma^2 exp(-|a - b|^2_aniso / (2 l^2)); the splat kernel has
 length l_conv = l sqrt(2)/2 so that splat * splat reproduces cov.  Only the
 diagonal anisotropy is ported (no `anisoMtx`), so the splat's quadratic
-form is diagonal.  A stationary covariance samples world space at spatial
-scale 1, which the JAX package's `global_scale` arguments reduce to here.
+form and the world <-> isotropic transforms are diagonal: each is written
+as a product with the [3] diagonal, which rounds as the JAX package's 3x3
+products with zeros off the diagonal do.  A stationary covariance samples
+at spatial scale 1, which the JAX package's `global_scale` and
+`local_scale` arguments reduce to here; its nonstationary 1D splat scale
+(`nonstat_splat_cov_1d`) is 1, so the 1D code leaves it out.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..utils import rng
@@ -36,16 +41,41 @@ class SquaredExponentialCov:
     def amplitude(self, p):
         return self.sigma.expand(p.shape[:-1])
 
+    @property
+    def l_aniso_inv(self):
+        """1 / l_aniso with a zero length giving 0: the diagonal of
+        world_to_local."""
+        la = self.l_aniso
+        return torch.where(la == 0.0, 0.0,
+                           1.0 / torch.where(la == 0.0, 1.0, la))
+
     def splat_radius(self):
-        """Cell radius of the splat lattice."""
+        """Cell radius of the world-space splat lattice."""
         return self.kernel_scale * torch.max(self.l_aniso)
+
+    def splat_radius_iso(self):
+        """Cell radius of the isotropic-space lattice (the 1D sampling
+        space): `kernel_scale`, a Python float holding a float32 value."""
+        return float(np.float32(self.kernel_scale))
+
+    # world <-> isotropic space (diagonal local_to_world = diag(l_aniso))
+    def pos_world_to_local(self, v):
+        return self.l_aniso_inv * v
+
+    def grad_world_to_local(self, g):
+        return self.l_aniso * g
+
+    def grad_local_to_world(self, g):
+        return self.l_aniso_inv * g
+
+    def local_to_world_inv_transpose(self):
+        """Diagonal [3] of the iso -> world gradient transform."""
+        return self.l_aniso_inv
 
     def splat_form(self):
         """Diagonal [3] of the quadratic form M of the splat exp(-ab^T M ab):
         M = diag(1 / l_aniso^2) / 2, with a zero length giving 0."""
-        la = self.l_aniso
-        inv = torch.where(la == 0.0, 0.0, 1.0 / torch.where(la == 0.0, 1.0,
-                                                            la))
+        inv = self.l_aniso_inv
         return inv * inv * 0.5
 
     def splat3_val_grad(self, ab):
@@ -54,6 +84,38 @@ class SquaredExponentialCov:
         mab = ab * self.splat_form()
         f = torch.exp(-dot(ab, mab))
         return f, -2.0 * mab * f[..., None]
+
+    # 1D kernels along the iso-ray axis; dt = query - center in iso units
+    @staticmethod
+    def splat1_val_grad(dt):
+        """1D splat exp(-dt^2 / 2) and its derivative in the query."""
+        f = torch.exp(-0.5 * dt * dt)
+        return f, -dt * f
+
+    @staticmethod
+    def cov1_val_grad(dt):
+        """1D covariance kernel exp(-dt^2 / 4) (the splat at scale sqrt 2)
+        and its derivative in the query."""
+        f = torch.exp(-0.25 * dt * dt)
+        return f, -0.5 * dt * f
+
+    @staticmethod
+    def cov1_grad_grad2(dt):
+        """First and second derivatives of the 1D covariance kernel."""
+        f = torch.exp(-0.25 * dt * dt)
+        g1 = -0.5 * dt
+        return g1 * f, (g1 * g1 - 0.5) * f
+
+    @staticmethod
+    def cov1_grad2_for_3d_normal(dt):
+        """The lateral second derivative that correlationXY uses."""
+        return -0.5 * torch.exp(-0.25 * dt * dt)
+
+    def variance1(self, impulse_density, kernel_radius):
+        """Analytic variance of the raw 1D noise (a scalar)."""
+        sqrt_pi = torch.sqrt(torch.tensor(math.pi, dtype=torch.float32,
+                                          device=impulse_density.device))
+        return impulse_density / kernel_radius * sqrt_pi
 
     def variance3(self, impulse_density, kernel_radius):
         """Analytic variance of the raw 3D noise (a scalar here: the JAX

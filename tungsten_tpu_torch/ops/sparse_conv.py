@@ -1,34 +1,49 @@
-"""Sparse-convolution noise, batched over rays: the world-space 3D branch of
-tungsten_tpu/ops/sparse_conv.py.
+"""Sparse-convolution noise, batched over rays: the world-space 3D branch
+and the 1D (along-ray) branch of tungsten_tpu/ops/sparse_conv.py.
 
 A noise value at a point is a pure function of (point, cell lattice, seed):
-each of the 3^3 neighbour cells is hash-keyed, carries `impulse_count`
-Bernoulli-weighted impulses and adds a splat term; the sum is normalized by
-the analytic noise variance.  The JAX package writes these functions per
-point and vmaps them; here the ray batch is the leading dimension.
+each neighbour cell (3^3 in 3D, 3 along the ray in 1D) is hash-keyed,
+carries `impulse_count` Bernoulli-weighted impulses and adds a splat term;
+the sum is normalized by the analytic noise variance.  The JAX package
+writes these functions per point and vmaps them; here the ray batch is the
+leading dimension.
 
-This is the evaluator behind the gradient (the conditioned-Gaussian normal
-at a crossing).  The march evaluates values through ops/sparse_conv_fast.py
-and kernel K1.  Not ported yet: conditioning (renewal / renewal+ with
-per-path realizations), isotropic and 1D sampling, multi-resolution noise.
+These are the evaluators behind the gradient (the conditioned-Gaussian
+normal at a crossing), the renewal+ conditioning of 1D per-path
+realizations and the mirror NEE of 1D media (`nee_grad`, `nee_pdf`).  The
+march evaluates values through ops/sparse_conv_fast.py and kernels K1 and
+K3.  As in the JAX package, this general evaluator computes the 1D cell
+coordinate as t / kernel_radius, the march as t * (1 / kernel_radius).
+Not ported yet: 3D conditioning, isotropic 3D sampling and the
+multi-resolution branches (the parser refuses what needs them).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..utils import rng
-from ..utils.vecmath import dot
+from ..utils.vecmath import (dot, frame_to_local, frame_to_world, normalize,
+                             tangent_frame)
 
 CTXT_GLOBAL = "global"
 CTXT_RENEWAL_PLUS = "renewal+"
 CTXT_RENEWAL = "renewal"
 CTXT_NONE = "none"
 
+# 1D sampling schemes of the mirror NEE (the JAX package's numbers)
+SCHEME_UNI = 0
+SCHEME_NEE = 1
+SCHEME_MIS = 2
+
 # (dx, dy, dz) for dx, dy, dz in (-1, 0, 1)
 _CELL_OFFSETS_3D = [[dx, dy, dz] for dx in (-1, 0, 1) for dy in (-1, 0, 1)
                     for dz in (-1, 0, 1)]
+_CELL_OFFSETS_1D = [-1, 0, 1]
+# float32 constants as the JAX package rounds them
+_SQRT2 = float(torch.sqrt(torch.tensor(2.0, dtype=torch.float32)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,12 +65,50 @@ class GP:
 
 
 @dataclasses.dataclass(frozen=True)
+class Coeffs:
+    """Pathwise conditioning coefficients of a ray batch."""
+    value_scale: torch.Tensor  # [R]
+    gradient_scale: torch.Tensor  # [R, 3]
+    ray_origin: torch.Tensor  # [R, 3]
+
+    @staticmethod
+    def zeros(n, device):
+        return Coeffs(
+            value_scale=torch.zeros(n, dtype=torch.float32, device=device),
+            gradient_scale=torch.zeros(n, 3, dtype=torch.float32,
+                                       device=device),
+            ray_origin=torch.zeros(n, 3, dtype=torch.float32, device=device))
+
+
+@dataclasses.dataclass(frozen=True)
 class SparseConvConfig:
     global_seed: int  # a uint32 word
     impulse_density: torch.Tensor  # scalar float32
     ctxt: str = CTXT_RENEWAL_PLUS
     use_single_realization: bool = False
     impulse_count: int = 3
+    one_d: bool = False
+    scheme: int = SCHEME_UNI
+    correlation_xy: bool = False
+
+    @staticmethod
+    def create(global_seed, impulse_density, device, ctxt=CTXT_RENEWAL_PLUS,
+               use_single_realization=False, one_d=False, scheme=SCHEME_UNI,
+               correlation_xy=False):
+        """A config from scene-file values with the JAX package's derived
+        fields: NEE/MIS applies to per-path 1D realizations only, every
+        other config samples UNI; the impulse count is the integer part of
+        the density (a Python float)."""
+        return SparseConvConfig(
+            global_seed=int(global_seed) & rng.MASK32,
+            impulse_density=torch.tensor(impulse_density,
+                                         dtype=torch.float32, device=device),
+            ctxt=ctxt,
+            use_single_realization=use_single_realization,
+            impulse_count=int(impulse_density), one_d=one_d,
+            scheme=(scheme if one_d and not use_single_realization
+                    else SCHEME_UNI),
+            correlation_xy=correlation_xy)
 
     @property
     def activate_conditioning(self):
@@ -114,17 +167,286 @@ def eval_noise3d_world(cfg, gp, p, seed):
     return val / norm, grad / norm
 
 
-def eval_value(cfg, gp, p, pss, scene_seed):
-    """GPIS value f(p) = amplitude * noise + mean; returns (val, gp_id)."""
+def sampling_scheme(cfg, gp, p):
+    """The 1D sampling scheme at p [R, 3]: UNI where the noise amplitude
+    vanishes, the config's scheme elsewhere."""
+    amp = gp.cov.amplitude(p)
+    return torch.where(amp < 1e-6, SCHEME_UNI, cfg.scheme).to(torch.int64)
+
+
+def _noise1d(cfg, cov, t, seed, kernel_radius):
+    """3-cell x K splat sum along the iso-ray axis at coordinates t [R]
+    with seeds [R]; returns (val [R], dval/dt [R])."""
+    dev = t.device
+    K = cfg.impulse_count
+    t_grid = t / kernel_radius
+    base = torch.floor(t_grid)
+    frac = t_grid - base
+    offs = torch.tensor(_CELL_OFFSETS_1D, dtype=torch.int64, device=dev)
+    cells = rng.u32(base.to(torch.int32)[:, None] + offs)  # [R, 3]
+    key = (rng.xxhash32_2(cells, seed[:, None]) + 1) & rng.MASK32
+    ctr = 2 * torch.arange(K, dtype=torch.int64, device=dev)  # [K]
+    key = key[:, :, None]
+    ti = rng.uniform(key, ctr)  # [R, 3, K]
+    w = rng.bernoulli_pm1(rng.uniform(key, ctr + 1))
+    d = (frac[:, None] - offs.to(torch.float32))[:, :, None] - ti
+    inside = d * d < 1.0
+    val, grad = cov.splat1_val_grad(kernel_radius * d)
+    wm = torch.where(inside, w, 0.0)
+    return (wm * val).sum(dim=(1, 2)), (wm * grad).sum(dim=(1, 2))
+
+
+def _ray_frame(cov, ray_dir):
+    """The iso-ray frame: (tangent, bitangent, ray direction in isotropic
+    space, normalized)."""
+    rdi = normalize(cov.pos_world_to_local(ray_dir))
+    tg, bt = tangent_frame(rdi)
+    return tg, bt, rdi
+
+
+def eval_noise1d_normalized(cfg, gp, coeff1, p, ray_dir, seed,
+                            conditioning):
+    """1D noise along the ray in iso-ray space at p [R, 3]: [R, 4] of
+    (value, gx, gy, gz), where gz is the noise's derivative along the ray
+    and gx, gy carry only the correlationXY conditioning terms."""
+    cov = gp.cov
+    tg, bt, rdi = _ray_frame(cov, ray_dir)
+    pz = dot(cov.pos_world_to_local(p), rdi)
+    R = cov.splat_radius_iso()
+    val, gz = _noise1d(cfg, cov, pz, seed, R)
+    norm = torch.sqrt(cov.variance1(cfg.impulse_density, R))
+    val, gz = val / norm, gz / norm
+    gx_c = torch.zeros_like(val)
+    gy_c = torch.zeros_like(val)
+    if cfg.activate_conditioning and conditioning:
+        oz = dot(cov.pos_world_to_local(coeff1.ray_origin), rdi)
+        dt = pz - oz
+        cv, cg = cov.cov1_val_grad(dt)
+        g1, g2 = cov.cov1_grad_grad2(dt)
+        vs, gs = coeff1.value_scale, coeff1.gradient_scale
+        val = val + (vs * cv + gs[:, 2] * g1)
+        gz = gz + (vs * cg + gs[:, 2] * g2)
+        if cfg.correlation_xy:
+            h = cov.cov1_grad2_for_3d_normal(dt)
+            gx_c = gs[:, 0] * h
+            gy_c = gs[:, 1] * h
+    return torch.stack([val, gx_c, gy_c, gz], dim=-1)
+
+
+def eval_value_noise1d(cfg, gp, coeff1, p, ray_dir, seed, conditioning):
+    """The normalized 1D noise value at p [R, 3]."""
+    return eval_noise1d_normalized(cfg, gp, coeff1, p, ray_dir, seed,
+                                   conditioning)[:, 0]
+
+
+def _xy_correlation_factor(t_seg):
+    """(correlation factor, conditional variance) of the lateral gradient
+    between a segment's start and t_seg along it (Renewal+ with
+    correlationXY)."""
+    f = torch.exp(-t_seg * t_seg / 4.0) * (0.5 - t_seg * t_seg * 0.25)
+    return f, 0.5 - f * f * 2.0
+
+
+def _xy_seed(pss, scene_seed):
+    """Stream key of the lateral-gradient Gaussians, from the (pixel,
+    sample, bounce) words pss [R, 4]."""
+    h = rng.xxhash32_4(pss[..., 0], pss[..., 1], pss[..., 2], pss[..., 3])
+    return (h + rng.xxhash32(scene_seed) + 1) & rng.MASK32
+
+
+def eval_gradient_noise1d(cfg, gp, coeff1, p, t_segment, ray_dir, pss,
+                          scene_seed, conditioning):
+    """World-space gradient [R, 3] of the 1D GPIS noise at p.
+
+    The along-ray component is the 1D noise derivative; the lateral ones
+    are N(0, 1/2) draws from the ray's own stream (correlated with the
+    segment start under Renewal+ with correlationXY), plus conditioning
+    terms.  Rays with t_segment == 0 take the start-of-segment draw."""
+    cov = gp.cov
     seed = compute_seed(cfg, pss, scene_seed)
-    nv, _ = eval_noise3d_world(cfg, gp, p, seed)
+    tg, bt, rdi = _ray_frame(cov, ray_dir)
+    key = _xy_seed(pss, scene_seed)
+    g_base = eval_noise1d_normalized(cfg, gp, coeff1, p, ray_dir, seed,
+                                     conditioning)[:, 1:]
+    n0, n1 = rng.normal2(key, 0)
+    xy_start = torch.stack([n0, n1], dim=-1) / _SQRT2
+    m0, m1 = rng.normal2(key, 1)
+    if cfg.ctxt == CTXT_RENEWAL_PLUS and cfg.correlation_xy:
+        f, cvar = _xy_correlation_factor(t_segment)
+        mu = (f * 2.0)[:, None] * xy_start
+        xy_end = (torch.stack([m0, m1], dim=-1)
+                  * torch.sqrt(torch.clamp(cvar, min=1e-12))[:, None] + mu)
+    else:
+        xy_end = torch.stack([m0, m1], dim=-1) / _SQRT2
+    xy = torch.where((t_segment == 0.0)[:, None], xy_start, xy_end)
+    g_ir = torch.cat([xy, torch.zeros_like(xy[:, :1])], dim=-1) + g_base
+    return cov.grad_local_to_world(frame_to_world(tg, bt, rdi, g_ir))
+
+
+def eval_value(cfg, gp, p, pss, scene_seed, ray_dir=None, coeff1=None):
+    """GPIS value f(p) = amplitude * noise + mean; returns (val, gp_id).
+    1D sampling needs the rays' directions and conditioning
+    coefficients."""
+    seed = compute_seed(cfg, pss, scene_seed)
+    if cfg.one_d:
+        nv = eval_value_noise1d(cfg, gp, coeff1, p, ray_dir, seed, True)
+    else:
+        nv, _ = eval_noise3d_world(cfg, gp, p, seed)
     m, gp_id = gp.mean_and_id(p)
     return gp.cov.amplitude(p) * nv + m, gp_id
 
 
-def eval_gradient(cfg, gp, p, pss, scene_seed):
+def eval_gradient(cfg, gp, p, pss, scene_seed, ray_dir=None, t_segment=None,
+                  coeff1=None):
     """GPIS gradient at p [R, 3]: amplitude * noise gradient + mean
-    gradient."""
-    seed = compute_seed(cfg, pss, scene_seed)
-    _, ng = eval_noise3d_world(cfg, gp, p, seed)
+    gradient.  1D sampling needs the rays' directions, their distances
+    t_segment from the segment start and conditioning coefficients."""
+    if cfg.one_d:
+        ng = eval_gradient_noise1d(cfg, gp, coeff1, p, t_segment, ray_dir,
+                                   pss, scene_seed, True)
+    else:
+        seed = compute_seed(cfg, pss, scene_seed)
+        _, ng = eval_noise3d_world(cfg, gp, p, seed)
     return gp.cov.amplitude(p)[..., None] * ng + gp.mean.grad(p)
+
+
+# ---------------------------------------------------------------------------
+# Renewal / Renewal+ conditioning of 1D per-path realizations
+# ---------------------------------------------------------------------------
+
+def conditioning_1d(cfg, gp, p, ray_dir, target_val, target_grad, pss,
+                    scene_seed):
+    """Coefficients [R] that make the fresh realization of each ray
+    reproduce (target_val, target_grad) at the segment start p [R, 3]."""
+    cov = gp.cov
+    seed = compute_seed(cfg, pss, scene_seed)
+    amp = cov.amplitude(p)
+    safe_amp = torch.where(amp == 0.0, 1.0, amp)
+    m, gp_id = gp.mean_and_id(p)
+    nv = eval_value_noise1d(cfg, gp, None, p, ray_dir, seed, False)
+    value_scale = (target_val - m) / safe_amp - nv
+    gradient_scale = torch.zeros_like(p)
+    if cfg.ctxt == CTXT_RENEWAL_PLUS:
+        mg = gp.mean_grad_by_id(p, gp_id)
+        ng = eval_gradient_noise1d(cfg, gp, None, p, torch.zeros_like(amp),
+                                   ray_dir, pss, scene_seed, False)
+        delta = (target_grad - mg) / safe_amp[:, None] - ng
+        tg, bt, rdi = _ray_frame(cov, ray_dir)
+        gs_iso = frame_to_local(tg, bt, rdi, cov.grad_world_to_local(delta))
+        # times the squared 1D splat scales (sx, sy, sz), all 1 here
+        gradient_scale = -2.0 * gs_iso
+        if not cfg.correlation_xy:
+            gradient_scale = torch.cat(
+                [torch.zeros_like(gradient_scale[:, :2]),
+                 gradient_scale[:, 2:]], dim=-1)
+    ok = amp != 0.0
+    return Coeffs(value_scale=torch.where(ok, value_scale, 0.0),
+                  gradient_scale=torch.where(ok[:, None], gradient_scale,
+                                             0.0),
+                  ray_origin=p)
+
+
+def conditioning(cfg, gp, coeff1, p, ray_dir, target_val, target_grad, pss,
+                 scene_seed):
+    """Coefficients conditioned at p [R, 3] on (target_val, target_grad);
+    `coeff1` unchanged when the config conditions nothing.  Only the 1D
+    branch is ported (the parser refuses 3D conditioning)."""
+    if not cfg.activate_conditioning:
+        return coeff1
+    return conditioning_1d(cfg, gp, p, ray_dir, target_val, target_grad, pss,
+                           scene_seed)
+
+
+# ---------------------------------------------------------------------------
+# NEE for 1D GPIS with a mirror phase
+# ---------------------------------------------------------------------------
+
+def _inverse3(m):
+    """Inverse of [R, 3, 3] matrices by the adjugate over the determinant
+    (no host sync, unlike torch.linalg.inv's error check on CUDA)."""
+    a, b, c = m[:, 0, 0], m[:, 0, 1], m[:, 0, 2]
+    d, e, f = m[:, 1, 0], m[:, 1, 1], m[:, 1, 2]
+    g, h, i = m[:, 2, 0], m[:, 2, 1], m[:, 2, 2]
+    c00, c01, c02 = e * i - f * h, f * g - d * i, d * h - e * g
+    det = a * c00 + b * c01 + c * c02
+    adj = torch.stack([
+        torch.stack([c00, c * h - b * i, b * f - c * e], dim=-1),
+        torch.stack([c01, a * i - c * g, c * d - a * f], dim=-1),
+        torch.stack([c02, b * g - a * h, a * e - b * d], dim=-1)], dim=-2)
+    return adj / det[:, None, None]
+
+
+def _mat_vec(m, v):
+    """[R, 3, 3] @ [R, 3] with the sums written out."""
+    return (m[:, :, 0] * v[:, 0:1] + m[:, :, 1] * v[:, 1:2]
+            + m[:, :, 2] * v[:, 2:3])
+
+
+def _cross(a, b):
+    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=-1)
+
+
+def _nee_shared(cfg, gp, coeff1, ray_dir, normal, p, pss, scene_seed):
+    """The normal plane of the conditioned 1D realization at p and where
+    the line along `normal` meets it: (grad_constraint [R, 3], gradient in
+    iso-ray space [R, 3], plane normal [R, 3], plane stretch [R],
+    intersection distance [R])."""
+    cov = gp.cov
+    seed = compute_seed(cfg, pss, scene_seed)
+    amp = cov.amplitude(p)
+    _, gp_id = gp.mean_and_id(p)
+    mean_grad = gp.mean_grad_by_id(p, gp_id)
+    tg, bt, rdi = _ray_frame(cov, ray_dir)
+    mtx_ray = torch.stack([tg, bt, rdi], dim=-1)  # columns t, b, n
+    mtx_pt = amp[:, None, None] * (
+        cov.local_to_world_inv_transpose()[:, None] * mtx_ray)
+    gc = eval_noise1d_normalized(cfg, gp, coeff1, p, ray_dir, seed,
+                                 True)[:, 1:]
+    plane_pt = mtx_pt[:, :, 2] * gc[:, 2:3] + mean_grad
+    cp = _cross(mtx_pt[:, :, 0], mtx_pt[:, :, 1])
+    stretch = torch.sqrt(torch.clamp(dot(cp, cp), min=1e-30))
+    plane_n = cp / stretch[:, None]
+    isect_dist = dot(plane_pt, plane_n) / dot(normal, plane_n)
+    grad_ir = _mat_vec(_inverse3(mtx_pt),
+                       isect_dist[:, None] * normal - mean_grad)
+    return gc, grad_ir, plane_n, stretch, isect_dist
+
+
+def nee_grad(cfg, gp, coeff1, ray_dir, normal, p, pss, scene_seed):
+    """The 3D gradient [R, 3] along `normal` that the conditioned 1D
+    realization allows at p (the normal a light-sampled mirror bounce
+    needs)."""
+    isect_dist = _nee_shared(cfg, gp, coeff1, ray_dir, normal, p, pss,
+                             scene_seed)[4]
+    return isect_dist[:, None] * normal
+
+
+def nee_pdf(cfg, gp, coeff1, ray_dir, normal, p, t_segment, pss,
+            scene_seed):
+    """Solid-angle pdf [R] of sampling the mirror normal `normal` at p by
+    forward sampling of the gradient (0 where the plane lies behind)."""
+    gc, g_ir, plane_n, stretch, isect_dist = _nee_shared(
+        cfg, gp, coeff1, ray_dir, normal, p, pss, scene_seed)
+    # the 1D splat scales sx, sy are 1 for a stationary covariance
+    if cfg.ctxt == CTXT_RENEWAL_PLUS and cfg.correlation_xy:
+        n0, n1 = rng.normal2(_xy_seed(pss, scene_seed), 0)
+        f, cvar = _xy_correlation_factor(t_segment)
+        cs = torch.sqrt(torch.clamp(cvar, min=1e-12))
+        samp_x = (g_ir[:, 0] - gc[:, 0] - f * 2.0 * (n0 / _SQRT2)) / cs
+        samp_y = (g_ir[:, 1] - gc[:, 1] - f * 2.0 * (n1 / _SQRT2)) / cs
+        pdf_area = (torch.exp(-0.5 * samp_x ** 2)
+                    * torch.exp(-0.5 * samp_y ** 2) / (2.0 * math.pi)
+                    / torch.clamp(cvar, min=1e-12))
+    else:
+        samp_x = (g_ir[:, 0] - gc[:, 0]) * _SQRT2
+        samp_y = (g_ir[:, 1] - gc[:, 1]) * _SQRT2
+        pdf_area = (torch.exp(-0.5 * samp_x ** 2)
+                    * torch.exp(-0.5 * samp_y ** 2) / (2.0 * math.pi) * 2.0)
+    cos_theta = dot(normal, plane_n).abs()
+    pdf_normal = (pdf_area * isect_dist ** 2
+                  / torch.clamp(cos_theta, min=1e-12) / stretch)
+    pdf_omega = pdf_normal / torch.clamp(4.0 * dot(normal, -ray_dir),
+                                         min=1e-12)
+    return torch.where(isect_dist < 0.0, 0.0, pdf_omega)

@@ -1,16 +1,20 @@
-"""The march-step evaluator: value_at(t) along a ray batch, with the raw
+"""The march-step evaluators: value_at(t) along a ray batch, with the raw
 lattice sum in kernel K1 (stationary, world-space branch of
-tungsten_tpu/ops/sparse_conv_fast.py::make_value_at).
+tungsten_tpu/ops/sparse_conv_fast.py::make_value_at) or K3 (1D sampling,
+`make_value_at_1d`).
 
 Everything that does not change along a ray (seeds, the splat quadratic
-form, the cell radius, the variance normalization) is computed once per
-batch, so each step is K1 plus a few elementwise ops on [R] tensors.
+form, the cell radius, the variance normalization, the iso-ray
+parametrization and the conditioning constants) is computed once per
+batch, so each step is one kernel plus a few elementwise ops on [R]
+tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels import noise3d
+from ..kernels import noise1d, noise3d
+from ..utils.vecmath import dot, normalize
 from . import sparse_conv as sc
 
 
@@ -31,5 +35,43 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed):
         total = noise3d.noise3d_sum_s(p, seed0, kr_f, m6, K)
         mean, gp_id = gp.mean_and_id(p)
         return cov.amplitude(p) * (total / norm) + mean, gp_id
+
+    return value_at
+
+
+def make_value_at_1d(cfg, gp, coeff1, ro, rd, pss, scene_seed):
+    """value_at(t [R]) -> (f [R], gp_id [R]) for 1D (along-ray) sampling.
+
+    The 1D noise lives on a 3-cell lattice along the iso-ray axis, whose
+    coordinate pz0 + t * dpz is affine in t, so a step is K3 on [R]
+    coordinates plus the renewal conditioning splat around each ray's
+    conditioning origin (coeff1, [R] Coeffs)."""
+    cov = gp.cov
+    # K3's word type, converted once per batch rather than once per step
+    seed0 = sc.compute_seed(cfg, pss, scene_seed).to(torch.int32)
+    rd_iso = cov.pos_world_to_local(rd)
+    rdi = normalize(rd_iso)
+    pz0 = dot(cov.pos_world_to_local(ro), rdi)
+    dpz = dot(rd_iso, rdi)
+    kr = cov.splat_radius_iso()
+    inv_norm = 1.0 / torch.sqrt(cov.variance1(cfg.impulse_density, kr))
+    K = cfg.impulse_count
+    use_cond = cfg.activate_conditioning
+    if use_cond:
+        oz = dot(cov.pos_world_to_local(coeff1.ray_origin), rdi)
+        vsc = coeff1.value_scale
+        gsz = coeff1.gradient_scale[:, 2]
+
+    def value_at(t):
+        pw = ro + t[:, None] * rd
+        pz = pz0 + t * dpz
+        val = noise1d.noise1d_sum(pz, seed0, kr, K) * inv_norm
+        if use_cond:
+            dtc = pz - oz
+            cv, _ = cov.cov1_val_grad(dtc)
+            g1, _ = cov.cov1_grad_grad2(dtc)
+            val = val + vsc * cv + gsz * g1
+        mean, gp_id = gp.mean_and_id(pw)
+        return cov.amplitude(pw) * val + mean, gp_id
 
     return value_at

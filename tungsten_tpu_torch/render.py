@@ -20,18 +20,9 @@ import torch
 
 from .io.image import write_pfm, write_png
 from .models.integrator import render_pass
-from .scene.parse import DEFAULT_SEED, load_scene
+from .scene.parse import DEFAULT_SEED, check_device, load_scene
 
 MAX_RAYS = 1 << 18
-
-
-def check_device(device):
-    """torch.device for `device`; raises if it is CUDA and none is present."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' was asked for, but no CUDA device "
-                           "is available")
-    return device
 
 
 def to_device(obj, device):

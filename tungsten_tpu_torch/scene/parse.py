@@ -1,10 +1,12 @@
 """Tungsten JSON scene -> Scene (the subset of tungsten_tpu/scene/parse.py
-that BASELINE config 1, `scenes/gpis-sphere-box.json`, and config 4a,
-`scenes/gpis-weight-space.json`, use).
+that BASELINE config 1, `scenes/gpis-sphere-box.json`, config 4a,
+`scenes/gpis-weight-space.json`, and configs 3 and 3b,
+`scenes/gpis-mirror-1d{,-corrxy}.json`, use).
 
 Host-side numpy, computed as the JAX package computes it, then moved to
-`device`.  Any type or option the port does not implement yet raises
-NotImplementedError naming it: nothing is silently ignored.
+`device` (the card unless the caller asks for the CPU; asking for `cuda`
+without one raises).  Any type or option the port does not implement yet
+raises NotImplementedError naming it: nothing is silently ignored.
 """
 from __future__ import annotations
 
@@ -30,6 +32,15 @@ DEFAULT_SEED = 0xBA5EBA11
 
 def _unsupported(what):
     return NotImplementedError(f"{what} is not ported to tungsten_tpu_torch")
+
+
+def check_device(device):
+    """torch.device for `device`; raises if it is CUDA and none is present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' was asked for, but no CUDA device "
+                           "is available")
+    return device
 
 
 def _f32(x, device):
@@ -136,7 +147,8 @@ def _rgb(v, default=(1.0, 1.0, 1.0)):
 # BSDFs, GP, media
 # ---------------------------------------------------------------------------
 
-_BSDF_KINDS = {"null": bs.NULL, "lambert": bs.LAMBERT, "forward": bs.FORWARD}
+_BSDF_KINDS = {"null": bs.NULL, "lambert": bs.LAMBERT, "mirror": bs.MIRROR,
+               "forward": bs.FORWARD}
 
 
 def parse_bsdf(b: dict) -> dict:
@@ -189,6 +201,8 @@ def parse_gp(g: dict, device) -> sc.GP:
 _CTXT = {"global": sc.CTXT_GLOBAL, "renewal+": sc.CTXT_RENEWAL_PLUS,
          "renewal": sc.CTXT_RENEWAL, "none": sc.CTXT_NONE,
          "goldfish": sc.CTXT_RENEWAL_PLUS}
+_SCHEME = {"uni": sc.SCHEME_UNI, "nee": sc.SCHEME_NEE, "mis": sc.SCHEME_MIS,
+           "UNI": sc.SCHEME_UNI, "NEE": sc.SCHEME_NEE, "MIS": sc.SCHEME_MIS}
 
 
 _MEDIUM_KINDS = {"sparse_conv_noise": md.GPIS_SPARSE_CONV,
@@ -201,10 +215,15 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
     if t not in _MEDIUM_KINDS:
         raise _unsupported(f"medium type {t!r}")
     kind = _MEDIUM_KINDS[t]
-    for key in ("isotropic_3D_sampling", "1D_sampling",
-                "surf_vol_phase_separate"):
+    for key in ("isotropic_3D_sampling", "surf_vol_phase_separate"):
         if m.get(key, False):
             raise _unsupported(f"medium option {key!r}")
+    one_d = bool(m.get("1D_sampling", False))
+    if one_d and kind != md.GPIS_SPARSE_CONV:
+        raise _unsupported("1D sampling of a weight-space medium")
+    scheme = m.get("1D_sampling_scheme", "uni")
+    if scheme not in _SCHEME:
+        raise _unsupported(f"1D_sampling_scheme {scheme!r}")
     if m.get("transmittance") is not None:
         raise _unsupported("medium option 'transmittance'")
     normal = m.get("normal_method", "conditioned_gaussian")
@@ -213,12 +232,13 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
     ctxt = m.get("correlation_context", "renewal+")
     if ctxt not in _CTXT:
         raise _unsupported(f"correlation_context {ctxt!r}")
-    cfg = sc.SparseConvConfig(
-        global_seed=int(m.get("seed", 0)) & 0xFFFFFFFF,
-        impulse_density=_f32(m.get("impulse_density", 3.0), device),
+    cfg = sc.SparseConvConfig.create(
+        global_seed=m.get("seed", 0),
+        impulse_density=float(m.get("impulse_density", 3.0)), device=device,
         ctxt=_CTXT[ctxt],
         use_single_realization=bool(m.get("single_realization", False)),
-        impulse_count=int(m.get("impulse_density", 3.0)))
+        one_d=one_d, scheme=_SCHEME[scheme],
+        correlation_xy=bool(m.get("1D_gradient_correlationXY", False)))
     gp = parse_gp(m.get("gaussian_process", {}), device)
     if kind == md.GPIS_WEIGHT_SPACE:
         # a weight-space realization is drawn fresh per segment and
@@ -226,9 +246,11 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
         if not wst.supports(gp):
             raise _unsupported("a weight-space GP outside the K4/K5 kernels' "
                                "scope")
-    elif cfg.activate_conditioning:
+    elif cfg.activate_conditioning and not (
+            one_d and cfg.ctxt == sc.CTXT_RENEWAL_PLUS):
+        # the port conditions 1D realizations under renewal+ only
         raise _unsupported(f"{ctxt!r} conditioning of per-path "
-                           "realizations")
+                           f"{'1D' if one_d else '3D'} realizations")
     step_size = float(m.get("step_size", 0.01))
     return md.Medium(
         sigma_a=torch.tensor(_rgb(m.get("sigma_a"), (0, 0, 0)), device=device),
@@ -261,9 +283,9 @@ def _prim_aabb(p):
     return pos - h, pos + h
 
 
-def scene_from_dict(doc: dict, seed=DEFAULT_SEED, device="cpu"):
+def scene_from_dict(doc: dict, seed=DEFAULT_SEED, device="cuda"):
     """Returns (Scene, renderer settings dict)."""
-    device = torch.device(device)
+    device = check_device(device)
     bsdf_list, bsdf_names = [], {}
     for b in doc.get("bsdfs", []):
         bsdf_names[b.get("name", f"bsdf{len(bsdf_names)}")] = len(bsdf_list)
@@ -283,11 +305,15 @@ def scene_from_dict(doc: dict, seed=DEFAULT_SEED, device="cpu"):
         if not isinstance(pf, dict) or pf.get("type") != "brdf":
             raise _unsupported(f"phase function {pf!r}")
         phase_bsdf = bsdf_index(pf.get("bsdf"))
-        if bsdf_list[phase_bsdf]["kind"] != bs.LAMBERT:
-            raise _unsupported("a BRDF phase function over a non-lambert "
-                               "bsdf")
+        kind = bsdf_list[phase_bsdf]["kind"]
+        if kind not in (bs.LAMBERT, bs.MIRROR):
+            raise _unsupported("a BRDF phase function over a bsdf other "
+                               "than lambert or mirror")
         medium_names[m.get("name", f"medium{len(media)}")] = len(media)
         media.append(parse_medium(m, phase_bsdf, device))
+        if kind == bs.MIRROR and not media[-1].cfg.one_d:
+            raise _unsupported("a mirror phase function without 1D "
+                               "sampling")
 
     def medium_index(ref):
         if ref is None:
@@ -312,6 +338,12 @@ def scene_from_dict(doc: dict, seed=DEFAULT_SEED, device="cpu"):
         if np.any(entry["emission"] > 0) and entry["kind"] != pr.PRIM_QUAD:
             raise _unsupported(f"an emissive {t!r}")
         prims.append(entry)
+
+    # a mirror is ported as the phase function of a medium only
+    mirrors = {i for i, b in enumerate(bsdf_list) if b["kind"] == bs.MIRROR}
+    on_prims = {p["bsdf"] for p in prims}
+    if mirrors - {m.phase_bsdf for m in media} or mirrors & on_prims:
+        raise _unsupported("a mirror bsdf outside a BRDF phase function")
 
     cam_doc = doc.get("camera", {})
     if cam_doc.get("type", "pinhole") != "pinhole":
@@ -365,7 +397,7 @@ def scene_from_dict(doc: dict, seed=DEFAULT_SEED, device="cpu"):
     return scene, dict(doc.get("renderer", {}))
 
 
-def load_scene(path, seed=DEFAULT_SEED, res_override=None, device="cpu"):
+def load_scene(path, seed=DEFAULT_SEED, res_override=None, device="cuda"):
     """Load a scene file onto `device`; returns (Scene, renderer settings)."""
     with open(path) as f:
         doc = json.load(f)
