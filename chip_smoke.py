@@ -2,7 +2,7 @@
 
 Builds the port's CUDA kernels from tungsten_tpu_torch/csrc/ (one nvcc per
 source, all started together) and holds each against its plain PyTorch
-twin on the card: K1 (noise3d.cu), K3 (noise1d.cu) and K5/K4
+twin on the card: K1 and K2 (noise3d.cu), K3 (noise1d.cu) and K5/K4
 (ws_trace.cu).  Then it drives the port's main paths through
 tungsten_tpu_torch.render, each with the launch counts set to 0 just
 before and read just after:
@@ -11,7 +11,10 @@ before and read just after:
   1024 basis functions, K5's fixed-step march);
 - config 4a with step_size 0 (K4's range-bound sphere trace);
 - BASELINE configs 3 and 3b (scenes/gpis-mirror-1d{,-corrxy}.json, 1D
-  sparse-conv sampling with renewal+ conditioning and mirror NEE/MIS, K3).
+  sparse-conv sampling with renewal+ conditioning and mirror NEE/MIS, K3);
+- BASELINE config 5, the hero (scenes/gpis-hero.json, multi-resolution
+  procedural-nonstationary noise under the Global context, K2), at its own
+  1920x1080 in row bands.
 It checks each image, times the renders, and compares 64x64 renders with
 the committed reference goldens by bucket means.  Each phase that fails
 raises, so the script exits non-zero; it needs CUDA and never imports JAX
@@ -21,8 +24,8 @@ device.
 
 `python3 chip_smoke.py --profile` adds phases that measure where the
 renders' time goes (PERF.md section 5): config 1 at 1, 4 and 16 spp per ray
-batch, config 4a (both step sizes) at 8 spp and config 3 at 16 spp, each
-with its launches and host syncs, and one render of each under
+batch, config 4a (both step sizes) at 8 spp, config 3 and the hero at 16
+spp, each with its launches and host syncs, and one render of each under
 torch.profiler, whose op tables it writes to chiprun_out/.
 """
 import argparse
@@ -47,6 +50,8 @@ M1D_SCENES = {name: (os.path.join(ROOT, "scenes", f"gpis-{stem}.json"),
                      os.path.join(ROOT, "goldens", f"gpis-{stem}.pfm"))
               for name, stem in (("config 3", "mirror-1d"),
                                  ("config 3b", "mirror-1d-corrxy"))}
+HERO_SCENE = os.path.join(ROOT, "scenes", "gpis-hero.json")
+HERO_GOLDEN = os.path.join(ROOT, "goldens", "gpis-hero.pfm")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 K1_ATOL = 1e-5  # raw sum of at most 81 unit-bounded terms, fp32
 TWIN_POINTS = 1 << 20
@@ -63,6 +68,13 @@ K3_ATOL = 1e-5  # raw sum of at most 9 unit-bounded terms, fp32
 # the numbers at config 3's 16-spp camera batch, K3_LINE_POINTS.
 K3_POINTS = (16384, 65536, 131072, 262144, 524288, 1 << 20)
 K3_LINE_POINTS = 262144
+K2_ATOL = 1e-5  # raw sum of at most 81 unit-bounded terms, fp32
+# Up to 2^20 points: the hero's 1080p bands hold 136 x 1920 = 261,120 rays,
+# the march sends both levels of each ray in one launch ([2R]) and the
+# shadow walk doubles that ([4R] = 1,044,480).  The kernels line gives the
+# numbers at the camera march's launch, K2_LINE_POINTS.
+K2_POINTS = (16384, 65536, 131072, 262144, 524288, 1 << 20)
+K2_LINE_POINTS = 524288
 WS_MAX_SHARE = 1e-3  # rays whose flags or decisions may differ
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s
@@ -77,6 +89,9 @@ K1_OPS_CELL, K1_OPS_IMPULSE = 33, 4 * 15 + 4 * 3 + 48
 # A precise cosf: 3-part Cody-Waite reduction and a polynomial, ~20 ops;
 # an IEEE divide ~10.
 OPS_COSF, OPS_DIV = 20, 10
+# K2: K1's sum plus a per-point reciprocal (1 / kr) and one qm multiply
+# per impulse
+K2_OPS_POINT, K2_OPS_IMPULSE = OPS_DIV, K1_OPS_IMPULSE + 1
 # K5 per basis function and step: phase (2), cosf, amp * cos and the sum (2)
 K5_OPS = 4 + OPS_COSF
 # K3, per cell: xxhash32_2 (15 ops) + 6 coordinate/index ops; per impulse:
@@ -347,11 +362,12 @@ def render_cli(trender, scene_path, spp, tmp, name):
             torch.cuda.max_memory_allocated())
 
 
-def check_image(img, what):
+def check_image(img, what, shape=(128, 128, 3)):
     lum = float((0.2126 * img[..., 0] + 0.7152 * img[..., 1]
                  + 0.0722 * img[..., 2]).mean())
-    if img.shape != (128, 128, 3) or not np.isfinite(img).all():
-        raise RuntimeError(f"{what} is not a finite 128x128 image")
+    if img.shape != shape or not np.isfinite(img).all():
+        raise RuntimeError(f"{what} is not a finite {shape[1]}x{shape[0]} "
+                           "image")
     if lum <= 0.01:
         raise RuntimeError(f"{what} is black: mean luminance {lum}")
     return lum
@@ -406,6 +422,73 @@ def check_k3_points(noise1d, what):
                            "points, more than the twin check covers")
 
 
+def k2_inputs(base, n, dev):
+    """n points in the hero's bounding cube with per-point levels drawn as
+    the hero draws them: s = 2.5^l for l in -1..2 (0.4, 1, 2.5, 6.25),
+    kr = kr_unit * s, qm = 1 / s^2, and seeds offset by the level with
+    uint32 wrap (a quarter of them from words just below 2^32, a quarter
+    from 0)."""
+    r = np.random.default_rng(5)
+    p = (np.array([0.0, 0.9, 0.0]) + r.uniform(-0.75, 0.75, (n, 3))
+         ).astype(np.float32)
+    lvl = r.integers(-1, 3, n)
+    s = np.float32(2.5) ** lvl.astype(np.float32)
+    word = r.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.int64)
+    word[: n // 4] = 2 ** 32 - 1 - r.integers(0, 2, n // 4)
+    word[n // 4: n // 2] = 0
+    seed = (word + lvl) % 2 ** 32
+    kr = np.float32(float(base.splat_radius())) * s
+    qm = np.float32(1.0) / (s * s)
+    return tuple(torch.from_numpy(x).to(dev) for x in (p, seed, kr, qm))
+
+
+def k2_checks(noise3d, base, dev, card_line):
+    """K2 against its twin at K2_POINTS points (K = 1 and 3); returns
+    (max |diff|, {N: (kernel device ms, twin ms, bound ms, bound_by)} at
+    the hero's K = 3)."""
+    m6 = base.splat_form().tolist() + [0.0, 0.0, 0.0]
+    p, seed, kr, qm = k2_inputs(base, max(K2_POINTS), dev)
+    err_max, times = 0.0, {}
+    for n in K2_POINTS:
+        args = (p[:n], seed[:n], kr[:n], qm[:n], m6)
+        for K in (1, 3):
+            got = noise3d.noise3d_sum(*args, K)
+            want = noise3d.noise3d_sum_ref(*args, K)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError("K2 returned non-finite values")
+            err = float((got - want).abs().max())
+            err_max = max(err_max, err)
+            print(f"K2 K={K} N={n}: max |kernel - twin| = {err:.3e} (atol "
+                  f"{K2_ATOL})", flush=True)
+            if err > K2_ATOL:
+                raise RuntimeError(f"K2 disagrees with its twin at N={n}, "
+                                   f"K={K}: {err}")
+        K = 3
+        t_w = median_ms(lambda: noise3d.noise3d_sum(*args, K))
+        t_k = kernel_device_ms(lambda: noise3d.noise3d_sum(*args, K),
+                               "noise3d_sum_kernel")
+        t_p = median_ms(lambda: noise3d.noise3d_sum_ref(*args, K))
+        b_ms, b_by = bound_ms(28 * n, n * (K2_OPS_POINT + 27 * (
+            K1_OPS_CELL + K * K2_OPS_IMPULSE)))
+        times[n] = (t_k, t_p, b_ms, b_by)
+        print(f"K2 K={K} N={n}: kernel {t_k:.4f} ms of device time (mean of "
+              f"20, torch.profiler), wrapper call {t_w:.4f} ms and twin "
+              f"{t_p:.4f} ms (median of 20, CUDA events; {card_line}); "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return err_max, times
+
+
+def check_k2_points(noise3d, what):
+    """The render's largest K2 launch lies within the points K2 was
+    checked on."""
+    print(f"{what}: K2 launched on at most {noise3d.K2_MOST_POINTS} points "
+          f"(checked against its twin up to {max(K2_POINTS)})", flush=True)
+    if noise3d.K2_MOST_POINTS > max(K2_POINTS):
+        raise RuntimeError(f"{what} launched K2 on {noise3d.K2_MOST_POINTS} "
+                           "points, more than the twin check covers")
+
+
 def profile_table(prof, name):
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, name)
@@ -450,18 +533,31 @@ def profile(trender, noise3d, wst, scene, ws_scene, ws_trace_scene, dev,
               f" host syncs {syncs} ({card_line})", flush=True)
         if spp == 16:
             walls16 = walls
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        wall = timed(lambda: trender.render(scene, 16, device=dev))
+    fn, points = noise3d.noise3d_sum_s, [0]
+
+    def counted(p, *rest):
+        points[0] += p.shape[0]
+        return fn(p, *rest)
+
+    noise3d.noise3d_sum_s = counted
+    try:
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = timed(lambda: trender.render(scene, 16, device=dev))
+    finally:
+        noise3d.noise3d_sum_s = fn
     events = prof.key_averages()
     dev_ms, k1_ms = device_ms(events), device_ms(events,
                                                  "noise3d_sum_s_kernel")
+    b_ms, b_by = bound_ms(20 * points[0], points[0] * 27 * (
+        K1_OPS_CELL + 3 * K1_OPS_IMPULSE))
     n_launch, launch_ms = launches(events)
     table = profile_table(prof, "profile_16spp.txt")
     print(f"config 1, 16 spp under torch.profiler: wall {wall * 1e3:.1f} ms,"
           f" device {dev_ms:.1f} ms (busy {dev_ms / (wall * 1e3):.3f} of the "
           f"profiled wall, {dev_ms / (min(walls16) * 1e3):.3f} of the "
-          f"fastest unprofiled wall), K1 {k1_ms:.1f} ms; cudaLaunchKernel "
+          f"fastest unprofiled wall), K1 {k1_ms:.1f} ms on {points[0]} "
+          f"points, bound {b_ms:.3f} ms ({b_by}); cudaLaunchKernel "
           f"x{n_launch}, {launch_ms:.1f} ms host ({card_line}); table in "
           f"{table}", flush=True)
     if dev_ms <= 0 or k1_ms <= 0:
@@ -507,49 +603,66 @@ def profile(trender, noise3d, wst, scene, ws_scene, ws_trace_scene, dev,
             raise RuntimeError(f"the profiler saw no device time for {what}")
 
 
-def profile_mirror(trender, noise1d, scene, dev, card_line):
-    """Where config 3's 128x128, 16-spp render spends its time: walls and
-    K3 launches of two runs, host syncs of a third, and one run under
-    torch.profiler (op table in chiprun_out/)."""
+def profile_render(trender, what, scene, spp, mod, counter, kernel, label,
+                   table_name, dev, card_line, wrapper, bytes_pt, ops_pt):
+    """Where a 128x128 render spends its time: walls and launches of the
+    kernel (counted by mod.<counter>) of two runs, host syncs of a third,
+    and one run under torch.profiler (op table in chiprun_out/), with the
+    kernel's bound over that run: the points its wrapper mod.<wrapper> was
+    called on, at bytes_pt bytes and ops_pt operations each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     walls, counts = [], []
     for _ in range(2):
-        noise1d.LAUNCHES = 0
-        walls.append(timed(lambda: trender.render(scene, 16, device=dev)))
-        counts.append(noise1d.LAUNCHES)
-    syncs = host_syncs(lambda: trender.render(scene, 16, device=dev))
-    rates = ", ".join(f"{128 * 128 * 16 / w / 1e3:.2f}" for w in walls)
-    print(f"config 3, 16 spp in one batch: {walls[0]:.4f} s, {walls[1]:.4f} "
-          f"s ({rates} Ksamples/s); K3 launches {counts}; host syncs "
+        setattr(mod, counter, 0)
+        walls.append(timed(lambda: trender.render(scene, spp, device=dev)))
+        counts.append(getattr(mod, counter))
+    syncs = host_syncs(lambda: trender.render(scene, spp, device=dev))
+    rates = ", ".join(f"{128 * 128 * spp / w / 1e3:.2f}" for w in walls)
+    print(f"{what}, {spp} spp in one batch: {walls[0]:.4f} s, {walls[1]:.4f} "
+          f"s ({rates} Ksamples/s); {label} launches {counts}; host syncs "
           f"{syncs} ({card_line})", flush=True)
-    noise1d.LAUNCHES = 0
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        wall = timed(lambda: trender.render(scene, 16, device=dev))
-    n_k3 = noise1d.LAUNCHES
+    setattr(mod, counter, 0)
+    fn, points = getattr(mod, wrapper), [0]
+
+    def counted(x, *rest):
+        points[0] += x.shape[0]
+        return fn(x, *rest)
+
+    setattr(mod, wrapper, counted)
+    try:
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = timed(lambda: trender.render(scene, spp, device=dev))
+    finally:
+        setattr(mod, wrapper, fn)
+    n_k = getattr(mod, counter)
+    b_ms, b_by = bound_ms(points[0] * bytes_pt, points[0] * ops_pt)
     events = prof.key_averages()
     kern = [e for e in events if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    k3_ms = sum(e.self_device_time_total for e in kern
-                if "noise1d_sum_kernel" in e.key) / 1e3
+    k_ms = sum(e.self_device_time_total for e in kern
+               if kernel in e.key) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     launch = [e for e in events if e.key.startswith("cudaLaunchKernel")]
-    table = profile_table(prof, "profile_mirror1d_16spp.txt")
-    print(f"config 3, 16 spp under torch.profiler: wall {wall * 1e3:.1f} ms,"
+    n_launch = sum(e.count for e in launch)
+    table = profile_table(prof, table_name)
+    print(f"{what}, {spp} spp under torch.profiler: wall {wall * 1e3:.1f} ms,"
           f" device {dev_ms:.1f} ms (busy {dev_ms / (wall * 1e3):.3f} of the"
           f" profiled wall, {dev_ms / (min(walls) * 1e3):.3f} of the fastest"
-          f" unprofiled wall), K3 {k3_ms:.1f} ms over {n_k3} launches "
-          f"({k3_ms / max(n_k3, 1):.4f} ms each); cudaLaunchKernel "
-          f"x{sum(e.count for e in launch)}, "
+          f" unprofiled wall), {label} {k_ms:.1f} ms over {n_k} launches "
+          f"({k_ms / max(n_k, 1):.4f} ms each, {k_ms / max(dev_ms, 1e-9):.3f}"
+          f" of device time) on {points[0]} points, bound {b_ms:.3f} ms "
+          f"({b_by}); cudaLaunchKernel x{n_launch} "
+          f"({n_launch / max(n_k, 1):.1f} per {label} launch), "
           f"{sum(e.cpu_time_total for e in launch) / 1e3:.1f} ms host "
           f"({card_line}); top kernels: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
                       f" x{e.count}" for e in top)
           + f"; table in {table}", flush=True)
-    if dev_ms <= 0 or k3_ms <= 0:
-        raise RuntimeError("the profiler saw no device time for config 3")
+    if dev_ms <= 0 or k_ms <= 0:
+        raise RuntimeError(f"the profiler saw no device time for {what}")
 
 
 def main():
@@ -577,7 +690,7 @@ def main():
     def done(t0):
         print(f"-- {time.perf_counter() - t0:.1f} s", flush=True)
 
-    phase("build K1, K3 and K5/K4, in parallel")
+    phase("build K1/K2, K3 and K5/K4, in parallel")
     t0 = time.perf_counter()
 
     def build(mod):
@@ -640,6 +753,12 @@ def main():
               f"(median of 20, CUDA events; {card_line}); bound "
               f"{b_ms:.4f} ms ({b_by})", flush=True)
     del p, seed
+    done(t0)
+
+    phase("K2 against its plain twin (the hero's levels)")
+    t0 = time.perf_counter()
+    hero_base = load_scene(HERO_SCENE, device=dev)[0].media[0].gp.cov.base
+    k2_err, k2_times = k2_checks(noise3d, hero_base, dev, card_line)
     done(t0)
 
     phase("K3 against its plain twin")
@@ -727,14 +846,35 @@ def main():
             check_k3_points(noise1d, what)
             done(t0)
 
+        rows = trender.MAX_RAYS // 1920
+        phase(f"config 5, the hero (1920x1080, 1 spp, bands of {rows} rows) "
+              "through the CLI")
+        t0 = time.perf_counter()
+        noise3d.LAUNCHES = noise3d.K2_LAUNCHES = noise3d.K2_MOST_POINTS = 0
+        noise1d.LAUNCHES = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
+        img, wall, peak = render_cli(trender, HERO_SCENE, 1, tmp, "hero")
+        k2_launches = noise3d.K2_LAUNCHES
+        lum = check_image(img, "the hero", (1080, 1920, 3))
+        print(f"{-(-1080 // rows)} bands; mean luminance {lum:.4f}, K2 "
+              f"launches {k2_launches}, K1 launches {noise3d.LAUNCHES}, K3 "
+              f"launches {noise1d.LAUNCHES}; {wall:.2f} s with scene load "
+              f"({1920 * 1080 / wall / 1e3:.2f} Ksamples/s), peak device "
+              f"memory {peak / 2 ** 30:.2f} GiB ({card_line})", flush=True)
+        if (k2_launches <= 0 or noise3d.LAUNCHES or noise1d.LAUNCHES
+                or wst.MARCH_LAUNCHES or wst.TRACE_LAUNCHES):
+            raise RuntimeError("the hero render did not go through K2 alone")
+        check_k2_points(noise3d, "the hero")
+        done(t0)
+
     phase("timing runs (128x128)")
     t0 = time.perf_counter()
     noise1d.MOST_POINTS = 0
     scene128, _ = load_scene(SCENE, res_override=(128, 128), device=dev)
     ws128, _ = load_scene(WS_SCENE, res_override=(128, 128), device=dev)
     m1d128, _ = load_scene(M1D_SCENES["config 3"][0], device=dev)
+    hero128, _ = load_scene(HERO_SCENE, res_override=(128, 128), device=dev)
     for what, sc, spp in (("config 1", scene128, 16), ("config 4a", ws128, 8),
-                          ("config 3", m1d128, 16)):
+                          ("config 3", m1d128, 16), ("config 5", hero128, 16)):
         film = None
 
         def run():
@@ -761,7 +901,9 @@ def main():
              scene_from_dict(ws_doc(0.0, (64, 64)), device=dev)[0],
              WS_GOLDEN, False),
             *((what, load_scene(path, res_override=(64, 64), device=dev)[0],
-               gold, True) for what, (path, gold) in M1D_SCENES.items())):
+               gold, True) for what, (path, gold) in M1D_SCENES.items()),
+            ("config 5", load_scene(HERO_SCENE, res_override=(64, 64),
+                                    device=dev)[0], HERO_GOLDEN, True)):
         ours = (trender.render(sc, 48, device=dev) / 48).cpu().numpy()
         ratio, frac_bad = golden_bucket_test(ours, read_pfm(gold), 48)
         print(f"{what}: energy ratio {ratio:.4f} (0.9-1.1), frac_bad "
@@ -771,6 +913,7 @@ def main():
     for name in ("K5", "K4"):  # the timing and golden renders too
         check_rays(most_rays, name)
     check_k3_points(noise1d, "the timing and golden renders")
+    check_k2_points(noise3d, "the timing and golden renders")
     done(t0)
 
     if args.profile:
@@ -778,8 +921,18 @@ def main():
         t0 = time.perf_counter()
         profile(trender, noise3d, wst, scene128, ws128,
                 scene_from_dict(ws_doc(0.0), device=dev)[0], dev, card_line)
-        profile_mirror(trender, noise1d, m1d128, dev, card_line)
+        profile_render(trender, "config 3", m1d128, 16, noise1d, "LAUNCHES",
+                       "noise1d_sum_kernel", "K3",
+                       "profile_mirror1d_16spp.txt", dev, card_line,
+                       "noise1d_sum", 12,
+                       3 * (K3_OPS_CELL + 3 * K3_OPS_IMPULSE))
+        profile_render(trender, "config 5", hero128, 16, noise3d,
+                       "K2_LAUNCHES", "noise3d_sum_kernel", "K2",
+                       "profile_hero_16spp.txt", dev, card_line,
+                       "noise3d_sum", 28, K2_OPS_POINT + 27 * (
+                           K1_OPS_CELL + 3 * K2_OPS_IMPULSE))
         check_k3_points(noise1d, "the profiled renders")
+        check_k2_points(noise3d, "the profiled renders")
         done(t0)
 
     if "jax" in sys.modules or "tungsten_tpu" in sys.modules:
@@ -795,6 +948,14 @@ def main():
         "launches": k1_launches, "max_abs_err": k1_err, "ms": t_k,
         "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
+    t_k, t_p, b_ms, b_by = k2_times[K2_LINE_POINTS]
+    kernels.append({
+        "name": "K2 noise3d_sum", "route": "cuda",
+        "source": "tungsten_tpu_torch/csrc/noise3d.cu",
+        "replaces": "tungsten_tpu/ops/sparse_conv_pallas.py:136",
+        "launches": k2_launches, "max_abs_err": k2_err, "ms": t_k,
+        "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
     t_k, t_p, b_ms, b_by = k3_times[K3_LINE_POINTS]
     kernels.append({
         "name": "K3 noise1d_sum", "route": "cuda",

@@ -1,5 +1,5 @@
-"""Kernels K1, K3, K5 and K4 on the card, against their plain PyTorch
-twins, and the config-1, config-4a and config-3 renders on the card
+"""Kernels K1, K2, K3, K5 and K4 on the card, against their plain PyTorch
+twins, and the config-1, config-4a, config-3 and hero renders on the card
 against the same renders on the CPU.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they are
@@ -7,9 +7,9 @@ marked `cuda` and skip without one.  They import no JAX, so they run on a
 machine that has only PyTorch:
 `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py`.
 
-Tolerances: K1 vs twin atol 1e-5 (a raw sum of at most 81 unit-bounded
-fp32 terms; measured 0 on an H100); K3 vs twin atol 1e-5 (at most 9
-such terms).  K5/K4 vs twin on 4096 rays x 1024
+Tolerances: K1 and K2 vs twin atol 1e-5 (a raw sum of at most 81
+unit-bounded fp32 terms; K1 measured 0 on an H100); K3 vs twin atol 1e-5
+(at most 9 such terms).  K5/K4 vs twin on 4096 rays x 1024
 basis functions of config 4a, chunk after chunk: flags or decisions differ
 on at most 0.1% of rays (the warp sums add in another order than the
 twin's, so a value within rounding of 0 may decide otherwise), and every
@@ -34,6 +34,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = os.path.join(ROOT, "scenes", "gpis-sphere-box.json")
 WS_SCENE = os.path.join(ROOT, "scenes", "gpis-weight-space.json")
 M1D_SCENE = os.path.join(ROOT, "scenes", "gpis-mirror-1d-corrxy.json")
+HERO_SCENE = os.path.join(ROOT, "scenes", "gpis-hero.json")
 
 
 @pytest.fixture
@@ -60,6 +61,32 @@ def test_k1_kernel_matches_twin_on_the_card(cuda, K):
     torch.cuda.synchronize()
     assert noise3d.LAUNCHES == before + 1
     want = noise3d.noise3d_sum_s_ref(p, seed, kr, m6, K)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_k2_kernel_matches_twin_on_the_card(cuda, K):
+    scene, _ = load_scene(HERO_SCENE, device="cpu")
+    base = scene.media[0].gp.cov.base
+    m6 = base.splat_form().tolist() + [0.0, 0.0, 0.0]
+    r = np.random.default_rng(19)
+    n = (1 << 16) + 7  # a ragged tail
+    p = torch.from_numpy(r.uniform(-1.0, 2.0, (n, 3)).astype(np.float32))
+    lvl = r.integers(-1, 3, n)
+    s = np.float32(2.5) ** lvl.astype(np.float32)
+    # seeds offset by the level, wrapping at 2^32
+    seed = torch.from_numpy((r.integers(0, 2 ** 32, n, dtype=np.uint64)
+                             .astype(np.int64) + lvl) % 2 ** 32)
+    kr = torch.from_numpy(np.float32(float(base.splat_radius())) * s)
+    qm = torch.from_numpy(np.float32(1.0) / (s * s))
+    before = noise3d.K2_LAUNCHES
+    got = noise3d.noise3d_sum(p.to(cuda), seed.to(cuda), kr.to(cuda),
+                              qm.to(cuda), m6, K)
+    torch.cuda.synchronize()
+    assert noise3d.K2_LAUNCHES == before + 1 and noise3d.K2_MOST_POINTS >= n
+    want = noise3d.noise3d_sum_ref(p, seed, kr, qm, m6, K)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=1e-5)
 
@@ -150,13 +177,21 @@ def test_mirror_1d_render_on_the_card_goes_through_k3_and_matches_cpu(cuda):
     _render_on_the_card_matches_cpu(cuda, M1D_SCENE, "k3")
 
 
+@pytest.mark.cuda
+def test_hero_render_on_the_card_goes_through_k2_and_matches_cpu(cuda):
+    _render_on_the_card_matches_cpu(cuda, HERO_SCENE, "k2")
+
+
 def _render_on_the_card_matches_cpu(cuda, path, kernel):
     scene, _ = load_scene(path, res_override=(8, 8), device="cpu")
     ref = trender.render(scene, 1, device="cpu").numpy()
-    noise3d.LAUNCHES = noise1d.LAUNCHES = wst.MARCH_LAUNCHES = 0
+    noise3d.LAUNCHES = noise3d.K2_LAUNCHES = noise1d.LAUNCHES = 0
+    wst.MARCH_LAUNCHES = 0
     got = trender.render(scene, 1, device=cuda).cpu().numpy()
     if kernel == "k1":
         assert noise3d.LAUNCHES > 0 and noise1d.LAUNCHES == 0
+    elif kernel == "k2":
+        assert noise3d.K2_LAUNCHES > 0 and noise3d.LAUNCHES == 0
     elif kernel == "k3":
         assert noise1d.LAUNCHES > 0 and noise3d.LAUNCHES == 0
     else:

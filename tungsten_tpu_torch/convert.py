@@ -22,7 +22,9 @@ from .models.camera import Camera
 from .models.integrator import Scene
 from .ops import sparse_conv as sc
 from .ops.covariance import SquaredExponentialCov
+from .ops.fields import RAMPS, Field
 from .ops.means import HomogeneousMean, SphericalMean
+from .ops.nonstationary import ProceduralNonstationaryCov
 from .scene.parse import check_device
 
 
@@ -49,6 +51,36 @@ def _require(cond, what):
     if not cond:
         raise NotImplementedError(f"{what} is not ported to "
                                   "tungsten_tpu_torch")
+
+
+def _field(tree, f, t):
+    """The Field at path prefix `f` (a constant or a log-space ramp)."""
+    kind, noise = tree[f + "kind"], tree[f + "noise"]
+    _require(not tree[f + "is_vector"]
+             and (kind == "constant" or (kind == "noise" and noise in RAMPS)),
+             f"a {'vector ' if tree[f + 'is_vector'] else ''}{kind} field"
+             + (f" {noise!r}" if kind == "noise" else ""))
+    return Field(**{k: t(f + k) for k in (
+        "value", "mn", "mx", "start", "end", "mn2", "mx2", "start2",
+        "end2")}, kind=kind, noise=noise)
+
+
+def _cov(tree, c, t):
+    """The covariance at path prefix `c`: squared-exponential, or procedural
+    nonstationary over one in multi-resolution mode."""
+    if tree[c + "__type__"] == "ProceduralNonstationaryCov":
+        _require(tree[c + "use_multi_res_grid"],
+                 "brute-force nonstationary sampling")
+        return ProceduralNonstationaryCov(
+            base=_cov(tree, c + "base.", t),
+            var_field=_field(tree, c + "var_field.", t),
+            ls_field=_field(tree, c + "ls_field.", t),
+            max_ls=tree[c + "max_ls"])
+    _require(tree[c + "__type__"] == "SquaredExponentialCov"
+             and not tree[c + "use_aniso_mtx"], "this covariance")
+    return SquaredExponentialCov(
+        sigma=t(c + "sigma"), l=t(c + "l"), aniso=t(c + "aniso"),
+        kernel_scale=tree[c + "kernel_scale"])
 
 
 def scene_from_numpy(tree, device="cuda"):
@@ -118,12 +150,14 @@ def scene_from_numpy(tree, device="cuda"):
         _require(all(tree[g + k] is None for k in (
             "mean_additional", "csg_right", "global_cond", "color_field",
             "emission_field")), "a CSG, conditioned or colored GP")
-        _require(tree[g + "cov.__type__"] == "SquaredExponentialCov"
-                 and not tree[g + "cov.use_aniso_mtx"], "this covariance")
-        cov = SquaredExponentialCov(
-            sigma=t(g + "cov.sigma"), l=t(g + "cov.l"),
-            aniso=t(g + "cov.aniso"),
-            kernel_scale=tree[g + "cov.kernel_scale"])
+        cov = _cov(tree, g + "cov.", t)
+        _require(cov.is_stationary or (
+            kind == md.GPIS_SPARSE_CONV
+            and not (cfg.one_d or cfg.activate_conditioning)),
+            "a nonstationary covariance in weight space, with 1D sampling "
+            "or with conditioning")
+        _require(float(tree[c + "base"]) == sc.MULTI_RES_BASE,
+                 "another multi-resolution base")
         mean_type = tree[g + "mean.__type__"]
         if mean_type == "SphericalMean":
             mean = SphericalMean(center=t(g + "mean.center"),

@@ -1,27 +1,36 @@
-// K1: the raw 3D sparse-convolution noise sum with scalar parameters.
+// K1 and K2: the raw 3D sparse-convolution noise sum.
 //
-// Replaces tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_scalar
-// (launched by _noise3d_sum_pallas_s).  For each query point p it sums, over
-// the 27 lattice cells around p and K impulses per cell, w * exp(-q) where
-// the impulse offset and its +-1 weight come from xxhash32 counters keyed by
-// the cell, q is the splat's quadratic form (m6, with qm pre-folded, at cell
-// radius kr), and the sum is cut off at r^2 < 1 in cell units.
+// K1 (noise3d_sum_s_kernel) replaces
+// tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_scalar (launched by
+// _noise3d_sum_pallas_s): scalar cell radius kr, with the scalar
+// quadratic-form scale qm pre-folded into m6 by the caller.  K2
+// (noise3d_sum_kernel) replaces ::_noise_kernel (launched by
+// _noise3d_sum_pallas): per-point kr and qm, the multi-resolution levels of
+// a nonstationary covariance.  For each query point p both sum, over the 27
+// lattice cells around p and K impulses per cell, w * exp(-q) where the
+// impulse offset and its +-1 weight come from xxhash32 counters keyed by the
+// cell, q is the splat's quadratic form (m6 at cell radius kr, times qm for
+// K2), and the sum is cut off at r^2 < 1 in cell units.
 //
-// What bounds it: integer ALU.  A point costs 27 xxhash32_4 cell keys and
+// What bounds them: integer ALU.  A point costs 27 xxhash32_4 cell keys and
 // 27 * 4K xxhash32_2 variates -- about 330 hashes, thousands of 32-bit
-// integer operations -- against 20 bytes moved (12 in, 4 seed, 4 out).
-// The lever for later is data reuse: neighbouring points share most of
-// their 27 cells and all of those cells' impulses, so a block could hash
-// each cell once into shared memory instead of once per point.
+// integer operations -- against 20 bytes moved for K1 (12 in, 4 seed, 4
+// out) and 28 for K2 (its kr and qm).  K2 adds a per-point reciprocal and
+// 27 * K multiplies by qm.  The lever for later is data reuse: neighbouring
+// points share most of their 27 cells and all of those cells' impulses, so
+// a block could hash each cell once into shared memory instead of once per
+// point.
 //
 // Design: simple and exact first.  One thread per point, 256 threads per
-// block, a masked tail; p is read as [N,3] AoS; m6 and kr are passed by
-// value; K is a runtime int.  Blocks keep no state between them.  The
-// arithmetic follows the TPU kernel op for op: gx = px * (1/kr), the cell
-// index is (uint32)(int32)floor(g), keys are hashed in (z, y, x, seed)
-// order, variates are (h >> 8) * 2^-24, and the sum runs dx, dy, dz, k.
-// Built without fast math and with -fmad=false, so float rounding follows
-// the plain PyTorch twin (kernels/noise3d.py) operation for operation.
+// block, a masked tail and no padding; p is read as [N,3] AoS; m6 (and K1's
+// kr) are passed by value; K is a runtime int.  Blocks keep no state between
+// them.  The arithmetic follows the TPU kernels op for op: inv_r = 1 / kr,
+// gx = px * inv_r, the cell index is (uint32)(int32)floor(g), keys are
+// hashed in (z, y, x, seed) order, variates are (h >> 8) * 2^-24, K2 scales
+// the finished quadratic form (q = qm * quad), and the sum runs dx, dy, dz,
+// k.  Built without fast math and with -fmad=false, so float rounding
+// follows the plain PyTorch twins (kernels/noise3d.py) operation for
+// operation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,19 +73,13 @@ __device__ __forceinline__ float u01(uint32_t u) {
   return (float)(u >> 8) * (1.0f / 16777216.0f);
 }
 
-__global__ void __launch_bounds__(256)
-noise3d_sum_s_kernel(const float* __restrict__ p,
-                     const uint32_t* __restrict__ seed,
-                     float* __restrict__ out, int n, float kr, float m00,
-                     float m11, float m22, float m01, float m02, float m12,
-                     int impulse_count) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float px = p[3 * i + 0];
-  const float py = p[3 * i + 1];
-  const float pz = p[3 * i + 2];
-  const uint32_t sd = seed[i];
-
+// The 27 x K sum at one point; kQm scales each quadratic form by qm.
+template <bool kQm>
+__device__ __forceinline__ float lattice_sum(float px, float py, float pz,
+                                             uint32_t sd, float kr, float qm,
+                                             float m00, float m11, float m22,
+                                             float m01, float m02, float m12,
+                                             int impulse_count) {
   const float inv_r = 1.0f / kr;
   const float gx = px * inv_r;
   const float gy = py * inv_r;
@@ -115,21 +118,52 @@ noise3d_sum_s_kernel(const float* __restrict__ p,
           const float abx = kr * ddx;
           const float aby = kr * ddy;
           const float abz = kr * ddz;
-          const float q = m00 * abx * abx + m11 * aby * aby + m22 * abz * abz
+          float q = m00 * abx * abx + m11 * aby * aby + m22 * abz * abz
               + 2.0f * (m01 * abx * aby + m02 * abx * abz + m12 * aby * abz);
+          if (kQm) q = qm * q;
           const float w = uw < 0.5f ? -1.0f : 1.0f;
           total = total + (r2 < 1.0f ? w * expf(-q) : 0.0f);
         }
       }
     }
   }
-  out[i] = total;
+  return total;
+}
+
+__global__ void __launch_bounds__(256)
+noise3d_sum_s_kernel(const float* __restrict__ p,
+                     const uint32_t* __restrict__ seed,
+                     float* __restrict__ out, int n, float kr, float m00,
+                     float m11, float m22, float m01, float m02, float m12,
+                     int impulse_count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = lattice_sum<false>(p[3 * i + 0], p[3 * i + 1], p[3 * i + 2],
+                              seed[i], kr, 1.0f, m00, m11, m22, m01, m02,
+                              m12, impulse_count);
+}
+
+__global__ void __launch_bounds__(256)
+noise3d_sum_kernel(const float* __restrict__ p,
+                   const uint32_t* __restrict__ seed,
+                   const float* __restrict__ kr,
+                   const float* __restrict__ qm, float* __restrict__ out,
+                   int n, float m00, float m11, float m22, float m01,
+                   float m02, float m12, int impulse_count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = lattice_sum<true>(p[3 * i + 0], p[3 * i + 1], p[3 * i + 2],
+                             seed[i], kr[i], qm[i], m00, m11, m22, m01, m02,
+                             m12, impulse_count);
 }
 
 }  // namespace
 
-// Launches K1 on `stream` of `device`, then makes the caller's current
-// device current again; returns the launch's cudaGetLastError() as an int.
+// Both launchers run their kernel on `stream` of `device`, then make the
+// caller's current device current again; each returns the launch's
+// cudaGetLastError() as an int.
+
+// K1.
 extern "C" int noise3d_sum_s(const void* p, const void* seed, void* out, int n,
                              float kr, float m00, float m11, float m22,
                              float m01, float m02, float m12,
@@ -145,6 +179,30 @@ extern "C" int noise3d_sum_s(const void* p, const void* seed, void* out, int n,
     noise3d_sum_s_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const float*)p, (const uint32_t*)seed, (float*)out, n, kr, m00, m11,
         m22, m01, m02, m12, impulse_count);
+  }
+  err = cudaGetLastError();
+  const cudaError_t restore = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restore);
+}
+
+// K2.
+extern "C" int noise3d_sum(const void* p, const void* seed, const void* kr,
+                           const void* qm, void* out, int n, float m00,
+                           float m11, float m22, float m01, float m02,
+                           float m12, int impulse_count, int device,
+                           void* stream) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0) {
+    const int threads = 256;
+    const int blocks = (n + threads - 1) / threads;
+    noise3d_sum_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)p, (const uint32_t*)seed, (const float*)kr,
+        (const float*)qm, (float*)out, n, m00, m11, m22, m01, m02, m12,
+        impulse_count);
   }
   err = cudaGetLastError();
   const cudaError_t restore = cudaSetDevice(prev);

@@ -394,15 +394,19 @@ def trace(scene, px, py, spp_idx):
     return torch.where(torch.isfinite(emission), emission, 0.0)
 
 
-def render_pass(scene, spp_idx):
+def render_pass(scene, spp_idx, rows=None):
     """One sample (or one per entry of an [S] tensor of sample indices)
-    for every pixel; returns [H, W, 3] (summed over the S samples)."""
-    W, H = scene.camera.res_x, scene.camera.res_y
+    for every pixel of the rows range(*rows) (all rows by default);
+    returns [rows, W, 3] (summed over the S samples).  A pixel's value
+    depends on its own words only, so a band of rows renders what the
+    whole frame renders there."""
+    W = scene.camera.res_x
+    r0, r1 = rows if rows is not None else (0, scene.camera.res_y)
     dev = scene.lights.device
     spp = torch.as_tensor(spp_idx, dtype=torch.int64, device=dev).reshape(-1)
-    py, px = torch.meshgrid(torch.arange(H, device=dev),
+    py, px = torch.meshgrid(torch.arange(r0, r1, device=dev),
                             torch.arange(W, device=dev), indexing="ij")
-    n = H * W
+    n = px.numel()
     c = trace(scene, px.reshape(-1).repeat(len(spp)),
               py.reshape(-1).repeat(len(spp)), spp.repeat_interleave(n))
-    return c.reshape(len(spp), H, W, 3).sum(dim=0)
+    return c.reshape(len(spp), r1 - r0, W, 3).sum(dim=0)

@@ -6,7 +6,10 @@ realization, refines the crossing and samples the surface normal there;
 `transmittance` runs the same search for binary visibility.
 
 Sparse-conv noise: the march is a Python loop over steps for the whole
-batch, with the raw noise sum in K1 (3D) or K3 (1D sampling).  It stops
+batch, with the raw noise sum in K1 (3D, stationary), K2 (3D, the two
+multi-resolution levels of a nonstationary covariance) or K3 (1D
+sampling).  The normal at a crossing comes from the general evaluator
+(ops/sparse_conv.py), which blends the same two levels.  It stops
 when no ray is still marching, which reads `marching.any()` on the host
 once per step.  The JAX package's `[S, R]` step blocking only fills TPU
 lanes; with one step per iteration the evaluated steps are the same.

@@ -9,9 +9,12 @@ diagonal anisotropy is ported (no `anisoMtx`), so the splat's quadratic
 form and the world <-> isotropic transforms are diagonal: each is written
 as a product with the [3] diagonal, which rounds as the JAX package's 3x3
 products with zeros off the diagonal do.  A stationary covariance samples
-at spatial scale 1, which the JAX package's `global_scale` and
-`local_scale` arguments reduce to here; its nonstationary 1D splat scale
-(`nonstat_splat_cov_1d`) is 1, so the 1D code leaves it out.
+at spatial scale 1; a level of the multi-resolution grid (ops/nonstationary.py)
+samples at its level scale s, passed as the JAX package's `local_scale`
+(splat radius) and `global_scale` (quadratic form, variance) arguments,
+scalars or one per point.  At their default 1 they change no bit.  The
+nonstationary 1D splat scale (`nonstat_splat_cov_1d`) is 1, so the 1D code
+leaves it out.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ class SquaredExponentialCov:
     aniso: torch.Tensor  # [3]
     kernel_scale: float = 3.0  # splat cutoff radius, in splat lengths
 
+    is_stationary = True
+
     @property
     def l_aniso(self):
         return self.l * _SQRT2_OVER_2 * self.aniso
@@ -49,9 +54,10 @@ class SquaredExponentialCov:
         return torch.where(la == 0.0, 0.0,
                            1.0 / torch.where(la == 0.0, 1.0, la))
 
-    def splat_radius(self):
-        """Cell radius of the world-space splat lattice."""
-        return self.kernel_scale * torch.max(self.l_aniso)
+    def splat_radius(self, local_scale=1.0):
+        """Cell radius of the world-space splat lattice at level scale
+        `local_scale`."""
+        return self.kernel_scale * local_scale * torch.max(self.l_aniso)
 
     def splat_radius_iso(self):
         """Cell radius of the isotropic-space lattice (the 1D sampling
@@ -72,16 +78,18 @@ class SquaredExponentialCov:
         """Diagonal [3] of the iso -> world gradient transform."""
         return self.l_aniso_inv
 
-    def splat_form(self):
-        """Diagonal [3] of the quadratic form M of the splat exp(-ab^T M ab):
-        M = diag(1 / l_aniso^2) / 2, with a zero length giving 0."""
+    def splat_form(self, global_scale=1.0):
+        """Diagonal [3] of the quadratic form M of the splat exp(-ab^T M ab)
+        at spatial scale s = `global_scale`: M = diag(1 / l_aniso^2) / s^2 / 2,
+        with a zero length giving 0.  A per-point s has a trailing axis of
+        size 1."""
         inv = self.l_aniso_inv
-        return inv * inv * 0.5
+        return inv * inv / (global_scale * global_scale) * 0.5
 
-    def splat3_val_grad(self, ab):
+    def splat3_val_grad(self, ab, global_scale=1.0):
         """Splat value and its gradient wrt the query; ab = query - center,
         [..., 3]."""
-        mab = ab * self.splat_form()
+        mab = ab * self.splat_form(global_scale)
         f = torch.exp(-dot(ab, mab))
         return f, -2.0 * mab * f[..., None]
 
@@ -117,13 +125,16 @@ class SquaredExponentialCov:
                                           device=impulse_density.device))
         return impulse_density / kernel_radius * sqrt_pi
 
-    def variance3(self, impulse_density, kernel_radius):
-        """Analytic variance of the raw 3D noise (a scalar here: the JAX
-        package broadcasts the same value over the points)."""
+    def variance3(self, impulse_density, kernel_radius, global_scale=1.0):
+        """Analytic variance of the raw 3D noise at cell radius
+        `kernel_radius` and spatial scale `global_scale` (scalars, or one
+        of each per point)."""
         dens = impulse_density / (kernel_radius * kernel_radius
                                   * kernel_radius)
         la = self.l_aniso
-        return dens * (math.pi ** 1.5) * (la[0] * la[1] * la[2])
+        det_sqrt = la[0] * la[1] * la[2] * (global_scale * global_scale
+                                            * global_scale)
+        return dens * (math.pi ** 1.5) * det_sqrt
 
     def cov(self, pa, pb):
         """cov(pa, pb) over [..., 3] points."""

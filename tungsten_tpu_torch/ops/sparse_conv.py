@@ -1,5 +1,6 @@
 """Sparse-convolution noise, batched over rays: the world-space 3D branch
-and the 1D (along-ray) branch of tungsten_tpu/ops/sparse_conv.py.
+(stationary, and the multi-resolution levels of a nonstationary
+covariance) and the 1D (along-ray) branch of tungsten_tpu/ops/sparse_conv.py.
 
 A noise value at a point is a pure function of (point, cell lattice, seed):
 each neighbour cell (3^3 in 3D, 3 along the ray in 1D) is hash-keyed,
@@ -15,7 +16,7 @@ march evaluates values through ops/sparse_conv_fast.py and kernels K1 and
 K3.  As in the JAX package, this general evaluator computes the 1D cell
 coordinate as t / kernel_radius, the march as t * (1 / kernel_radius).
 Not ported yet: 3D conditioning, isotropic 3D sampling and the
-multi-resolution branches (the parser refuses what needs them).
+multi-resolution 1D branches (the parser refuses what needs them).
 """
 from __future__ import annotations
 
@@ -44,6 +45,11 @@ _CELL_OFFSETS_3D = [[dx, dy, dz] for dx in (-1, 0, 1) for dy in (-1, 0, 1)
 _CELL_OFFSETS_1D = [-1, 0, 1]
 # float32 constants as the JAX package rounds them
 _SQRT2 = float(torch.sqrt(torch.tensor(2.0, dtype=torch.float32)))
+# the multi-resolution grid's level base (SparseConvolutionNoise.cpp:32) and
+# its float32 log
+MULTI_RES_BASE = 2.5
+_LOG_BASE = float(torch.log(torch.tensor(MULTI_RES_BASE,
+                                         dtype=torch.float32)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,11 +135,15 @@ def compute_seed(cfg, pss, scene_seed):
     return (cfg.global_seed + h + rng.xxhash32(scene_seed)) & rng.MASK32
 
 
-def _noise3d(cfg, cov, p, seed, kernel_radius):
-    """27-cell x K splat sum at p [R, 3] with seeds [R]; returns
-    (val [R], grad [R, 3])."""
+def _noise3d(cfg, cov, p, seed, kernel_radius, global_scale=1.0):
+    """27-cell x K splat sum at p [R, 3] with seeds [R], cell radius
+    `kernel_radius` and the splat at spatial scale `global_scale` (each a
+    scalar or one per ray, [R]); returns (val [R], grad [R, 3])."""
     dev = p.device
     K = cfg.impulse_count
+    if kernel_radius.dim():
+        kernel_radius = kernel_radius[:, None]
+        global_scale = global_scale[:, None, None, None]
     p_grid = p / kernel_radius
     base = torch.floor(p_grid)
     frac = p_grid - base
@@ -149,22 +159,65 @@ def _noise3d(cfg, cov, p, seed, kernel_radius):
     w = rng.bernoulli_pm1(rng.uniform(key, ctr + 3))  # [R, 27, K]
     d = (frac[:, None, :] - offs.to(torch.float32))[:, :, None, :] - u
     inside = dot(d, d) < 1.0
-    val, grad = cov.splat3_val_grad(kernel_radius * d)
+    val, grad = cov.splat3_val_grad(kernel_radius[..., None, None] * d,
+                                    global_scale)
     wm = torch.where(inside, w, 0.0)
     return ((wm * val).sum(dim=(1, 2)),
             (wm[..., None] * grad).sum(dim=(1, 2)))
 
 
-def eval_noise3d_world(cfg, gp, p, seed):
+def _level_word(kernel_spatial_scale):
+    """The multi-resolution level of a spatial scale [R], as the word the
+    seed is offset by (int64; the sum with the seed wraps at 2^32)."""
+    return torch.floor(torch.log(kernel_spatial_scale)
+                       / _LOG_BASE).to(torch.int64)
+
+
+def eval_noise3d_world(cfg, gp, p, seed, kernel_spatial_scale=None):
     """Normalized world-space 3D noise and its gradient at p [R, 3].
 
-    A stationary covariance samples world space at spatial scale 1, so the
-    multi-resolution seed offset is 0 and the cell radius is the splat's."""
+    A stationary covariance samples world space at spatial scale 1: the
+    seed offset is 0 and the cell radius is the splat's.  A
+    multi-resolution level passes its scale s [R]: the seed is offset by
+    the level of s, and the cell radius and splat are the base's at s."""
     cov = gp.cov
-    radius = cov.splat_radius()
-    val, grad = _noise3d(cfg, cov, p, seed, radius)
-    norm = torch.sqrt(cov.variance3(cfg.impulse_density, radius))
-    return val / norm, grad / norm
+    if kernel_spatial_scale is None:
+        scale = 1.0
+        radius = cov.splat_radius()
+    else:
+        scale = kernel_spatial_scale
+        seed = (seed + _level_word(scale)) & rng.MASK32
+        radius = cov.splat_radius(scale)
+    val, grad = _noise3d(cfg, cov, p, seed, radius, scale)
+    norm = torch.sqrt(cov.variance3(cfg.impulse_density, radius, scale))
+    return val / norm, grad / norm[..., None]
+
+
+def level_pair(gp, p):
+    """The two multi-resolution levels around the lateral scale ls(p) and
+    their blend weights (kernelScaleLevelRatio): (lower level [R], its
+    scale s_lo, the upper scale s_hi = s_lo * base, r_lo, r_hi), with
+    r_lo^2 + r_hi^2 = 1 so the blend keeps unit variance."""
+    ls = gp.cov.lateral_scale(p)
+    lvl_lo = torch.floor(torch.log(ls) / _LOG_BASE)
+    s_lo = torch.pow(MULTI_RES_BASE, lvl_lo)
+    s_hi = torch.pow(MULTI_RES_BASE, lvl_lo + 1.0)
+    frac = (ls - s_lo) / (s_hi - s_lo)
+    denom = torch.sqrt(1.0 - 2.0 * frac + 2.0 * frac * frac)
+    return lvl_lo, s_lo, s_hi, (1.0 - frac) / denom, frac / denom
+
+
+def eval_noise3d(cfg, gp, p, seed):
+    """Normalized 3D noise and its gradient at p [R, 3]: world space at
+    scale 1 for a stationary covariance, the blend of two levels for a
+    multi-resolution one."""
+    if gp.cov.is_stationary:
+        return eval_noise3d_world(cfg, gp, p, seed)
+    _, s_lo, s_hi, r_lo, r_hi = level_pair(gp, p)
+    v_lo, g_lo = eval_noise3d_world(cfg, gp, p, seed, s_lo)
+    v_hi, g_hi = eval_noise3d_world(cfg, gp, p, seed, s_hi)
+    return (r_lo * v_lo + r_hi * v_hi,
+            r_lo[:, None] * g_lo + r_hi[:, None] * g_hi)
 
 
 def sampling_scheme(cfg, gp, p):
@@ -291,7 +344,7 @@ def eval_value(cfg, gp, p, pss, scene_seed, ray_dir=None, coeff1=None):
     if cfg.one_d:
         nv = eval_value_noise1d(cfg, gp, coeff1, p, ray_dir, seed, True)
     else:
-        nv, _ = eval_noise3d_world(cfg, gp, p, seed)
+        nv, _ = eval_noise3d(cfg, gp, p, seed)
     m, gp_id = gp.mean_and_id(p)
     return gp.cov.amplitude(p) * nv + m, gp_id
 
@@ -306,7 +359,7 @@ def eval_gradient(cfg, gp, p, pss, scene_seed, ray_dir=None, t_segment=None,
                                    pss, scene_seed, True)
     else:
         seed = compute_seed(cfg, pss, scene_seed)
-        _, ng = eval_noise3d_world(cfg, gp, p, seed)
+        _, ng = eval_noise3d(cfg, gp, p, seed)
     return gp.cov.amplitude(p)[..., None] * ng + gp.mean.grad(p)
 
 

@@ -1,19 +1,23 @@
 """The march-step evaluators: value_at(t) along a ray batch, with the raw
 lattice sum in kernel K1 (stationary, world-space branch of
-tungsten_tpu/ops/sparse_conv_fast.py::make_value_at) or K3 (1D sampling,
-`make_value_at_1d`).
+tungsten_tpu/ops/sparse_conv_fast.py::make_value_at), K2 (the
+multi-resolution world-space branch of the same function) or K3 (1D
+sampling, `make_value_at_1d`).
 
 Everything that does not change along a ray (seeds, the splat quadratic
 form, the cell radius, the variance normalization, the iso-ray
 parametrization and the conditioning constants) is computed once per
 batch, so each step is one kernel plus a few elementwise ops on [R]
-tensors.
+tensors.  Under the multi-resolution grid the two levels around ls(p)
+change along the ray, so each step computes them, with their radii,
+quadratic-form scales and variances, and sums both in one K2 launch.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import noise1d, noise3d
+from ..utils import rng
 from ..utils.vecmath import dot, normalize
 from . import sparse_conv as sc
 
@@ -22,6 +26,8 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed):
     """value_at(t [R]) -> (f [R], gp_id [R]) for the rays ro + t * rd."""
     cov = gp.cov
     seed0 = sc.compute_seed(cfg, pss, scene_seed)
+    if not cov.is_stationary:
+        return _make_value_at_multi_res(cfg, gp, ro, rd, seed0)
     kr = cov.splat_radius()
     # K1 takes its scalars by value: one host read for all four; the splat
     # form is diagonal, so its off-diagonal entries are 0
@@ -35,6 +41,38 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed):
         total = noise3d.noise3d_sum_s(p, seed0, kr_f, m6, K)
         mean, gp_id = gp.mean_and_id(p)
         return cov.amplitude(p) * (total / norm) + mean, gp_id
+
+    return value_at
+
+
+def _make_value_at_multi_res(cfg, gp, ro, rd, seed0):
+    """value_at(t) of a multi-resolution nonstationary covariance: at each
+    point the normalized lattice sums of the levels lvl and lvl + 1 around
+    ls(p), each at its scale s (seed offset by its level, cell radius
+    kr_unit * s, quadratic form over s^2), blended by r_lo and r_hi.  Both
+    levels go to K2 as one [2R] batch."""
+    cov = gp.cov
+    # the base's unit-scale splat form (diagonal) and cell radius
+    m6 = cov.base.splat_form().tolist() + [0.0, 0.0, 0.0]
+    kr_unit = cov.base.splat_radius()
+    dens = cfg.impulse_density
+    K = cfg.impulse_count
+    seed0 = seed0[None]
+
+    def value_at(t):
+        p = ro + t[:, None] * rd
+        lvl_lo, s_lo, s_hi, r_lo, r_hi = sc.level_pair(gp, p)
+        lvl = lvl_lo.to(torch.int64)
+        seed = (seed0 + torch.stack([lvl, lvl + 1])) & rng.MASK32
+        s = torch.stack([s_lo, s_hi])  # [2, R]
+        kr = kr_unit * s
+        qm = 1.0 / (s * s)
+        total = noise3d.noise3d_sum(p.repeat(2, 1), seed.reshape(-1),
+                                    kr.reshape(-1), qm.reshape(-1), m6, K)
+        vals = total.reshape(s.shape) / torch.sqrt(cov.variance3(dens, kr, s))
+        val = r_lo * vals[0] + r_hi * vals[1]
+        mean, gp_id = gp.mean_and_id(p)
+        return cov.amplitude(p) * val + mean, gp_id
 
     return value_at
 

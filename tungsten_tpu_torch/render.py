@@ -4,7 +4,9 @@
 
 Loads a Tungsten JSON scene onto the device, renders `spp` samples per
 pixel and writes the image as PNG (tonemapped) and PFM (linear).  Several
-samples run in one ray batch, up to MAX_RAYS rays.  The device decides the
+samples run in one ray batch, up to MAX_RAYS rays; a frame of more pixels
+than that renders in bands of MAX_RAYS // W rows, one sample at a time
+(the JAX package's row tiling), with the same image.  The device decides the
 path: on `cuda` the noise sums run in the CUDA kernels, on `cpu` in their
 plain PyTorch twins; asking for `cuda` without a card is an error.
 """
@@ -47,8 +49,17 @@ def render(scene, spp, device="cuda", progress=None):
     torch.backends.cudnn.allow_tf32 = False
     scene = to_device(scene, device)
     H, W = scene.camera.res_y, scene.camera.res_x
-    per_batch = max(1, MAX_RAYS // (H * W))
     film = torch.zeros(H, W, 3, dtype=torch.float32, device=device)
+    if H * W > MAX_RAYS:
+        rows = max(1, MAX_RAYS // W)
+        for s in range(spp):
+            for r0 in range(0, H, rows):
+                r1 = min(r0 + rows, H)
+                film[r0:r1] += render_pass(scene, s, (r0, r1))
+            if progress is not None:
+                progress(s + 1, film)
+        return film
+    per_batch = MAX_RAYS // (H * W)
     s = 0
     while s < spp:
         n = min(per_batch, spp - s)

@@ -1,7 +1,8 @@
 """Tungsten JSON scene -> Scene (the subset of tungsten_tpu/scene/parse.py
 that BASELINE config 1, `scenes/gpis-sphere-box.json`, config 4a,
-`scenes/gpis-weight-space.json`, and configs 3 and 3b,
-`scenes/gpis-mirror-1d{,-corrxy}.json`, use).
+`scenes/gpis-weight-space.json`, configs 3 and 3b,
+`scenes/gpis-mirror-1d{,-corrxy}.json`, and config 5, the hero
+`scenes/gpis-hero.json`, use).
 
 Host-side numpy, computed as the JAX package computes it, then moved to
 `device` (the card unless the caller asks for the CPU; asking for `cuda`
@@ -25,7 +26,9 @@ from ..models.camera import Camera
 from ..models.integrator import Scene
 from ..ops import sparse_conv as sc
 from ..ops.covariance import SquaredExponentialCov
+from ..ops.fields import parse_field
 from ..ops.means import HomogeneousMean, SphericalMean
+from ..ops.nonstationary import ProceduralNonstationaryCov
 
 DEFAULT_SEED = 0xBA5EBA11
 
@@ -176,6 +179,17 @@ def parse_mean(m: dict, device):
 
 def parse_cov(c: dict, device):
     t = c.get("type", "squared_exponential")
+    if t == "proc_nonstationary":
+        if not c.get("multiResolutionGrid", False):
+            raise _unsupported("brute-force nonstationary sampling "
+                               "(multiResolutionGrid: false)")
+        base = parse_cov(c.get("cov", {"type": "squared_exponential"}),
+                         device)
+        if not base.is_stationary:
+            raise _unsupported("a nonstationary base covariance")
+        return ProceduralNonstationaryCov.create(
+            base, device, var_field=parse_field(c.get("var"), device),
+            ls_field=parse_field(c.get("ls"), device))
     if t != "squared_exponential":
         raise _unsupported(f"covariance type {t!r}")
     if "anisoMtx" in c:
@@ -246,6 +260,12 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
         if not wst.supports(gp):
             raise _unsupported("a weight-space GP outside the K4/K5 kernels' "
                                "scope")
+    # the 1D multi-resolution branches and 3D conditioning are not ported
+    elif not gp.cov.is_stationary and one_d:
+        raise _unsupported("a nonstationary covariance with 1D sampling")
+    elif not gp.cov.is_stationary and cfg.activate_conditioning:
+        raise _unsupported(f"a nonstationary covariance with {ctxt!r} "
+                           "conditioning")
     elif cfg.activate_conditioning and not (
             one_d and cfg.ctxt == sc.CTXT_RENEWAL_PLUS):
         # the port conditions 1D realizations under renewal+ only
