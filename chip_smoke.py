@@ -3,7 +3,10 @@
 Builds the port's CUDA kernels from tungsten_tpu_torch/csrc/ (one nvcc per
 source, all started together) and holds each against its plain PyTorch
 twin on the card: K1 and K2 (noise3d.cu), K3 (noise1d.cu) and K5/K4
-(ws_trace.cu).  Then it drives the port's main paths through
+(ws_trace.cu, one whole weight-space search per launch).  Each kernel's
+bound is the largest of its bytes over HBM's rate and its integer, float
+and all operations over the lane rates of the card's INT32 and FP32
+lanes.  Then it drives the port's main paths through
 tungsten_tpu_torch.render, each with the launch counts set to 0 just
 before and read just after:
 - BASELINE config 1 (scenes/gpis-sphere-box.json, sparse-conv noise, K1);
@@ -15,8 +18,11 @@ before and read just after:
 - BASELINE config 5, the hero (scenes/gpis-hero.json, multi-resolution
   procedural-nonstationary noise under the Global context, K2), at its own
   1920x1080 in row bands.
-It checks each image, times the renders, and compares 64x64 renders with
-the committed reference goldens by bucket means.  Each phase that fails
+It checks each image, shows that every weight-space search was one launch
+with no host sync inside, compares config 4a's host syncs, realization
+synthesis and peak memory with the plain twins' [R, n] path, times the
+renders, and compares 64x64 renders with the committed reference goldens
+by bucket means.  Each phase that fails
 raises, so the script exits non-zero; it needs CUDA and never imports JAX
 or the JAX package.  It prints the card line of nvidia-smi, then a JSON
 line with every kernel's numbers, and last one JSON object naming the
@@ -26,7 +32,8 @@ device.
 renders' time goes (PERF.md section 5): config 1 at 1, 4 and 16 spp per ray
 batch, config 4a (both step sizes) at 8 spp, config 3 and the hero at 16
 spp, each with its launches and host syncs, and one render of each under
-torch.profiler, whose op tables it writes to chiprun_out/.
+torch.profiler, whose op tables it writes to OUT_DIR, with each kernel's
+bound over that render; and K5/K4 timed whole and in parts.
 """
 import argparse
 import concurrent.futures
@@ -61,7 +68,11 @@ K1_MAIN_POINTS = 1 << 18  # config 1's 16-spp batch at 128x128
 # the numbers at config 4a's 8-spp camera batch, WS_LINE_RAYS.
 WS_RAYS = (16384, 65536, 131072, 262144, 524288)
 WS_LINE_RAYS = 131072
-WS_RTOL = 1e-5  # float columns within WS_RTOL * (1 + |twin|)
+WS_RTOL = 1e-5  # t, value and gradient within WS_RTOL * (1 + |twin|)
+# config 4a's peak device memory at 8 spp with [R, n] realizations
+# (PERF.md): the one-launch search allocates none, so its renders must stay
+# below it
+WS_OLD_PEAK_GIB = 6.95
 K3_ATOL = 1e-5  # raw sum of at most 9 unit-bounded terms, fp32
 # Up to 2^20 points, past the most a render launches K3 on: the [2R] shadow
 # batch of render.MAX_RAYS camera rays, 524,288.  The kernels line gives
@@ -77,32 +88,78 @@ K2_POINTS = (16384, 65536, 131072, 262144, 524288, 1 << 20)
 K2_LINE_POINTS = 524288
 WS_MAX_SHARE = 1e-3  # rays whose flags or decisions may differ
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s
-# and float32 operations/s outside the tensor cores; 32-bit integer work
-# is counted at the same instruction rate.
+# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet and Hopper white
+# paper): HBM bytes/s; 132 SMs at 1.98 GHz, each issuing one float32
+# instruction per cycle on each of its 128 FP32 lanes (the data sheet's
+# 67 TFLOP/s counts an FMA as two operations; the kernels are built with
+# -fmad=false, so each counted operation is one instruction) and one 32-bit
+# integer instruction on each of its 64 INT32 lanes.
 PEAK_BYTES = 3.35e12
-PEAK_OPS = 67e12
-# Operation counts behind the bounds, read off the kernels' code.  K1, per
-# cell: xxhash32_4 (27 ops) + 6 index/offset ops; per impulse: 4 xxhash32_2
-# (15 ops each), 4 variates (3 each) and the splat (48, expf included).
-K1_OPS_CELL, K1_OPS_IMPULSE = 33, 4 * 15 + 4 * 3 + 48
-# A precise cosf: 3-part Cody-Waite reduction and a polynomial, ~20 ops;
-# an IEEE divide ~10.
-OPS_COSF, OPS_DIV = 20, 10
+PEAK_FLOAT = 132 * 128 * 1.98e9  # 33.45e12 instructions/s
+PEAK_INT = 132 * 64 * 1.98e9  # 16.7e12 instructions/s
+# Operation counts behind the bounds, read off the kernels' code and split
+# into 32-bit integer and float instructions.  A precise cosf or sinf: a
+# 3-part Cody-Waite reduction and a polynomial, ~20; an IEEE divide ~10; a
+# precise log1pf ~20; a precise sqrtf ~8.
+OPS_COSF, OPS_DIV, OPS_LOG1P, OPS_SQRT = 20, 10, 20, 8
+OPS_HASH2 = 15  # xxhash32_2, integer
+# K1 per cell: xxhash32_4 (27) and 3 index adds (integer), 3 float ops; per
+# impulse: 4 xxhash32_2 and 4 variate shifts (integer), 4 variate
+# conversions and their multiplies and the 48-op splat, expf included
+# (float).
+K1_INT_CELL, K1_FLT_CELL = 27 + 3, 3
+K1_INT_IMPULSE, K1_FLT_IMPULSE = 4 * OPS_HASH2 + 4, 8 + 48
 # K2: K1's sum plus a per-point reciprocal (1 / kr) and one qm multiply
-# per impulse
-K2_OPS_POINT, K2_OPS_IMPULSE = OPS_DIV, K1_OPS_IMPULSE + 1
-# K5 per basis function and step: phase (2), cosf, amp * cos and the sum (2)
-K5_OPS = 4 + OPS_COSF
-# K3, per cell: xxhash32_2 (15 ops) + 6 coordinate/index ops; per impulse:
-# 2 xxhash32_2 (15 each), 2 variates (3 each), the sign select, d, kr * d,
-# d * d and its compare, the splat's products and sum (8) and a precise
-# expf (~20)
-K3_OPS_CELL, K3_OPS_IMPULSE = 21, 2 * 15 + 2 * 3 + 8 + 20
-# K4 per basis function and iteration: 2 phases (4), 2 cosf, 4 divides,
-# 4 floors, 2 subtracts, min/max and selects (10), 2 products, 2 min/max
-# and 2 sums
-K4_OPS = 4 + 2 * OPS_COSF + 4 * OPS_DIV + 4 + 2 + 10 + 6
+# per impulse (float)
+K2_FLT_POINT, K2_FLT_IMPULSE = OPS_DIV, K1_FLT_IMPULSE + 1
+# K3 per cell: xxhash32_2 and 3 coordinate/index ops (integer), 3 float
+# ops; per impulse: 2 xxhash32_2 and 2 variate shifts (integer), 2 variate
+# conversions and multiplies, the sign select, d, kr * d, d * d and its
+# compare, the splat's products and sum (8) and a precise expf (~20)
+K3_INT_CELL, K3_FLT_CELL = OPS_HASH2 + 3, 3
+K3_INT_IMPULSE, K3_FLT_IMPULSE = 2 * OPS_HASH2 + 2, 4 + 8 + 20
+# K5 and K4 synthesise each basis function from the ray's keys: 3 Box-
+# Muller pairs (7 xxhash32_2 with their counters and shifts, integer;
+# per pair 2 conversions and multiplies, a negate, log1pf, a multiply,
+# sqrtf and the angle's multiply, float) plus the offset's variate, 4
+# cosf/sinf and their 4 radius products, omega (3 divides, 3 multiplies),
+# freq (dot, max, sqrtf), dirs (3 divides) and the offset's multiply.
+WS_SYNTH_INT = 7 * (OPS_HASH2 + 1) + 3 * 2 + 7
+WS_SYNTH_FLT = (3 * (4 + 1 + OPS_LOG1P + 1 + OPS_SQRT + 1) + 2 + 1
+                + 4 * OPS_COSF + 4 + 3 * OPS_DIV + 3 + 6 + OPS_SQRT
+                + 3 * OPS_DIV)
+WS_HOIST_FLT = 14  # a, slope (two projections and products) and amp
+# the end point's value and gradient: the projection and phase (7), cosf,
+# sinf and their products and sums (2 + 3), the gradient's 3 products and
+# 3 sums
+WS_EVAL_FLT = 7 + 2 * OPS_COSF + 5 + 6
+WS_F0_FLT = 7 + OPS_COSF + 2  # K4's f0 term in the evaluate form
+# per basis function and evaluation: K5's phase (2), cosf, amp * cos and
+# the sum (2); K4's 2 phases (4), 2 cosf, 4 divides by 2 pi (a product and
+# two fma each, rounded as IEEE division), 4 floors, the cos interval's
+# min/max, subtracts, compares and selects (18) and the bound's 2 products,
+# min/max and 2 sums (6)
+K5_FLT_STEP = 4 + OPS_COSF
+K4_FLT_STEP = 4 + 2 * OPS_COSF + 4 * 3 + 4 + 18 + 6
+# bytes per ray: keys (8), ro and rd (24), near and far (8), K5's step,
+# u_jitter and absorb (9), and the [8] float output (32)
+K5_BYTES_RAY, K4_BYTES_RAY = 8 + 24 + 8 + 9 + 32, 8 + 24 + 8 + 32
+
+
+def ws_work(name, n, rays, rays_eval, steps, refined):
+    """(bytes, integer ops, float ops) of K5 or K4 (`name`) over `rays`
+    rays of n basis functions that took `steps` march steps or iterations
+    in all, `rays_eval` of them evaluating their end point and `refined` of
+    them (K5) refining a crossing: one synthesis per ray, a second for
+    each end point."""
+    n_int = n * WS_SYNTH_INT * (rays + rays_eval)
+    n_flt = (n * (WS_SYNTH_FLT + WS_HOIST_FLT) * rays
+             + n * (WS_SYNTH_FLT + WS_EVAL_FLT) * rays_eval)
+    if name == "K5":  # f0, the steps and 6 Illinois steps per crossing
+        n_flt += n * K5_FLT_STEP * (rays + steps + 6 * refined)
+        return K5_BYTES_RAY * rays, n_int, n_flt
+    n_flt += n * (WS_F0_FLT * rays + K4_FLT_STEP * steps)
+    return K4_BYTES_RAY * rays, n_int, n_flt
 
 
 def phase(name):
@@ -133,31 +190,43 @@ def median_ms(fn, reps=20):
     return float(np.median(times))
 
 
-def kernel_device_ms(fn, kernel, reps=20):
-    """Mean device time of the CUDA kernel named `kernel` per call of fn(),
-    from torch.profiler over `reps` calls after one warm-up: the kernel
-    alone, without the host work and gaps a CUDA-event window around a
-    short launch also holds."""
+def kernel_device_ms(fn, kernel, reps=20, tries=3):
+    """Mean device time of one launch of the CUDA kernel named `kernel`
+    (fn() launches it once), from torch.profiler over `reps` calls after
+    one warm-up: the kernel alone, without the host work and gaps a
+    CUDA-event window around a short launch also holds.  The mean is over
+    the launches the profiler recorded; a window in which it recorded none
+    is profiled again, up to `tries` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key)
-    if us <= 0:
-        raise RuntimeError(f"the profiler saw no device time for {kernel}")
-    return us / reps / 1e3
+    for _ in range(tries):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        launches = sum(e.count for e in seen)
+        us = sum(e.self_device_time_total for e in seen)
+        if launches > 0 and us > 0:
+            return us / launches / 1e3
+    raise RuntimeError(f"the profiler saw no device time for {kernel}")
 
 
-def bound_ms(n_bytes, n_ops):
-    """(least time in ms for the bytes and operations, what bounds it)."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_OPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound_ms(n_bytes, n_int, n_flt):
+    """(least time in ms for the bytes and the integer and float
+    operations, "bytes" or "operations", the class that bounds it): the
+    largest of bytes over HBM's rate, integer ops over the INT32 lanes'
+    rate, float ops over the FP32 lanes' and all ops over the issue rate
+    (one instruction per lane and cycle)."""
+    times = {"bytes": n_bytes / PEAK_BYTES, "integer": n_int / PEAK_INT,
+             "float": n_flt / PEAK_FLOAT,
+             "issue": (n_int + n_flt) / PEAK_FLOAT}
+    cls = max(times, key=times.get)
+    return (times[cls] * 1e3, "bytes" if cls == "bytes" else "operations",
+            cls)
 
 
 def buckets(img, b=8):
@@ -214,11 +283,12 @@ def ws_doc(step_size=None, res=None):
     return doc
 
 
-def ws_rays(med, R, seed, dev):
-    """R rays of config 4a inside its bounding cube, made from a numpy seed:
-    origins around the GPIS sphere, random directions and (pixel, sample,
-    bounce) words, the march interval clamped to the cube as the medium
-    clamps it; a third of the rays start after an interior scatter."""
+def ws_args(med, R, seed, dev, name):
+    """Arguments of K5's (`name` "K5") or K4's batch function for R rays of
+    config 4a inside its bounding cube, made from a numpy seed: origins
+    around the GPIS sphere, random directions and (pixel, sample, bounce)
+    words, the march interval clamped to the cube as the medium clamps it;
+    a third of the rays start after an interior scatter."""
     from tungsten_tpu_torch.models import media as md
     r = np.random.default_rng(seed)
     center = np.array([0.0, 0.9, 0.0], np.float32)
@@ -232,116 +302,141 @@ def ws_rays(med, R, seed, dev):
     ro, rd, pss, uj = (torch.from_numpy(x).to(dev) for x in (ro, rd, pss, uj))
     near = torch.zeros(R, device=dev)
     far = md._far_eff(med, ro, rd, near, torch.full((R,), 3e38, device=dev))
+    head = (med.gp, med.basis_functions, md._ws_key(med, pss), ro, rd, near,
+            far)
+    if name == "K4":
+        return head
     step = torch.clamp(torch.minimum(med.step_size, (far - near)
                                      / med.min_step), min=1e-6)
     absorb = torch.arange(R, device=dev) % 3 == 0
-    return md._ws_real(med, pss), ro, rd, near, far, step, uj, absorb
+    return head + (step, uj, absorb, med.max_march_steps)
+
+
+WS_FNS = {"K5": "fixed_march_batch", "K4": "sphere_trace_batch"}
 
 
 def ws_kernel_checks(wst, med, dev, card_line):
-    """K5 and K4 against their twins at WS_RAYS rays x 1024 basis functions,
-    chunk after chunk until every ray is done.  Returns {kernel: numbers at
-    WS_LINE_RAYS} for the kernels line."""
-    flag_cols = {"K5": [wst.M_DONE, wst.M_CROSS, wst.M_SIGN],
-                 "K4": [wst.C_DONE, wst.C_HIT, wst.C_SIGN]}
+    """K5 and K4 against their plain twins, one whole search of WS_RAYS rays
+    of config 4a at n = 1024 each: hit, sign0 and the step count, then t,
+    the value and the gradient at the end point.  Returns {kernel: numbers
+    at WS_LINE_RAYS} for the kernels line."""
+    n = med.basis_functions
     out = {}
-    for name in ("K5", "K4"):
+    for name, fn in WS_FNS.items():
+        kern, twin = getattr(wst, fn), getattr(wst, fn + "_ref")
         max_err = 0.0
         for R in WS_RAYS:
-            real, ro, rd, near, far, step, uj, absorb = ws_rays(med, R, R,
-                                                                dev)
-            if name == "K5":
-                h, aux, S0, params = wst.march_inputs(
-                    real, med.gp, ro, rd, near, far, step, uj, absorb)
-                kern, twin = wst.march_chunk, wst.march_chunk_ref
-            else:
-                h, aux, S0, params = wst.trace_inputs(real, med.gp, ro, rd,
-                                                      near, far)
-                kern, twin = wst.trace_chunk, wst.trace_chunk_ref
-            del real
-            n = h.a.shape[1]
-            # as many chunks as the batch functions allow at most
-            limit = -(-(8192 if name == "K5" else 256)
-                      // (wst.MARCH_CHUNK if name == "K5" else wst.TRACE_CHUNK))
-            S, chunks, n_bad = S0, 0, 0
-            while (chunks < limit
-                   and bool((S[:, flag_cols[name][0]] < 0.5).any())):
-                got = kern(h.a, h.slope, h.amp, aux, S, params, h.spherical)
-                want = twin(h.a, h.slope, h.amp, aux, S, params,
-                            h.spherical)
-                torch.cuda.synchronize()
-                if not bool(torch.isfinite(got).all()):
-                    raise RuntimeError(f"{name} returned non-finite state")
-                err = (got - want).abs()
-                off = (err > WS_RTOL * (1.0 + want.abs())).any(dim=1)
-                flags = (got[:, flag_cols[name]]
-                         != want[:, flag_cols[name]]).any(dim=1)
-                bad = off | flags
-                n_bad += int(bad.sum())
-                if bool((~bad).any()):
-                    max_err = max(max_err, float(err[~bad].max()))
-                S, chunks = got, chunks + 1
+            args = ws_args(med, R, R, dev, name)
+            got = kern(*args)
+            torch.cuda.synchronize()
+            want = twin(*args)
+            if not all(bool(torch.isfinite(got[k]).all())
+                       for k in ("t", "val", "grad")):
+                raise RuntimeError(f"{name} returned non-finite values")
+            bad = ((got["hit"] != want["hit"]) | (got["sign0"] != want["sign0"])
+                   | (got["steps"] != want["steps"]))
+            for k in ("t", "val", "grad"):
+                off = (got[k] - want[k]).abs() > WS_RTOL * (1.0 + want[k].abs())
+                bad |= off if off.dim() == 1 else off.any(dim=1)
+            n_bad = int(bad.sum())
+            if bool((~bad).any()):
+                max_err = max(max_err, *(float((got[k] - want[k])[~bad]
+                                               .abs().max())
+                                         for k in ("t", "val", "grad")))
             share = n_bad / R
-            done = float((S[:, flag_cols[name][1]] > 0.5).float().mean())
-            print(f"{name} R={R} n={n}: {chunks} chunks until done, "
-                  f"{100 * done:.2f}% of rays hit; rays whose flags or "
-                  f"decisions differ {n_bad} ({share:.2e}, limit "
-                  f"{WS_MAX_SHARE}); max |kernel - twin| on the others "
-                  f"{max_err:.3e} (limit {WS_RTOL}*(1+|x|))", flush=True)
+            steps, hits = float(got["steps"].sum()), int(got["hit"].sum())
+            t_k = median_ms(lambda: kern(*args))
+            print(f"{name} R={R} n={n}: {100 * hits / R:.2f}% of rays hit, "
+                  f"{steps:.0f} ray-steps; rays whose hit, sign0 or step count"
+                  f" or t, value or gradient differ {n_bad} ({share:.2e}, "
+                  f"limit {WS_MAX_SHARE}); max |kernel - twin| on the others "
+                  f"{max_err:.3e} (limit {WS_RTOL}*(1+|x|)); kernel {t_k:.4f}"
+                  f" ms per search (median of 20, CUDA events; {card_line})",
+                  flush=True)
             if share > WS_MAX_SHARE:
                 raise RuntimeError(f"{name} disagrees with its twin on "
                                    f"{n_bad} of {R} rays")
-            t_k = median_ms(lambda: kern(h.a, h.slope, h.amp, aux, S0,
-                                         params, h.spherical))
-            t_p = median_ms(lambda: twin(h.a, h.slope, h.amp, aux, S0,
-                                         params, h.spherical))
-            S1 = kern(h.a, h.slope, h.amp, aux, S0, params, h.spherical)
-            if name == "K5":
-                # steps evaluated: the advances, plus the step that ended a
-                # ray; basis rows are read for rays that step at all
-                steps = (S1[:, wst.M_K] - S0[:, wst.M_K]
-                         + (S1[:, wst.M_DONE] > S0[:, wst.M_DONE]).float())
-                ops_per = K5_OPS
-            else:
-                steps = S1[:, wst.C_IT] - S0[:, wst.C_IT]
-                ops_per = K4_OPS
-            n_steps = float(steps.sum())
-            n_bytes = (12 * n * float((steps > 0).sum()) + 3 * 32 * R + 32)
-            b_ms, b_by = bound_ms(n_bytes, n_steps * n * ops_per)
-            print(f"{name} R={R}: kernel {t_k:.4f} ms, twin {t_p:.4f} ms per "
-                  f"chunk from the start state (median of 20, CUDA events;"
-                  f" {card_line}); {n_steps:.0f} ray-steps, bound "
-                  f"{b_ms:.4f} ms ({b_by})", flush=True)
             if R == WS_LINE_RAYS:
+                t_p = median_ms(lambda: twin(*args), reps=3)
+                b_ms, b_by, b_cls = bound_ms(*ws_work(
+                    name, n, R, R, steps, hits if name == "K5" else 0))
+                print(f"{name} R={R}: twin {t_p:.4f} ms per search (median "
+                      f"of 3); bound {b_ms:.4f} ms ({b_cls}), the kernel at "
+                      f"{b_ms / t_k:.3f} of it", flush=True)
                 out[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
-                             "bound_by": b_by}
-            del h, aux, S0, S, S1
+                             "bound_by": b_by, "bound_class": b_cls}
+            del args, got, want, bad
             torch.cuda.empty_cache()
         out[name]["max_abs_err"] = max_err
     return out
 
 
-def record_rays(wst):
-    """Wrap K5's and K4's wrappers, as the medium calls them, so that the
-    renders record the most rays each kernel was launched on; returns that
-    record, {"K5": R, "K4": R}."""
-    most = {"K5": 0, "K4": 0}
-    for name, attr in (("K5", "march_chunk"), ("K4", "trace_chunk")):
-        def wrapped(a, *rest, _fn=getattr(wst, attr), _name=name):
-            most[_name] = max(most[_name], a.shape[0])
-            return _fn(a, *rest)
-        setattr(wst, attr, wrapped)
-    return most
+class WsSearches:
+    """Wraps K5's and K4's batch functions, as the medium calls them, to
+    record per kernel the searches, the most rays one took, the host syncs
+    inside them (torch.cuda.set_sync_debug_mode), and, on the device, the
+    work they did: rays, rays that evaluated their end point, ray-steps and
+    refined crossings (for the bound over a render)."""
 
+    def __init__(self, wst):
+        self.wst = wst
+        self.fns = {name: getattr(wst, fn) for name, fn in WS_FNS.items()}
+        self.reset()
+        for name, fn in WS_FNS.items():
+            setattr(wst, fn, self._wrap(name))
 
-def check_rays(most, name):
-    """The kernel's largest launch in a render lies within the rays it was
-    checked on."""
-    print(f"{name}: at most {most[name]} rays per launch in this render "
-          f"(checked against its twin up to {max(WS_RAYS)})", flush=True)
-    if most[name] > max(WS_RAYS):
-        raise RuntimeError(f"the render launched {name} on {most[name]} rays,"
-                           f" more than the twin check covers")
+    def reset(self):
+        self.calls = {name: 0 for name in WS_FNS}
+        self.most = {name: 0 for name in WS_FNS}
+        self.syncs = {name: 0 for name in WS_FNS}
+        self.work = {name: [0, 0, 0, 0] for name in WS_FNS}
+
+    def _wrap(self, name):
+        def wrapped(gp, n, key, *rest, **kw):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    res = self.fns[name](gp, n, key, *rest, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+            R = key.shape[0]
+            self.calls[name] += 1
+            self.most[name] = max(self.most[name], R)
+            self.syncs[name] += sum("synchronizing CUDA operation"
+                                    in str(w.message) for w in caught)
+            w = self.work[name]
+            w[0] += R
+            w[1] += R if kw.get("evaluate", True) else 0
+            w[2] = w[2] + res["steps"].sum()
+            if name == "K5" and kw.get("refine", True):
+                w[3] = w[3] + res["hit"].sum()
+            return res
+        return wrapped
+
+    def bound(self, name, n):
+        """The kernel's bound over the searches since the last reset:
+        (ms, bytes/operations, class, rays, ray-steps)."""
+        rays, rays_eval, steps, refined = (float(x) for x in self.work[name])
+        return (*bound_ms(*ws_work(name, n, rays, rays_eval, steps, refined)),
+                rays, steps)
+
+    def check(self, name, what):
+        """The render's searches each launched the kernel once, with no host
+        sync inside, on at most the rays the twin check covers."""
+        launches = getattr(self.wst, "MARCH_LAUNCHES" if name == "K5"
+                           else "TRACE_LAUNCHES")
+        print(f"{what}: {self.calls[name]} {name} searches, {launches} "
+              f"launches, {self.syncs[name]} host syncs inside them, at most "
+              f"{self.most[name]} rays per launch (checked against its twin "
+              f"up to {max(WS_RAYS)})", flush=True)
+        if launches != self.calls[name] or self.syncs[name]:
+            raise RuntimeError(f"{what}: {name} made other than one launch "
+                               "and no host sync per search")
+        if self.most[name] > max(WS_RAYS):
+            raise RuntimeError(f"{what} launched {name} on {self.most[name]} "
+                               "rays, more than the twin check covers")
 
 
 def render_cli(trender, scene_path, spp, tmp, name):
@@ -401,14 +496,15 @@ def k3_checks(noise1d, dev, card_line):
         t_k = kernel_device_ms(lambda: noise1d.noise1d_sum(pk, sk, kr, K),
                                "noise1d_sum_kernel")
         t_p = median_ms(lambda: noise1d.noise1d_sum_ref(pk, sk, kr, K))
-        b_ms, b_by = bound_ms(12 * n, n * 3 * (K3_OPS_CELL
-                                                + K * K3_OPS_IMPULSE))
-        times[n] = (t_k, t_p, b_ms, b_by)
+        b_ms, b_by, b_cls = bound_ms(
+            12 * n, n * 3 * (K3_INT_CELL + K * K3_INT_IMPULSE),
+            n * 3 * (K3_FLT_CELL + K * K3_FLT_IMPULSE))
+        times[n] = (t_k, t_p, b_ms, b_by, b_cls)
         print(f"K3 K={K} N={n}: max |kernel - twin| = {err:.3e} (atol "
               f"{K3_ATOL}); kernel {t_k:.4f} ms of device time (mean of 20, "
               f"torch.profiler), wrapper call {t_w:.4f} ms and twin "
               f"{t_p:.4f} ms (median of 20, CUDA events; {card_line}); "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"bound {b_ms:.4f} ms ({b_cls})", flush=True)
     return err_max, times
 
 
@@ -469,13 +565,14 @@ def k2_checks(noise3d, base, dev, card_line):
         t_k = kernel_device_ms(lambda: noise3d.noise3d_sum(*args, K),
                                "noise3d_sum_kernel")
         t_p = median_ms(lambda: noise3d.noise3d_sum_ref(*args, K))
-        b_ms, b_by = bound_ms(28 * n, n * (K2_OPS_POINT + 27 * (
-            K1_OPS_CELL + K * K2_OPS_IMPULSE)))
-        times[n] = (t_k, t_p, b_ms, b_by)
+        b_ms, b_by, b_cls = bound_ms(
+            28 * n, n * 27 * (K1_INT_CELL + K * K1_INT_IMPULSE),
+            n * (K2_FLT_POINT + 27 * (K1_FLT_CELL + K * K2_FLT_IMPULSE)))
+        times[n] = (t_k, t_p, b_ms, b_by, b_cls)
         print(f"K2 K={K} N={n}: kernel {t_k:.4f} ms of device time (mean of "
               f"20, torch.profiler), wrapper call {t_w:.4f} ms and twin "
               f"{t_p:.4f} ms (median of 20, CUDA events; {card_line}); "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"bound {b_ms:.4f} ms ({b_cls})", flush=True)
     return err_max, times
 
 
@@ -498,8 +595,8 @@ def profile_table(prof, name):
     return os.path.relpath(path, ROOT)
 
 
-def profile(trender, noise3d, wst, scene, ws_scene, ws_trace_scene, dev,
-            card_line):
+def profile(trender, noise3d, wst, searches, scene, ws_scene,
+            ws_trace_scene, dev, card_line):
     """Where the 128x128 renders' time goes; see the module docstring."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -549,24 +646,26 @@ def profile(trender, noise3d, wst, scene, ws_scene, ws_trace_scene, dev,
     events = prof.key_averages()
     dev_ms, k1_ms = device_ms(events), device_ms(events,
                                                  "noise3d_sum_s_kernel")
-    b_ms, b_by = bound_ms(20 * points[0], points[0] * 27 * (
-        K1_OPS_CELL + 3 * K1_OPS_IMPULSE))
+    b_ms, _, b_cls = bound_ms(
+        20 * points[0], points[0] * 27 * (K1_INT_CELL + 3 * K1_INT_IMPULSE),
+        points[0] * 27 * (K1_FLT_CELL + 3 * K1_FLT_IMPULSE))
     n_launch, launch_ms = launches(events)
     table = profile_table(prof, "profile_16spp.txt")
     print(f"config 1, 16 spp under torch.profiler: wall {wall * 1e3:.1f} ms,"
           f" device {dev_ms:.1f} ms (busy {dev_ms / (wall * 1e3):.3f} of the "
           f"profiled wall, {dev_ms / (min(walls16) * 1e3):.3f} of the "
           f"fastest unprofiled wall), K1 {k1_ms:.1f} ms on {points[0]} "
-          f"points, bound {b_ms:.3f} ms ({b_by}); cudaLaunchKernel "
+          f"points, bound {b_ms:.3f} ms ({b_cls}); cudaLaunchKernel "
           f"x{n_launch}, {launch_ms:.1f} ms host ({card_line}); table in "
           f"{table}", flush=True)
     if dev_ms <= 0 or k1_ms <= 0:
         raise RuntimeError("the profiler saw no device time for config 1")
 
-    for what, sc, kernel, counter in (
-            ("config 4a", ws_scene, "ws_march_kernel", "MARCH_LAUNCHES"),
-            ("config 4a, step_size 0", ws_trace_scene, "ws_trace_kernel",
-             "TRACE_LAUNCHES")):
+    for what, sc, name, kernel, counter in (
+            ("config 4a", ws_scene, "K5", "ws_march_kernel",
+             "MARCH_LAUNCHES"),
+            ("config 4a, step_size 0", ws_trace_scene, "K4",
+             "ws_trace_kernel", "TRACE_LAUNCHES")):
         walls, counts = [], []
         for _ in range(2):
             setattr(wst, counter, 0)
@@ -575,41 +674,119 @@ def profile(trender, noise3d, wst, scene, ws_scene, ws_trace_scene, dev,
         syncs = host_syncs(lambda: trender.render(sc, 8, device=dev))
         rates = ", ".join(f"{128 * 128 * 8 / w / 1e3:.2f}" for w in walls)
         print(f"{what}, 8 spp in one batch: {walls[0]:.4f} s, "
-              f"{walls[1]:.4f} s ({rates} Ksamples/s); {kernel} launches "
+              f"{walls[1]:.4f} s ({rates} Ksamples/s); {name} launches "
               f"{counts}; host syncs {syncs} ({card_line})", flush=True)
+        setattr(wst, counter, 0)
+        searches.reset()
         with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                                 ProfilerActivity.CUDA]) as prof:
             wall = timed(lambda: trender.render(sc, 8, device=dev))
+        n_k = getattr(wst, counter)
+        b_ms, _, b_cls, rays, steps = searches.bound(name, sc.media[0]
+                                                     .basis_functions)
         events = prof.key_averages()
         dev_ms, k_ms = device_ms(events), device_ms(events, kernel)
-        # the kernels launched inside media._ws_real's profiler range
         synth = [e for e in events if e.key == "ws_realization"
                  and e.device_type == DeviceType.CPU]
         synth_ms = sum(e.device_time_total for e in synth) / 1e3
         n_launch, launch_ms = launches(events)
-        table = profile_table(prof, "profile_ws_8spp.txt"
-                              if kernel == "ws_march_kernel"
+        table = profile_table(prof, "profile_ws_8spp.txt" if name == "K5"
                               else "profile_ws_trace_8spp.txt")
         print(f"{what}, 8 spp under torch.profiler: wall {wall * 1e3:.1f} "
               f"ms, device {dev_ms:.1f} ms (busy {dev_ms / (wall * 1e3):.3f} "
               f"of the profiled wall, {dev_ms / (min(walls) * 1e3):.3f} of "
-              f"the fastest unprofiled wall), {kernel} {k_ms:.1f} ms, "
-              f"realization synthesis {synth_ms:.1f} ms ("
-              f"{synth_ms / dev_ms:.3f} of device time, "
-              f"{sum(e.count for e in synth)} calls); cudaLaunchKernel "
+              f"the fastest unprofiled wall), {name} {k_ms:.1f} ms over {n_k}"
+              f" launches ({k_ms / max(dev_ms, 1e-9):.3f} of device time) on "
+              f"{rays:.0f} rays and {steps:.0f} ray-steps, bound {b_ms:.3f} "
+              f"ms ({b_cls}; the kernel at {b_ms / max(k_ms, 1e-9):.3f} of "
+              f"it); ws_realization {synth_ms:.1f} ms; cudaLaunchKernel "
               f"x{n_launch}, {launch_ms:.1f} ms host ({card_line}); table in "
               f"{table}", flush=True)
-        if dev_ms <= 0 or k_ms <= 0 or synth_ms <= 0:
+        if dev_ms <= 0 or k_ms <= 0:
             raise RuntimeError(f"the profiler saw no device time for {what}")
 
 
+def ws_kernel_parts(searches, med, dev, card_line):
+    """K5 and K4 on WS_LINE_RAYS config-4a rays, timed whole and in parts:
+    without the end point's evaluation (its second synthesis), and for K5
+    with no march step (the synthesis and f0 alone)."""
+    for name in WS_FNS:
+        fn, args = searches.fns[name], ws_args(med, WS_LINE_RAYS,
+                                               WS_LINE_RAYS, dev, name)
+        parts = {"whole": median_ms(lambda: fn(*args)),
+                 "without the end point": median_ms(
+                     lambda: fn(*args, evaluate=False))}
+        if name == "K5":
+            parts["synthesis and f0 alone"] = median_ms(
+                lambda: fn(*args[:-1], 0, evaluate=False))
+        print(f"{name} on {WS_LINE_RAYS} rays, ms per search (median of 20, "
+              f"CUDA events; {card_line}): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
+
+
+def ws_before_after(trender, wst, searches, scenes, dev, card_line):
+    """Config 4a at 128x128 and 8 spp, both step sizes, through the
+    one-launch kernels ("after") and through their plain twins ("before"),
+    which keep the earlier design's structure: each realization made as
+    [R, n] tensors in the profiler range "ws_realization", and one host
+    sync per 32-step or 16-iteration chunk of the search (the twins' chunks
+    are plain PyTorch, so their device time and peak memory exceed the
+    earlier kernels').  Prints each render's host syncs, the range's device
+    time and share, peak device memory, and searches and launches; fails
+    unless "after" has no time in the range, peak memory below
+    WS_OLD_PEAK_GIB, and one launch and no host sync per search."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    for (what, sc), name in zip(scenes, WS_FNS):
+        fn = WS_FNS[name]
+        for mode in ("before", "after"):
+            wrapped = getattr(wst, fn)
+            if mode == "before":
+                setattr(wst, fn, getattr(wst, fn + "_ref"))
+            searches.reset()
+            wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                with torch.profiler.profile(activities=[
+                        ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    syncs = host_syncs(lambda: trender.render(sc, 8,
+                                                              device=dev))
+            finally:
+                setattr(wst, fn, wrapped)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            events = prof.key_averages()
+            dev_ms = sum(e.self_device_time_total for e in events
+                         if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)) / 1e3
+            synth_ms = sum(e.device_time_total for e in events
+                           if e.key == "ws_realization"
+                           and e.device_type == DeviceType.CPU) / 1e3
+            label = ("before: the plain twins' [R, n] synthesis and chunk loop"
+                     if mode == "before" else "after: one K5/K4 launch per "
+                     "search")
+            print(f"{what}, 8 spp, {label}: host syncs {syncs}; "
+                  f"ws_realization {synth_ms:.1f} ms of device time "
+                  f"({synth_ms / max(dev_ms, 1e-9):.3f} of {dev_ms:.1f} ms); "
+                  f"peak device memory {peak:.2f} GiB ({card_line})",
+                  flush=True)
+            if mode == "after":
+                searches.check(name, f"{what}, after")
+                if synth_ms > 0 or peak >= WS_OLD_PEAK_GIB:
+                    raise RuntimeError(f"{what} still synthesises [R, n] "
+                                       "realizations on the card")
+
+
 def profile_render(trender, what, scene, spp, mod, counter, kernel, label,
-                   table_name, dev, card_line, wrapper, bytes_pt, ops_pt):
+                   table_name, dev, card_line, wrapper, bytes_pt, int_pt,
+                   flt_pt):
     """Where a 128x128 render spends its time: walls and launches of the
     kernel (counted by mod.<counter>) of two runs, host syncs of a third,
     and one run under torch.profiler (op table in chiprun_out/), with the
     kernel's bound over that run: the points its wrapper mod.<wrapper> was
-    called on, at bytes_pt bytes and ops_pt operations each."""
+    called on, at bytes_pt bytes, int_pt integer and flt_pt float
+    operations each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     walls, counts = [], []
@@ -637,7 +814,8 @@ def profile_render(trender, what, scene, spp, mod, counter, kernel, label,
     finally:
         setattr(mod, wrapper, fn)
     n_k = getattr(mod, counter)
-    b_ms, b_by = bound_ms(points[0] * bytes_pt, points[0] * ops_pt)
+    b_ms, _, b_cls = bound_ms(points[0] * bytes_pt, points[0] * int_pt,
+                              points[0] * flt_pt)
     events = prof.key_averages()
     kern = [e for e in events if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
@@ -654,7 +832,7 @@ def profile_render(trender, what, scene, spp, mod, counter, kernel, label,
           f" unprofiled wall), {label} {k_ms:.1f} ms over {n_k} launches "
           f"({k_ms / max(n_k, 1):.4f} ms each, {k_ms / max(dev_ms, 1e-9):.3f}"
           f" of device time) on {points[0]} points, bound {b_ms:.3f} ms "
-          f"({b_by}); cudaLaunchKernel x{n_launch} "
+          f"({b_cls}); cudaLaunchKernel x{n_launch} "
           f"({n_launch / max(n_k, 1):.1f} per {label} launch), "
           f"{sum(e.cpu_time_total for e in launch) / 1e3:.1f} ms host "
           f"({card_line}); top kernels: "
@@ -746,12 +924,13 @@ def main():
             raise RuntimeError(f"K1 disagrees with its twin at N={n}: {err}")
         t_k = median_ms(lambda: noise3d.noise3d_sum_s(pk, sk, kr, m6, K))
         t_p = median_ms(lambda: noise3d.noise3d_sum_s_ref(pk, sk, kr, m6, K))
-        b_ms, b_by = bound_ms(20 * n, n * 27 * (K1_OPS_CELL
-                                                + K * K1_OPS_IMPULSE))
-        k1_times[n] = (t_k, t_p, b_ms, b_by)
+        b_ms, b_by, b_cls = bound_ms(
+            20 * n, n * 27 * (K1_INT_CELL + K * K1_INT_IMPULSE),
+            n * 27 * (K1_FLT_CELL + K * K1_FLT_IMPULSE))
+        k1_times[n] = (t_k, t_p, b_ms, b_by, b_cls)
         print(f"K={K} N={n}: kernel {t_k:.4f} ms, twin {t_p:.4f} ms "
               f"(median of 20, CUDA events; {card_line}); bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+              f"{b_ms:.4f} ms ({b_cls})", flush=True)
     del p, seed
     done(t0)
 
@@ -773,7 +952,7 @@ def main():
                                   card_line)
     done(t0)
 
-    most_rays = record_rays(wst)
+    searches = WsSearches(wst)
     with tempfile.TemporaryDirectory() as tmp:
         phase("config 1 (128x128, 4 spp) through the CLI")
         t0 = time.perf_counter()
@@ -792,6 +971,7 @@ def main():
               "the CLI")
         t0 = time.perf_counter()
         noise3d.LAUNCHES = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
+        searches.reset()
         img, wall, peak = render_cli(trender, WS_SCENE, 8, tmp, "ws")
         k5_launches, k1_in_ws = wst.MARCH_LAUNCHES, noise3d.LAUNCHES
         lum = check_image(img, "config 4a")
@@ -802,7 +982,7 @@ def main():
         if k5_launches <= 0 or k1_in_ws != 0:
             raise RuntimeError("the config-4a render did not go through K5 "
                                "alone")
-        check_rays(most_rays, "K5")
+        searches.check("K5", "config 4a")
         done(t0)
 
         phase("config 4a with step_size 0 (128x128, 8 spp) through the CLI")
@@ -811,6 +991,7 @@ def main():
         with open(path, "w") as fh:
             json.dump(ws_doc(step_size=0.0), fh)
         noise3d.LAUNCHES = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
+        searches.reset()
         img, wall, peak = render_cli(trender, path, 8, tmp, "ws-trace")
         k4_launches = wst.TRACE_LAUNCHES
         lum = check_image(img, "config 4a, step_size 0")
@@ -821,7 +1002,17 @@ def main():
         if k4_launches <= 0 or wst.MARCH_LAUNCHES or noise3d.LAUNCHES:
             raise RuntimeError("the step_size-0 render did not go through "
                                "K4 alone")
-        check_rays(most_rays, "K4")
+        searches.check("K4", "config 4a, step_size 0")
+        done(t0)
+
+        phase("config 4a (128x128, 8 spp, both step sizes): host syncs, "
+              "realization synthesis and peak memory before and after")
+        t0 = time.perf_counter()
+        ws_before_after(trender, wst, searches, (
+            ("config 4a", load_scene(WS_SCENE, res_override=(128, 128),
+                                     device=dev)[0]),
+            ("config 4a, step_size 0", scene_from_dict(
+                ws_doc(0.0, (128, 128)), device=dev)[0])), dev, card_line)
         done(t0)
 
         m1d = {}
@@ -868,7 +1059,8 @@ def main():
 
     phase("timing runs (128x128)")
     t0 = time.perf_counter()
-    noise1d.MOST_POINTS = 0
+    noise1d.MOST_POINTS = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
+    searches.reset()
     scene128, _ = load_scene(SCENE, res_override=(128, 128), device=dev)
     ws128, _ = load_scene(WS_SCENE, res_override=(128, 128), device=dev)
     m1d128, _ = load_scene(M1D_SCENES["config 3"][0], device=dev)
@@ -910,8 +1102,8 @@ def main():
               f"{frac_bad:.4f} (< 0.08)", flush=True)
         if gate and not (0.9 < ratio < 1.1 and frac_bad < 0.08):
             raise RuntimeError(f"the golden bucket test of {what} failed")
-    for name in ("K5", "K4"):  # the timing and golden renders too
-        check_rays(most_rays, name)
+    for name in WS_FNS:  # the timing and golden renders too
+        searches.check(name, "the timing and golden renders")
     check_k3_points(noise1d, "the timing and golden renders")
     check_k2_points(noise3d, "the timing and golden renders")
     done(t0)
@@ -919,18 +1111,21 @@ def main():
     if args.profile:
         phase("profile (128x128)")
         t0 = time.perf_counter()
-        profile(trender, noise3d, wst, scene128, ws128,
+        profile(trender, noise3d, wst, searches, scene128, ws128,
                 scene_from_dict(ws_doc(0.0), device=dev)[0], dev, card_line)
+        ws_kernel_parts(searches, ws_scene_full.media[0], dev, card_line)
         profile_render(trender, "config 3", m1d128, 16, noise1d, "LAUNCHES",
                        "noise1d_sum_kernel", "K3",
                        "profile_mirror1d_16spp.txt", dev, card_line,
                        "noise1d_sum", 12,
-                       3 * (K3_OPS_CELL + 3 * K3_OPS_IMPULSE))
+                       3 * (K3_INT_CELL + 3 * K3_INT_IMPULSE),
+                       3 * (K3_FLT_CELL + 3 * K3_FLT_IMPULSE))
         profile_render(trender, "config 5", hero128, 16, noise3d,
                        "K2_LAUNCHES", "noise3d_sum_kernel", "K2",
                        "profile_hero_16spp.txt", dev, card_line,
-                       "noise3d_sum", 28, K2_OPS_POINT + 27 * (
-                           K1_OPS_CELL + 3 * K2_OPS_IMPULSE))
+                       "noise3d_sum", 28,
+                       27 * (K1_INT_CELL + 3 * K1_INT_IMPULSE),
+                       K2_FLT_POINT + 27 * (K1_FLT_CELL + 3 * K2_FLT_IMPULSE))
         check_k3_points(noise1d, "the profiled renders")
         check_k2_points(noise3d, "the profiled renders")
         done(t0)
@@ -940,37 +1135,27 @@ def main():
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(card_line, flush=True)
-    t_k, t_p, b_ms, b_by = k1_times[K1_MAIN_POINTS]
-    kernels = [{
-        "name": "K1 noise3d_sum_s", "route": "cuda",
-        "source": "tungsten_tpu_torch/csrc/noise3d.cu",
-        "replaces": "tungsten_tpu/ops/sparse_conv_pallas.py:144",
-        "launches": k1_launches, "max_abs_err": k1_err, "ms": t_k,
-        "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]
-    t_k, t_p, b_ms, b_by = k2_times[K2_LINE_POINTS]
-    kernels.append({
-        "name": "K2 noise3d_sum", "route": "cuda",
-        "source": "tungsten_tpu_torch/csrc/noise3d.cu",
-        "replaces": "tungsten_tpu/ops/sparse_conv_pallas.py:136",
-        "launches": k2_launches, "max_abs_err": k2_err, "ms": t_k,
-        "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None})
-    t_k, t_p, b_ms, b_by = k3_times[K3_LINE_POINTS]
-    kernels.append({
-        "name": "K3 noise1d_sum", "route": "cuda",
-        "source": "tungsten_tpu_torch/csrc/noise1d.cu",
-        "replaces": "tungsten_tpu/ops/sparse_conv_pallas.py:321",
-        "launches": m1d["config 3"], "max_abs_err": k3_err, "ms": t_k,
-        "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None})
-    for name, fn, line, n in (("K5", "ws_march_chunk", 169, k5_launches),
-                              ("K4", "ws_trace_chunk", 45, k4_launches)):
+    kernels = []
+    for name, src, line, launched, err, (t_k, t_p, b_ms, b_by, b_cls) in (
+            ("K1 noise3d_sum_s", "noise3d.cu", "sparse_conv_pallas.py:144",
+             k1_launches, k1_err, k1_times[K1_MAIN_POINTS]),
+            ("K2 noise3d_sum", "noise3d.cu", "sparse_conv_pallas.py:136",
+             k2_launches, k2_err, k2_times[K2_LINE_POINTS]),
+            ("K3 noise1d_sum", "noise1d.cu", "sparse_conv_pallas.py:321",
+             m1d["config 3"], k3_err, k3_times[K3_LINE_POINTS])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tungsten_tpu_torch/csrc/{src}",
+            "replaces": f"tungsten_tpu/ops/{line}", "launches": launched,
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_class": b_cls, "library_ms": None})
+    for name, fn, line, launched in (("K5", "ws_march", 169, k5_launches),
+                                     ("K4", "ws_trace", 45, k4_launches)):
         kernels.append({
             "name": f"{name} {fn}", "route": "cuda",
             "source": "tungsten_tpu_torch/csrc/ws_trace.cu",
             "replaces": f"tungsten_tpu/ops/ws_trace_pallas.py:{line}",
-            "launches": n, **ws_numbers[name], "library_ms": None})
+            "launches": launched, **ws_numbers[name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

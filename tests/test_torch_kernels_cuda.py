@@ -9,11 +9,12 @@ machine that has only PyTorch:
 
 Tolerances: K1 and K2 vs twin atol 1e-5 (a raw sum of at most 81
 unit-bounded fp32 terms; K1 measured 0 on an H100); K3 vs twin atol 1e-5
-(at most 9 such terms).  K5/K4 vs twin on 4096 rays x 1024
-basis functions of config 4a, chunk after chunk: flags or decisions differ
-on at most 0.1% of rays (the warp sums add in another order than the
-twin's, so a value within rounding of 0 may decide otherwise), and every
-column of the other rays within 1e-5 * (1 + |twin|).  GPU vs CPU render
+(at most 9 such terms).  K5/K4 vs twin, one whole search of 4096 rays of
+config 4a at n = 1024 (the register tile) and n = 1100 (beyond it): hit,
+sign0 or the step count differ on at most 0.1% of rays (the warp sums add
+in another order than the twin's, so a value within rounding of 0 may
+decide otherwise), and t, the value and the gradient of the other rays
+within 1e-5 * (1 + |twin|).  GPU vs CPU render
 at 8x8, 1 spp: at least 97% of pixels within 1e-3 * (1 + |cpu|) and means
 within 1% (the elementwise math around the kernels may round differently
 on the two devices, and an ulp can flip one ray's crossing).
@@ -108,9 +109,9 @@ def test_k3_kernel_matches_twin_on_the_card(cuda, K):
                                atol=1e-5)
 
 
-def _ws_start(kernel, device, R=4096):
-    """Config 4a's realizations along R rays in its bounding cube, and the
-    kernel's inputs at the start of the march or trace."""
+def _ws_start(kernel, device, n, R=4096):
+    """R rays of config 4a in its bounding cube with their realization keys,
+    and the rest of K5's or K4's arguments: (function, arguments)."""
     scene, _ = load_scene(WS_SCENE, device=device)
     med = scene.media[0]
     r = np.random.default_rng(13)
@@ -125,41 +126,36 @@ def _ws_start(kernel, device, R=4096):
     near = torch.zeros(R, device=device)
     far = md._far_eff(med, ro, rd, near,
                       torch.full((R,), 3e38, device=device))
-    real = md._ws_real(med, torch.from_numpy(pss).to(device))
+    key = md._ws_key(med, torch.from_numpy(pss).to(device))
     if kernel == "march":
         step = torch.clamp(torch.minimum(med.step_size,
                                          (far - near) / med.min_step),
                            min=1e-6)
         absorb = torch.arange(R, device=device) % 3 == 0
-        return wst.march_inputs(real, med.gp, ro, rd, near, far, step, uj,
-                                absorb)
-    return wst.trace_inputs(real, med.gp, ro, rd, near, far)
+        return "fixed_march_batch", (med.gp, n, key, ro, rd, near, far, step,
+                                     uj, absorb, med.max_march_steps)
+    return "sphere_trace_batch", (med.gp, n, key, ro, rd, near, far)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 1100])
 @pytest.mark.parametrize("kernel", ["march", "trace"])
-def test_ws_kernel_matches_twin_on_the_card(cuda, kernel):
-    h, aux, S, params = _ws_start(kernel, cuda)
-    if kernel == "march":
-        launch, twin = wst.march_chunk, wst.march_chunk_ref
-        flags = [wst.M_DONE, wst.M_CROSS, wst.M_SIGN]
-    else:
-        launch, twin = wst.trace_chunk, wst.trace_chunk_ref
-        flags = [wst.C_DONE, wst.C_HIT, wst.C_SIGN]
+def test_ws_kernel_matches_twin_on_the_card(cuda, kernel, n):
+    name, args = _ws_start(kernel, cuda, n)
     counter = "MARCH_LAUNCHES" if kernel == "march" else "TRACE_LAUNCHES"
-    n_bad, chunks = 0, 0
-    while bool((S[:, flags[0]] < 0.5).any()) and chunks < 16:
-        before = getattr(wst, counter)
-        got = launch(h.a, h.slope, h.amp, aux, S, params, h.spherical)
-        torch.cuda.synchronize()
-        assert getattr(wst, counter) == before + 1
-        want = twin(h.a, h.slope, h.amp, aux, S, params, h.spherical)
-        off = ((got - want).abs() > 1e-5 * (1.0 + want.abs())).any(dim=1)
-        n_bad += int((off | (got[:, flags] != want[:, flags]).any(dim=1))
-                     .sum())
-        S, chunks = got, chunks + 1
-    assert chunks >= 2
-    assert n_bad <= 0.001 * S.shape[0], n_bad
+    before = getattr(wst, counter)
+    got = getattr(wst, name)(*args)
+    torch.cuda.synchronize()
+    assert getattr(wst, counter) == before + 1
+    want = getattr(wst, name + "_ref")(*args)
+    decided = ((got["hit"] != want["hit"]) | (got["sign0"] != want["sign0"])
+               | (got["steps"] != want["steps"]))
+    off = decided.clone()
+    for k in ("t", "val", "grad"):
+        err = (got[k] - want[k]).abs() > 1e-5 * (1.0 + want[k].abs())
+        off |= err if err.dim() == 1 else err.any(dim=1)
+    assert 0.1 < float(want["hit"].float().mean()) < 0.99
+    assert int(off.sum()) <= 0.001 * off.shape[0], int(off.sum())
 
 
 @pytest.mark.cuda

@@ -17,9 +17,10 @@ Tolerances (measured on this CPU in brackets):
   flag columns equal, float columns within rtol 1e-5, atol 1e-6, the
   Pallas-vs-twin tolerance of tests/test_pallas.py [no flag differs; floats
   within 3.6e-7 (K5) and 0 (K4)].
-- `fixed_march_batch` / `sphere_trace_batch` against the JAX batch
-  functions (interpret mode): hit masks equal, t within 2e-3, the bounds of
-  tests/test_weight_space.py [masks equal, t within 3.9e-7 and 0].
+- The twins' batch glue on a given realization (`march_over` /
+  `trace_over`) against the JAX batch functions (interpret mode): hit
+  masks equal, t within 2e-3, the bounds of tests/test_weight_space.py
+  [masks equal, t within 3.9e-7 and 0].
 - Media `sample_distance` / `transmittance` against JAX with its kernels
   in interpret mode: at most 2 rays differ in hit or visibility, t within
   1e-4 and normals within rtol 1e-3, atol 1e-3 where both hit [no ray
@@ -248,7 +249,7 @@ def test_fixed_march_batch_matches_jax():
                                   absorb, active=jnp.asarray(active),
                                   max_steps=2048, interpret=True)
     treal = _torch_real(jax.tree_util.tree_map(lambda x: x[active], jreal))
-    got = twst.fixed_march_batch(treal, tgp, *(_t(x[active]) for x in (
+    got = twst.march_over(treal, tgp, *(_t(x[active]) for x in (
         ro, rd, near, far, step, uj, absorb)), max_steps=2048)
     hit = np.asarray(want["hit"])[active]
     assert 10 < hit.sum() < len(hit) - 10
@@ -262,8 +263,9 @@ def test_sphere_trace_batch_matches_jax():
     R = len(ro)
     jhit, jt = jwst.sphere_trace_batch(jreal, jgp, ro, rd, near, far,
                                        interpret=True)
-    thit, tt = twst.sphere_trace_batch(_torch_real(jreal), tgp, _t(ro),
-                                       _t(rd), _t(near), _t(far))
+    got = twst.trace_over(_torch_real(jreal), tgp, _t(ro), _t(rd), _t(near),
+                          _t(far))
+    thit, tt = got["hit"], got["t"]
     assert 10 < np.asarray(jhit).sum() < R - 10
     np.testing.assert_array_equal(thit.numpy(), np.asarray(jhit))
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=0,

@@ -1,46 +1,62 @@
-// K5 and K4: weight-space ray marching over per-ray random Fourier feature
-// (RFF) realizations.
+// K5 and K4: the weight-space search of each ray over its own random
+// Fourier feature (RFF) realization, from the ray's stream keys to the
+// first crossing, in one launch.
 //
-// K5 (ws_march_chunk) replaces tungsten_tpu/ops/ws_trace_pallas.py::
-// _march_kernel (launched by _march_chunk): `chunk` fixed steps of
+// K5 (ws_march) replaces tungsten_tpu/ops/ws_trace_pallas.py::_march_kernel
+// (launched by _march_chunk, re-dispatched by fixed_march_batch): fixed
+// steps of
 //   f(tc) = scale * sum_i amp_i cos(a_i + slope_i tc) + mean(tc),
-//   tc = t1 + step * k,
-// recording the first sign flip against sign0 as (t_hi, f_lo, f_hi); the
-// first step after an interior scatter (absorb) sets sign0 and cannot flip.
-// K4 (ws_trace_chunk) replaces the same file's _trace_kernel (launched by
-// _trace_chunk): `chunk` adaptive range-bound iterations over [t, t+step],
-// bounding each basis term by the exact cos interval of its phase range and
-// the mean by its midpoint value +- Lipschitz * half-length; the step grows
-// x1.6 while the bound excludes zero and halves otherwise, and a hit is
-// declared when a sign-ambiguous step is at most min_step.
+//   tc = near + step * (u_jitter + k),
+// until the sign flips against sign0 = sign f(near) (the first step after
+// an interior scatter, `absorb`, sets sign0 and cannot flip) or tc reaches
+// far, at most max_steps steps; then 6 Illinois false-position steps inside
+// [t_hi - step, t_hi] unless the caller asks for none.
+// K4 (ws_trace) replaces the same file's _trace_kernel (launched by
+// _trace_chunk, re-dispatched by sphere_trace_batch): adaptive range-bound
+// steps over [t, t + step], bounding each basis term by the exact cos
+// interval of its phase range and the mean by its midpoint value +-
+// Lipschitz * half-length; the step grows x1.6 while the bound excludes
+// zero and halves otherwise, and a hit is declared when a sign-ambiguous
+// step is at most min_step; at most max_iters iterations.
 //
-// State and aux columns are those of the Pallas kernels:
-//   K5 state [k, done, crossed, t_hi, f_lo, f_hi, sign0, f_prev],
-//      aux [A, B, far, t1, step, absorb, -, -], params [scale, radius,
-//      mean_offset, ...];
-//   K4 state [t, step, done, hit, sign0, it, -, -], aux [A, B, far, ...],
-//      params [scale, min_step, lip_mean, radius, mean_offset, ...];
-// A = |ro - c|^2 and B = (ro - c) . rd give the spherical mean
-// sqrt(A + t (2B + t)) - radius; a homogeneous mean is mean_offset.
+// Each ray's basis is synthesised here from its two stream keys, with the
+// counters and operation order of the plain PyTorch path
+// (ops/weight_space.py, ops/covariance.py, utils/rng.py) in native uint32:
+//   omega_i = (normal2(key, 3i).{cos, sin}, normal2(key, 3i+1).cos) / l
+//             * sqrt(aniso);
+//   offset_i = uniform(key, 1000000 + i) * 2 pi;
+//   w_i = normal2(key2, 2000000 + i/2).{cos if i even, sin if odd};
+//   freq_i = sqrt(max(omega_i . omega_i, 1e-20)), dir_i = omega_i / freq_i;
+//   a_i = freq_i (dir_i . ro) + offset_i, slope_i = freq_i (dir_i . rd),
+//   amp_i = w_i sqrt(2/n).
+// At the end the value and gradient of the realization at ro + t rd are
+// computed as ws.evaluate / ws.evaluate_gradient compute them (projection of
+// dir_i onto the point), from a second synthesis of the basis.
 //
-// What bounds them: the transcendentals.  At n = 1024 a ray reads 12 KB of
-// basis (a, slope, amp) per dispatch and, per step, K5 does n precise cosf
-// and 2n other flops (32 n cosf per dispatch); K4 does 2n cosf, 4n divides
-// and floors and ~10n other flops per iteration (16 * 2n cosf per dispatch).
-// The basis is re-read from global memory (L1/L2) at every step.
+// What bounds them: float work.  Per basis function and step K5 does a
+// precise cosf and 4 other flops, K4 2 cosf, 4 divides by 2 pi (3 ops
+// each), 4 floors and ~24 other flops; the synthesis costs ~7 xxhash32
+// (integer) and 3 log1pf, 4 cosf/sinf, 6 divides and ~40 other flops per
+// basis function, twice per ray.  Device memory sees only the per-ray
+// inputs and the [R, 8] output.
 //
-// Design: simple and exact first.  One warp per ray, 8 rays per 256-thread
-// block, the tail of the ray batch masked (no padding).  Lane j takes basis
-// functions j, j+32, ...; a __shfl_xor_sync butterfly sums the lanes (every
-// lane ends with the same bits, so the warp takes one branch).  The ray's
-// state lives in registers across the chunk, and a finished ray's warp
-// stops early: afterwards the Pallas kernel changes nothing for it but K5's
-// sign0, which it sets at most once (absorb on step 0).  Precise cosf, no
-// fast math, built with -fmad=false, and K4 divides by float32(2 pi) with
-// `/` (no reciprocal), so each basis term rounds as in the plain PyTorch
-// twins (kernels/ws_trace.py); only the order of the n-term sums differs.
-// Later work: keep the basis in shared memory or registers across steps,
-// or synthesise it in-kernel from the ray's hash key.
+// Design: one warp per ray; warps take rays from a counter, so a warp whose
+// ray ends early starts the next instead of idling beside a long one, and
+// the grid holds as many 64-thread blocks as the card runs at once.  Lane j
+// synthesises basis functions j, j+32, ... and keeps the first T of them
+// (T = 2, 8 or 32 by n) as (a, slope, amp) in its column of shared memory
+// for the whole search: 12 KB a warp at n = 1024, ~60 registers a lane.
+// (Holding them in registers instead, 96 a lane, needs the step's 32 terms
+// unrolled, each with a precise cosf and its slow path inline; on the H100
+// that ran 3.8-4.9x slower than this tile, see PERF.md.)  Basis functions past
+// 32 T (n > 1024) are synthesised again at every evaluation, which is
+// correct and slower.  Padding entries (j >= n) hold amp = a = slope = 0 and
+// add an exact 0.  A __shfl_xor_sync butterfly sums the lanes, so every lane
+// holds the same bits and the warp takes one branch; the step loop, the
+// refinement and the evaluation run without leaving the kernel.  Precise
+// cosf, sinf, log1pf and sqrtf, IEEE-rounded divides, no fast math, built
+// with -fmad=false, so each term rounds as in the plain PyTorch twins
+// (kernels/ws_trace.py); only the order of the n-term sums differs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,214 +64,587 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kLanes = 32;  // lanes per ray: one warp
+constexpr int kWarpsPerBlock = 2;
 constexpr float kTwoPi = 6.2831855f;  // float32(2 pi)
 constexpr float kPi = 3.1415927f;     // float32(pi)
+constexpr float kInvTwoPi = 1.0f / kTwoPi;  // rounded to nearest
+constexpr uint32_t kP2 = 2246822519u;
+constexpr uint32_t kP3 = 3266489917u;
+constexpr uint32_t kP4 = 668265263u;
+constexpr uint32_t kP5 = 374761393u;
+
+// params: the medium's constants, in this order
+enum {
+  kL,         // covariance length scale l
+  kSa0,       // sqrt(aniso), per axis
+  kSa1,
+  kSa2,
+  kScale,     // sqrt(cov(0, 0))
+  kSqrt2n,    // sqrt(2 / n) as float32 rounds it
+  kCx,        // spherical mean: center, radius
+  kCy,
+  kCz,
+  kRadius,
+  kMOff,      // homogeneous mean: offset
+  kLipM,      // the mean's Lipschitz constant (K4)
+  kMinStep,   // K4's shortest step
+  kNumParams
+};
+
+// per-ray output columns
+enum { kOutHit, kOutT, kOutSign, kOutVal, kOutGx, kOutGy, kOutGz, kOutSteps };
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = kLanes / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-__device__ __forceinline__ float mean_at(bool spherical, float A, float B,
-                                         float t, float radius, float m_off) {
-  if (!spherical) return m_off;
-  const float d2 = A + t * (2.0f * B + t);
-  return sqrtf(fmaxf(d2, 0.0f)) - radius;
+__device__ __forceinline__ uint32_t rotl17(uint32_t x) {
+  return (x << 17) | (x >> 15);
 }
 
-__global__ void __launch_bounds__(256)
-ws_march_kernel(const float* __restrict__ a, const float* __restrict__ slope,
-                const float* __restrict__ amp, const float* __restrict__ aux,
-                const float* __restrict__ state_in,
-                float* __restrict__ state_out,
-                const float* __restrict__ params, int R, int n, int chunk,
-                int spherical) {
-  const int lane = threadIdx.x & 31;
-  const int64_t ray =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (ray >= R) return;  // the whole warp leaves together
-  const float scale = params[0];
-  const float radius = params[1];
-  const float m_off = params[2];
-  const float* ar = a + ray * n;
-  const float* sr = slope + ray * n;
-  const float* mr = amp + ray * n;
-  const float* x = aux + ray * 8;
-  const float A = x[0], B = x[1], far = x[2], t1 = x[3], step = x[4];
-  const bool absorb = x[5] > 0.5f;
-  const float* s = state_in + ray * 8;
-  float k = s[0];
-  bool done = s[1] > 0.5f;
-  float crossed = s[2], t_hi = s[3], f_lo = s[4], f_hi = s[5];
-  float sign0 = s[6], f_prev = s[7];
+// xxhash32 of the two words (x, y), as utils/rng.py::xxhash32_2
+__device__ __forceinline__ uint32_t xxhash32_2(uint32_t x, uint32_t y) {
+  uint32_t h = y + kP5 + x * kP3;
+  h = rotl17(h) * kP4;
+  h = (h ^ (h >> 15)) * kP2;
+  h = (h ^ (h >> 13)) * kP3;
+  return h ^ (h >> 16);
+}
 
-  for (int it = 0; it < chunk; ++it) {
-    const bool was_done = done;
-    const bool first = k < 0.5f;
-    if (was_done && !(absorb && first)) break;
-    const float tc = t1 + step * k;
-    float acc = 0.0f;
-    for (int j = lane; j < n; j += 32) acc += mr[j] * cosf(ar[j] + sr[j] * tc);
-    const float nsum = warp_sum(acc);
-    const float f = scale * nsum + mean_at(spherical, A, B, tc, radius, m_off);
+__device__ __forceinline__ float uniform(uint32_t key, uint32_t ctr) {
+  return (float)(xxhash32_2(key, ctr) >> 8) * (1.0f / 16777216.0f);
+}
+
+// radius and angle of the Box-Muller pair normal2(key, c): the variates are
+// r cos(angle) and r sin(angle)
+__device__ __forceinline__ void box_muller(uint32_t key, uint32_t c, float& r,
+                                           float& angle) {
+  const uint32_t c2 = 2u * c;
+  const float u1 = uniform(key, c2);
+  const float u2 = uniform(key, c2 + 1u);
+  r = sqrtf(-2.0f * log1pf(-u1));
+  angle = kTwoPi * u2;
+}
+
+struct Ray {
+  uint32_t key, key2;
+  float ox, oy, oz, dx, dy, dz;
+};
+
+struct BasisFn {
+  float dx, dy, dz, freq, offset, w;
+};
+
+// basis function i of the ray's realization
+__device__ __forceinline__ BasisFn synth(const Ray& ray, uint32_t i,
+                                         const float* __restrict__ prm) {
+  float r, angle;
+  box_muller(ray.key, 3u * i, r, angle);
+  const float g0 = r * cosf(angle);
+  const float g1 = r * sinf(angle);
+  box_muller(ray.key, 3u * i + 1u, r, angle);
+  const float g2 = r * cosf(angle);
+  const float l = prm[kL];
+  const float o0 = g0 / l * prm[kSa0];
+  const float o1 = g1 / l * prm[kSa1];
+  const float o2 = g2 / l * prm[kSa2];
+  BasisFn b;
+  b.freq = sqrtf(fmaxf(o0 * o0 + o1 * o1 + o2 * o2, 1e-20f));
+  b.dx = o0 / b.freq;
+  b.dy = o1 / b.freq;
+  b.dz = o2 / b.freq;
+  b.offset = uniform(ray.key, 1000000u + i) * kTwoPi;
+  box_muller(ray.key2, 2000000u + i / 2u, r, angle);
+  b.w = r * ((i & 1u) ? sinf(angle) : cosf(angle));
+  return b;
+}
+
+// the affine phase a + slope t of basis function b along the ray, and amp
+__device__ __forceinline__ void hoist(const BasisFn& b, const Ray& ray,
+                                      const float* __restrict__ prm, float& a,
+                                      float& slope, float& amp) {
+  a = b.freq * (b.dx * ray.ox + b.dy * ray.oy + b.dz * ray.oz) + b.offset;
+  slope = b.freq * (b.dx * ray.dx + b.dy * ray.dy + b.dz * ray.dz);
+  amp = b.w * prm[kSqrt2n];
+}
+
+// w cos(phase) of basis function b at the point p, as ws.evaluate's terms
+__device__ __forceinline__ float term_at(const BasisFn& b, float px, float py,
+                                         float pz) {
+  return b.w * cosf((b.dx * px + b.dy * py + b.dz * pz) * b.freq + b.offset);
+}
+
+// the mean along the ray: sqrt(A + t (2B + t)) - radius with A = |ro - c|^2,
+// B = (ro - c) . rd for a spherical mean, the offset for a homogeneous one
+__device__ __forceinline__ float mean_at(bool spherical, float A, float B,
+                                         float t, const float* prm) {
+  if (!spherical) return prm[kMOff];
+  const float d2 = A + t * (2.0f * B + t);
+  return sqrtf(fmaxf(d2, 0.0f)) - prm[kRadius];
+}
+
+// the mean and its gradient at the point p, as means.py computes them
+__device__ __forceinline__ float mean_point(bool spherical, float px, float py,
+                                            float pz, const float* prm,
+                                            float g[3]) {
+  if (!spherical) {
+    g[0] = g[1] = g[2] = 0.0f;
+    return prm[kMOff];
+  }
+  const float x = px - prm[kCx], y = py - prm[kCy], z = pz - prm[kCz];
+  const float len = sqrtf(fmaxf(x * x + y * y + z * z, 1e-24f));
+  if (len > 1e-20f) {
+    g[0] = x / len;
+    g[1] = y / len;
+    g[2] = z / len;
+  } else {
+    g[0] = 1.0f;
+    g[1] = g[2] = 0.0f;
+  }
+  return len - prm[kRadius];
+}
+
+// This lane's share of sum_i amp_i cos(a_i + slope_i t): the tile (this
+// lane's column: a, slope and amp of T functions, kLanes floats apart),
+// then the basis functions past it, synthesised again.
+template <int T>
+__device__ __forceinline__ float lane_sum(const float* __restrict__ tile,
+                                          float t, const Ray& ray, int n,
+                                          int lane,
+                                          const float* __restrict__ prm) {
+  float acc = 0.0f;
+#pragma unroll 2
+  for (int i = 0; i < T; ++i) {
+    const float* c = tile + i * kLanes;
+    acc += c[2 * T * kLanes] * cosf(c[0] + c[T * kLanes] * t);
+  }
+  for (int j = lane + kLanes * T; j < n; j += kLanes) {
+    float a, s, m;
+    hoist(synth(ray, (uint32_t)j, prm), ray, prm, a, s, m);
+    acc += m * cosf(a + s * t);
+  }
+  return acc;
+}
+
+// f at t along the ray, in the hoisted form of the twin's value_of
+template <int T>
+__device__ __forceinline__ float value_at(const float* __restrict__ tile,
+                                          float t, const Ray& ray, int n,
+                                          int lane,
+                                          const float* __restrict__ prm,
+                                          bool spherical, float A, float B) {
+  const float nsum = warp_sum(lane_sum<T>(tile, t, ray, n, lane, prm));
+  return prm[kScale] * nsum + mean_at(spherical, A, B, t, prm);
+}
+
+// x / float32(2 pi), rounded as IEEE division rounds it: the product with
+// the rounded reciprocal, then one exact remainder and its correction
+// (Markstein), without the divide's slow-path branch.
+__device__ __forceinline__ float div_two_pi(float x) {
+  const float q = x * kInvTwoPi;
+  return fmaf(fmaf(-q, kTwoPi, x), kInvTwoPi, q);
+}
+
+// The cos-interval bound of one basis term over the phases [th0, th1]:
+// adds its least and greatest value to lo and hi.
+__device__ __forceinline__ void bound_term(float th0, float th1, float w,
+                                           float& lo_acc, float& hi_acc) {
+  const float lo = fminf(th0, th1);
+  const float hi = fmaxf(th0, th1);
+  const float c_lo = cosf(lo);
+  const float c_hi = cosf(hi);
+  float cmin = fminf(c_lo, c_hi);
+  float cmax = fmaxf(c_lo, c_hi);
+  const bool k_even = floorf(div_two_pi(hi)) - floorf(div_two_pi(lo)) >= 1.0f;
+  const bool k_odd = floorf(div_two_pi(hi - kPi)) -
+                         floorf(div_two_pi(lo - kPi)) >= 1.0f;
+  const bool wide = (hi - lo) >= kTwoPi;
+  if (k_even || wide) cmax = 1.0f;
+  if (k_odd || wide) cmin = -1.0f;
+  lo_acc += fminf(w * cmin, w * cmax);
+  hi_acc += fmaxf(w * cmin, w * cmax);
+}
+
+// Synthesises this lane's column of the tile; padding entries are 0.  With
+// kF0 it also returns this lane's share of sum_i w_i cos(phase_i(p)) at the
+// point p, over all n basis functions (K4's f0).
+template <int T, bool kF0>
+__device__ __forceinline__ float load_tile(float* __restrict__ tile,
+                                           const Ray& ray, int n, int lane,
+                                           const float* __restrict__ prm,
+                                           float px, float py, float pz) {
+  float s0 = 0.0f;
+#pragma unroll 1
+  for (int i = 0; i < T; ++i) {
+    const int j = lane + kLanes * i;
+    float a = 0.0f, s = 0.0f, m = 0.0f;
+    if (j < n) {
+      const BasisFn b = synth(ray, (uint32_t)j, prm);
+      if (kF0) s0 += term_at(b, px, py, pz);
+      hoist(b, ray, prm, a, s, m);
+    }
+    tile[i * kLanes] = a;
+    tile[(T + i) * kLanes] = s;
+    tile[(2 * T + i) * kLanes] = m;
+  }
+  if (kF0)
+    for (int j = lane + kLanes * T; j < n; j += kLanes)
+      s0 += term_at(synth(ray, (uint32_t)j, prm), px, py, pz);
+  return s0;
+}
+
+// The realization's value and gradient at ro + t rd, as ws.evaluate and
+// ws.evaluate_gradient compute them; lane 0 writes them to o.
+__device__ __forceinline__ void evaluate(const Ray& ray, float t, int n,
+                                         int lane, const float* prm,
+                                         bool spherical, float* o) {
+  const float px = ray.ox + t * ray.dx;
+  const float py = ray.oy + t * ray.dy;
+  const float pz = ray.oz + t * ray.dz;
+  float s = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+  for (int j = lane; j < n; j += kLanes) {
+    const BasisFn b = synth(ray, (uint32_t)j, prm);
+    const float phase = (b.dx * px + b.dy * py + b.dz * pz) * b.freq + b.offset;
+    s += b.w * cosf(phase);
+    const float coeff = -sinf(phase) * b.freq * b.w;
+    g0 += coeff * b.dx;
+    g1 += coeff * b.dy;
+    g2 += coeff * b.dz;
+  }
+  s = warp_sum(s);
+  g0 = warp_sum(g0);
+  g1 = warp_sum(g1);
+  g2 = warp_sum(g2);
+  float mg[3];
+  const float m = mean_point(spherical, px, py, pz, prm, mg);
+  const float scale = prm[kScale], k = prm[kSqrt2n];
+  if (lane == 0) {
+    o[kOutVal] = scale * (s * k) + m;
+    o[kOutGx] = scale * (g0 * k) + mg[0];
+    o[kOutGy] = scale * (g1 * k) + mg[1];
+    o[kOutGz] = scale * (g2 * k) + mg[2];
+  }
+}
+
+__device__ __forceinline__ Ray load_ray(const int32_t* __restrict__ keys,
+                                        const float* __restrict__ ro,
+                                        const float* __restrict__ rd,
+                                        int64_t r) {
+  Ray ray;
+  ray.key = (uint32_t)keys[2 * r];
+  ray.key2 = (uint32_t)keys[2 * r + 1];
+  ray.ox = ro[3 * r];
+  ray.oy = ro[3 * r + 1];
+  ray.oz = ro[3 * r + 2];
+  ray.dx = rd[3 * r];
+  ray.dy = rd[3 * r + 1];
+  ray.dz = rd[3 * r + 2];
+  return ray;
+}
+
+// A = |ro - c|^2 and B = (ro - c) . rd of the spherical mean
+__device__ __forceinline__ void mean_consts(const Ray& ray, const float* prm,
+                                            float& A, float& B) {
+  const float x = ray.ox - prm[kCx], y = ray.oy - prm[kCy],
+              z = ray.oz - prm[kCz];
+  A = x * x + y * y + z * z;
+  B = x * ray.dx + y * ray.dy + z * ray.dz;
+}
+
+// K5's search of ray r by one warp
+template <int T>
+__device__ __forceinline__ void march_ray(
+    int64_t r, int lane, float* __restrict__ tile,
+    const int32_t* __restrict__ keys,
+    const float* __restrict__ ro, const float* __restrict__ rd,
+    const float* __restrict__ near, const float* __restrict__ far,
+    const float* __restrict__ step, const float* __restrict__ u_jitter,
+    const uint8_t* __restrict__ absorb, const float* __restrict__ prm,
+    float* __restrict__ out, int n, int max_steps, int spherical, int refine,
+    int with_eval) {
+  const Ray ray = load_ray(keys, ro, rd, r);
+  const bool sph = spherical != 0;
+  float A = 0.0f, B = 0.0f;
+  if (sph) mean_consts(ray, prm, A, B);
+  load_tile<T, false>(tile, ray, n, lane, prm, 0.0f, 0.0f, 0.0f);
+
+  const float t_near = near[r], t_far = far[r], dt = step[r];
+  const bool absorbs = absorb[r] != 0;
+  const float f0 = value_at<T>(tile, t_near, ray, n, lane, prm, sph, A, B);
+  float sign0 = f0 < 0.0f ? -1.0f : 1.0f;
+  const float t1 = t_near + dt * u_jitter[r];
+  float k = 0.0f, t_hi = t_far, f_lo = f0, f_hi = 0.0f, f_prev = f0;
+  bool crossed = false;
+  int steps = 0;
+  for (int it = 0; it < max_steps; ++it) {
+    const bool first_abs = absorbs && k < 0.5f;
+    const float tc = t1 + dt * k;
+    const float f = value_at<T>(tile, tc, ray, n, lane, prm, sph, A, B);
+    ++steps;
     const float sgn = f < 0.0f ? -1.0f : 1.0f;
-    sign0 = (absorb && first) ? sgn : sign0;
-    if (was_done) break;  // a done ray changes only sign0, and only here
-    const bool flip = (sgn != sign0) && (tc < far) && !(absorb && first);
-    const bool exited = tc >= far;
+    if (first_abs) sign0 = sgn;
+    const bool flip = (sgn != sign0) && (tc < t_far) && !first_abs;
     if (flip) {
-      crossed = 1.0f;
+      crossed = true;
       t_hi = tc;
       f_hi = f;
       f_lo = f_prev;
     }
-    if (flip || exited) {
-      done = true;
-    } else {
-      k += 1.0f;
-      f_prev = f;
-    }
+    if (flip || tc >= t_far) break;
+    k += 1.0f;
+    f_prev = f;
   }
+
+  float t = crossed ? t_hi : t_far;
+  if (crossed && refine) {  // Illinois false position in [t_hi - step, t_hi]
+    float lo = fmaxf(t_hi - dt, t_near), hi = t_hi, flo = f_lo, fhi = f_hi;
+    for (int i = 0; i < 6; ++i) {
+      const float denom = flo - fhi;
+      const bool tiny = fabsf(denom) < 1e-30f;
+      const float mid_s = lo + flo * (hi - lo) / (tiny ? 1.0f : denom);
+      const float mid =
+          (tiny || mid_s <= lo || mid_s >= hi) ? 0.5f * (lo + hi) : mid_s;
+      const float fm = value_at<T>(tile, mid, ray, n, lane, prm, sph,
+                                   A, B);
+      if ((fm < 0.0f ? -1.0f : 1.0f) == sign0) {
+        lo = mid;
+        flo = fm;
+        fhi = fhi * 0.5f;
+      } else {
+        hi = mid;
+        fhi = fm;
+        flo = flo * 0.5f;
+      }
+    }
+    t = hi;
+  }
+
+  float* o = out + r * 8;
+  if (with_eval) evaluate(ray, t, n, lane, prm, sph, o);
   if (lane == 0) {
-    float* o = state_out + ray * 8;
-    o[0] = k;
-    o[1] = done ? 1.0f : 0.0f;
-    o[2] = crossed;
-    o[3] = t_hi;
-    o[4] = f_lo;
-    o[5] = f_hi;
-    o[6] = sign0;
-    o[7] = f_prev;
+    o[kOutHit] = crossed ? 1.0f : 0.0f;
+    o[kOutT] = t;
+    o[kOutSign] = sign0;
+    o[kOutSteps] = (float)steps;
+    if (!with_eval) o[kOutVal] = o[kOutGx] = o[kOutGy] = o[kOutGz] = 0.0f;
   }
 }
 
-__global__ void __launch_bounds__(256)
-ws_trace_kernel(const float* __restrict__ a, const float* __restrict__ slope,
-                const float* __restrict__ amp, const float* __restrict__ aux,
-                const float* __restrict__ state_in,
-                float* __restrict__ state_out,
-                const float* __restrict__ params, int R, int n, int chunk,
-                int spherical) {
-  const int lane = threadIdx.x & 31;
-  const int64_t ray =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (ray >= R) return;
-  const float scale = params[0];
-  const float min_step = params[1];
-  const float lip_m = params[2];
-  const float radius = params[3];
-  const float m_off = params[4];
-  const float* ar = a + ray * n;
-  const float* sr = slope + ray * n;
-  const float* mr = amp + ray * n;
-  const float* x = aux + ray * 8;
-  const float A = x[0], B = x[1], far = x[2];
-  const float* s = state_in + ray * 8;
-  float t = s[0], step = s[1];
-  bool done = s[2] > 0.5f;
-  float hit = s[3];
-  const float sign0 = s[4];
-  float iters = s[5];
+// K4's search of ray r by one warp
+template <int T>
+__device__ __forceinline__ void trace_ray(
+    int64_t r, int lane, float* __restrict__ tile,
+    const int32_t* __restrict__ keys,
+    const float* __restrict__ ro, const float* __restrict__ rd,
+    const float* __restrict__ near, const float* __restrict__ far,
+    const float* __restrict__ prm, float* __restrict__ out, int n,
+    int max_iters, int spherical, int with_eval) {
+  const Ray ray = load_ray(keys, ro, rd, r);
+  const bool sph = spherical != 0;
+  float A = 0.0f, B = 0.0f;
+  if (sph) mean_consts(ray, prm, A, B);
+  // sign0 from f at near in the evaluate form, as the twin's trace_inputs
+  const float t_near = near[r], t_far = far[r];
+  const float px = ray.ox + t_near * ray.dx;
+  const float py = ray.oy + t_near * ray.dy;
+  const float pz = ray.oz + t_near * ray.dz;
+  const float s0 = load_tile<T, true>(tile, ray, n, lane, prm, px, py, pz);
+  float mg[3];
+  const float f0 = prm[kScale] * (warp_sum(s0) * prm[kSqrt2n]) +
+                   mean_point(sph, px, py, pz, prm, mg);
+  const float sign0 = f0 < 0.0f ? -1.0f : 1.0f;
 
-  for (int it = 0; it < chunk && !done; ++it) {
-    const float t_end = t + step;
+  const float min_step = prm[kMinStep], lip_m = prm[kLipM];
+  const float scale = prm[kScale];
+  float t = t_near, dt = fmaxf((t_far - t_near) * 0.05f, min_step);
+  bool hit = false;
+  int iters = 0;
+  for (int it = 0; it < max_iters; ++it) {
+    const float t_end = t + dt;
     float acc_lo = 0.0f, acc_hi = 0.0f;
-    for (int j = lane; j < n; j += 32) {
-      const float th0 = ar[j] + sr[j] * t;
-      const float th1 = ar[j] + sr[j] * t_end;
-      const float lo = fminf(th0, th1);
-      const float hi = fmaxf(th0, th1);
-      const float c_lo = cosf(lo);
-      const float c_hi = cosf(hi);
-      float cmin = fminf(c_lo, c_hi);
-      float cmax = fmaxf(c_lo, c_hi);
-      const bool k_even = floorf(hi / kTwoPi) - floorf(lo / kTwoPi) >= 1.0f;
-      const bool k_odd =
-          floorf((hi - kPi) / kTwoPi) - floorf((lo - kPi) / kTwoPi) >= 1.0f;
-      const bool wide = (hi - lo) >= kTwoPi;
-      if (k_even || wide) cmax = 1.0f;
-      if (k_odd || wide) cmin = -1.0f;
-      const float w = mr[j];
-      acc_lo += fminf(w * cmin, w * cmax);
-      acc_hi += fmaxf(w * cmin, w * cmax);
+#pragma unroll 2
+    for (int i = 0; i < T; ++i) {
+      const float* c = tile + i * kLanes;
+      bound_term(c[0] + c[T * kLanes] * t, c[0] + c[T * kLanes] * t_end,
+                 c[2 * T * kLanes], acc_lo, acc_hi);
+    }
+    for (int j = lane + kLanes * T; j < n; j += kLanes) {
+      float a, s, m;
+      hoist(synth(ray, (uint32_t)j, prm), ray, prm, a, s, m);
+      bound_term(a + s * t, a + s * t_end, m, acc_lo, acc_hi);
     }
     const float n_lo = scale * warp_sum(acc_lo);
     const float n_hi = scale * warp_sum(acc_hi);
-    const float tm = t + 0.5f * step;
-    const float m_mid = mean_at(spherical, A, B, tm, radius, m_off);
-    const float half = 0.5f * step * lip_m;
+    const float m_mid = mean_at(sph, A, B, t + 0.5f * dt, prm);
+    const float half = 0.5f * dt * lip_m;
     const float lo_b = n_lo + m_mid - half;
     const float hi_b = n_hi + m_mid + half;
     const bool no_cross = sign0 > 0.0f ? lo_b > 0.0f : hi_b < 0.0f;
-    const bool converged = !no_cross && step <= min_step;
-    const float t_new = no_cross ? t + step : t;
-    float step_new = no_cross ? step * 1.6f : step * 0.5f;
-    step_new = fmaxf(step_new, min_step * 0.5f);
-    const bool exited = t_new >= far;
-    step_new = fminf(step_new, far - t_new + 1e-6f);
+    const bool converged = !no_cross && dt <= min_step;
+    const float t_new = no_cross ? t + dt : t;
+    float dt_new = no_cross ? dt * 1.6f : dt * 0.5f;
+    dt_new = fmaxf(dt_new, min_step * 0.5f);
+    const bool exited = t_new >= t_far;
+    dt_new = fminf(dt_new, t_far - t_new + 1e-6f);
     t = t_new;
-    step = step_new;
-    if (converged) hit = 1.0f;
-    done = converged || exited;
-    iters += 1.0f;
+    dt = dt_new;
+    ++iters;
+    if (converged) hit = true;
+    if (converged || exited) break;
   }
+
+  const float t_out = hit ? t : t_far;
+  float* o = out + r * 8;
+  if (with_eval) evaluate(ray, t_out, n, lane, prm, sph, o);
   if (lane == 0) {
-    float* o = state_out + ray * 8;
-    o[0] = t;
-    o[1] = step;
-    o[2] = done ? 1.0f : 0.0f;
-    o[3] = hit;
-    o[4] = sign0;
-    o[5] = iters;
-    o[6] = s[6];
-    o[7] = s[7];
+    o[kOutHit] = hit ? 1.0f : 0.0f;
+    o[kOutT] = t_out;
+    o[kOutSign] = sign0;
+    o[kOutSteps] = (float)iters;
+    if (!with_eval) o[kOutVal] = o[kOutGx] = o[kOutGy] = o[kOutGz] = 0.0f;
   }
 }
 
-typedef void (*KernelFn)(const float*, const float*, const float*,
-                         const float*, const float*, float*, const float*, int,
-                         int, int, int);
+// The next ray for this warp: lane 0 takes it from the counter, so a warp
+// whose ray ends early starts another instead of idling beside a long one.
+__device__ __forceinline__ int64_t next_ray(int* __restrict__ next, int lane) {
+  int r = 0;
+  if (lane == 0) r = atomicAdd(next, 1);
+  return __shfl_sync(0xffffffffu, r, 0);
+}
 
-// Launches `kernel` on `stream` of `device`, then makes the caller's current
-// device current again; returns the launch's cudaGetLastError() as an int.
-int launch(KernelFn kernel, const void* a, const void* slope, const void* amp,
-           const void* aux, const void* state_in, void* state_out,
-           const void* params, int R, int n, int chunk, int spherical,
-           int device, void* stream) {
+template <int T>
+__global__ void __launch_bounds__(kLanes * kWarpsPerBlock)
+ws_march_kernel(int* __restrict__ next, int R,
+                const int32_t* __restrict__ keys, const float* __restrict__ ro,
+                const float* __restrict__ rd, const float* __restrict__ near,
+                const float* __restrict__ far, const float* __restrict__ step,
+                const float* __restrict__ u_jitter,
+                const uint8_t* __restrict__ absorb,
+                const float* __restrict__ prm, float* __restrict__ out, int n,
+                int max_steps, int spherical, int refine, int with_eval) {
+  const int lane = threadIdx.x % kLanes;
+  __shared__ float tiles[kWarpsPerBlock][3 * T * kLanes];
+  float* tile = tiles[threadIdx.x / kLanes] + lane;
+  for (int64_t r = next_ray(next, lane); r < R; r = next_ray(next, lane))
+    march_ray<T>(r, lane, tile, keys, ro, rd, near, far, step, u_jitter, absorb,
+                 prm, out, n, max_steps, spherical, refine, with_eval);
+}
+
+template <int T>
+__global__ void __launch_bounds__(kLanes * kWarpsPerBlock)
+ws_trace_kernel(int* __restrict__ next, int R,
+                const int32_t* __restrict__ keys, const float* __restrict__ ro,
+                const float* __restrict__ rd, const float* __restrict__ near,
+                const float* __restrict__ far, const float* __restrict__ prm,
+                float* __restrict__ out, int n, int max_iters, int spherical,
+                int with_eval) {
+  const int lane = threadIdx.x % kLanes;
+  __shared__ float tiles[kWarpsPerBlock][3 * T * kLanes];
+  float* tile = tiles[threadIdx.x / kLanes] + lane;
+  for (int64_t r = next_ray(next, lane); r < R; r = next_ray(next, lane))
+    trace_ray<T>(r, lane, tile, keys, ro, rd, near, far, prm, out, n, max_iters,
+                 spherical, with_eval);
+}
+
+// The tile that holds n basis functions per warp (32 T >= n), or 32 with
+// the rest synthesised again at every step.
+int tile_for(int n) {
+  if (n <= 2 * kLanes) return 2;
+  if (n <= 8 * kLanes) return 8;
+  return 32;
+}
+
+// Makes `device` current for the launch, then the caller's device again;
+// returns the first error of the launch as an int.
+template <typename Launch>
+int on_device(int device, Launch launch) {
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return (int)err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (R > 0) {
-    const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    kernel<<<blocks, 32 * kWarpsPerBlock, 0, (cudaStream_t)stream>>>(
-        (const float*)a, (const float*)slope, (const float*)amp,
-        (const float*)aux, (const float*)state_in, (float*)state_out,
-        (const float*)params, R, n, chunk, spherical);
-  }
-  err = cudaGetLastError();
+  err = launch();
+  if (err == cudaSuccess) err = cudaGetLastError();
   const cudaError_t restore = cudaSetDevice(prev);
   return (int)(err != cudaSuccess ? err : restore);
 }
 
-}  // namespace
-
-extern "C" int ws_march_chunk(const void* a, const void* slope,
-                              const void* amp, const void* aux,
-                              const void* state_in, void* state_out,
-                              const void* params, int R, int n, int chunk,
-                              int spherical, int device, void* stream) {
-  return launch(ws_march_kernel, a, slope, amp, aux, state_in, state_out,
-                params, R, n, chunk, spherical, device, stream);
+// Launches `kernel` with as many blocks as the card holds at
+// once (no more than the rays need), after zeroing the ray counter `next`
+// on `stream`.
+template <typename Kernel, typename... Args>
+cudaError_t launch_persistent(Kernel kernel, int R, int* next,
+                              cudaStream_t stream, Args... args) {
+  if (R <= 0) return cudaSuccess;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kLanes * kWarpsPerBlock, 0);
+  if (err == cudaSuccess) err = cudaMemsetAsync(next, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  const int need = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int blocks = per_sm * sms < need ? per_sm * sms : need;
+  kernel<<<blocks > 0 ? blocks : 1, kLanes * kWarpsPerBlock, 0, stream>>>(
+      next, R, args...);
+  return cudaSuccess;
 }
 
-extern "C" int ws_trace_chunk(const void* a, const void* slope,
-                              const void* amp, const void* aux,
-                              const void* state_in, void* state_out,
-                              const void* params, int R, int n, int chunk,
-                              int spherical, int device, void* stream) {
-  return launch(ws_trace_kernel, a, slope, amp, aux, state_in, state_out,
-                params, R, n, chunk, spherical, device, stream);
+}  // namespace
+
+// K5 over R rays: keys [R, 2] int32 (uint32 words), ro and rd [R, 3], near,
+// far, step and u_jitter [R] float32, absorb [R] uint8, params [13] float32;
+// writes out [R, 8] float32; next: one int of scratch (the ray counter).
+extern "C" int ws_march(const void* keys, const void* ro, const void* rd,
+                        const void* near, const void* far, const void* step,
+                        const void* u_jitter, const void* absorb,
+                        const void* params, void* out, void* next, int R,
+                        int n, int max_steps, int spherical, int refine,
+                        int with_eval, int device, void* stream) {
+  return on_device(device, [&] {
+    const cudaStream_t s = (cudaStream_t)stream;
+#define WS_MARCH_LAUNCH(T)                                                    \
+  launch_persistent(                                                          \
+      ws_march_kernel<T>, R, (int*)next, s, (const int32_t*)keys,             \
+      (const float*)ro, (const float*)rd, (const float*)near,                 \
+      (const float*)far, (const float*)step, (const float*)u_jitter,          \
+      (const uint8_t*)absorb, (const float*)params, (float*)out, n,           \
+      max_steps, spherical, refine, with_eval)
+    switch (tile_for(n)) {
+      case 2: return WS_MARCH_LAUNCH(2);
+      case 8: return WS_MARCH_LAUNCH(8);
+      default: return WS_MARCH_LAUNCH(32);
+    }
+#undef WS_MARCH_LAUNCH
+  });
+}
+
+// K4 over R rays: keys, ro, rd, near, far, params, out and next as
+// ws_march's.
+extern "C" int ws_trace(const void* keys, const void* ro, const void* rd,
+                        const void* near, const void* far, const void* params,
+                        void* out, void* next, int R, int n, int max_iters,
+                        int spherical, int with_eval, int device,
+                        void* stream) {
+  return on_device(device, [&] {
+    const cudaStream_t s = (cudaStream_t)stream;
+#define WS_TRACE_LAUNCH(T)                                                    \
+  launch_persistent(ws_trace_kernel<T>, R, (int*)next, s,                     \
+                    (const int32_t*)keys, (const float*)ro, (const float*)rd, \
+                    (const float*)near, (const float*)far,                    \
+                    (const float*)params, (float*)out, n, max_iters,          \
+                    spherical, with_eval)
+    switch (tile_for(n)) {
+      case 2: return WS_TRACE_LAUNCH(2);
+      case 8: return WS_TRACE_LAUNCH(8);
+      default: return WS_TRACE_LAUNCH(32);
+    }
+#undef WS_TRACE_LAUNCH
+  });
 }

@@ -1,22 +1,29 @@
 """K5 and K4: the weight-space fixed-step march and range-bound sphere
-trace (tungsten_tpu/ops/ws_trace_pallas.py), with the glue around them.
+trace (tungsten_tpu/ops/ws_trace_pallas.py), each one kernel launch per
+search.
 
-`march_chunk` and `trace_chunk` wrap the CUDA kernels of csrc/ws_trace.cu,
-the counterparts of the Pallas `_march_kernel` (K5) and `_trace_kernel`
-(K4).  A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-the plain twin `march_chunk_ref` / `trace_chunk_ref`, which runs the Pallas
-kernel's step body in PyTorch over the whole batch.  `MARCH_LAUNCHES` and
-`TRACE_LAUNCHES` count kernel launches.  The library is built with nvcc at
-first use (kernels/nvcc.py).
+`fixed_march_batch` (step_size > 0, K5) and `sphere_trace_batch`
+(step_size == 0, K4) take each ray's realization key, its origin,
+direction and interval, and the medium (its GP and basis size n), and
+return the first crossing of the ray with its own RFF realization, with
+the realization's value and gradient at the end point.  On CUDA tensors
+each call is one launch of a kernel of csrc/ws_trace.cu, the counterparts
+of the Pallas `_march_kernel` (K5) and `_trace_kernel` (K4): the kernel
+synthesises the ray's basis from its keys, keeps it in shared memory for
+the whole search, runs the step loop (and K5's Illinois refinement) and
+evaluates the end point, so no [R, n] tensor is made and the host never
+waits inside a call.  A CPU tensor takes the plain twin
+(`fixed_march_batch_ref`, `sphere_trace_batch_ref`): the realization
+synthesised as [R, n] tensors (`realization`), the Pallas kernels' step
+body re-dispatched a chunk at a time until no ray is left
+(`march_chunk_ref`, `trace_chunk_ref`; one `any()` per chunk), the
+refinement and `ws.evaluate` / `ws.evaluate_gradient` at the end point.
+`march_over` / `trace_over` run that twin on a given realization.
 
-`fixed_march_batch` (step_size > 0) and `sphere_trace_batch`
-(step_size == 0) hoist each ray's basis into the affine phases
-a + slope * t, then re-dispatch the chunk until no ray is left: one host
-sync per dispatch (the `any()` that decides whether to launch again), so a
-call makes launches + 1 syncs.  The march's crossing is refined by 6
-Illinois false-position steps in plain tensor code.
+`MARCH_LAUNCHES` and `TRACE_LAUNCHES` count kernel launches.  The library
+is built with nvcc at first use (kernels/nvcc.py).
 
-State and aux columns are those of the Pallas kernels (see the source).
+State and aux columns of the chunk twins are those of the Pallas kernels.
 """
 from __future__ import annotations
 
@@ -29,12 +36,13 @@ import torch
 from ..ops import weight_space as ws
 from ..ops.covariance import SquaredExponentialCov
 from ..ops.means import HomogeneousMean, SphericalMean
+from ..utils import rng
 from .nvcc import compile_library
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ws_trace.cu"
 
-MARCH_CHUNK = 32  # K5 steps per dispatch, as the Pallas kernel
-TRACE_CHUNK = 16  # K4 iterations per dispatch, as the Pallas kernel
+MARCH_CHUNK = 32  # K5 steps per dispatch of the twin, as the Pallas kernel
+TRACE_CHUNK = 16  # K4 iterations per dispatch of the twin, as Pallas
 TRACE_MIN_STEP = 1e-3  # K4 converges once its step is this short
 TRACE_MAX_ITERS = 256  # K4 iterations of one ray at most
 
@@ -44,6 +52,9 @@ M_K, M_DONE, M_CROSS, M_THI, M_FLO, M_FHI, M_SIGN, M_FPREV = range(8)
 MA_A, MA_B, MA_FAR, MA_T1, MA_STEP, MA_ABS = range(6)
 # K4 state [t, step, done, hit, sign0, it, -, -]; aux [A, B, far, -...]
 C_T, C_STEP, C_DONE, C_HIT, C_SIGN, C_IT = range(6)
+# the kernels' output columns [R, 8]: steps counts the march steps (K5) or
+# iterations (K4) the ray took
+O_HIT, O_T, O_SIGN, O_VAL, O_GX, O_GY, O_GZ, O_STEPS = range(8)
 
 MARCH_LAUNCHES = 0
 TRACE_LAUNCHES = 0
@@ -56,10 +67,10 @@ def build():
     lib, log = compile_library(SOURCE)
     if not _FNS:
         dll = ctypes.CDLL(str(lib))
-        for name in ("ws_march_chunk", "ws_trace_chunk"):
+        i, p = ctypes.c_int, ctypes.c_void_p
+        for name, n_ptr, n_int in (("ws_march", 11, 7), ("ws_trace", 8, 6)):
             fn = getattr(dll, name)
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                           + [ctypes.c_void_p])
+            fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
             fn.restype = ctypes.c_int
             _FNS[name] = fn
     return log
@@ -72,67 +83,150 @@ def supports(gp):
             and isinstance(gp.mean, (SphericalMean, HomogeneousMean)))
 
 
-def _check(a, slope, amp, aux, state, params):
-    R, n = a.shape
-    for name, x, shape in (("a", a, (R, n)), ("slope", slope, (R, n)),
-                           ("amp", amp, (R, n)), ("aux", aux, (R, 8)),
-                           ("state", state, (R, 8)), ("params", params, (8,))):
-        if x.dtype != torch.float32 or tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be float32 {shape}, got {x.dtype} "
+def realization(gp, n, key):
+    """The RFF realizations of stream keys [R] (words) as [R, n] tensors,
+    in the profiler range "ws_realization"."""
+    with torch.profiler.record_function("ws_realization"):
+        return ws.realization_from_key(gp.cov, n, key)
+
+
+def search_params(gp, n, device):
+    """The medium's constants as the kernels take them, [13] float32: l,
+    sqrt(aniso) [3], sqrt(cov(0, 0)), sqrt(2/n), the spherical mean's
+    center [3] and radius, the homogeneous mean's offset, the mean's
+    Lipschitz constant and TRACE_MIN_STEP."""
+    f32 = dict(dtype=torch.float32, device=device)
+    cov, mean = gp.cov, gp.mean
+    origin = torch.zeros(3, **f32)
+    zero = torch.zeros(1, **f32)
+    if isinstance(mean, SphericalMean):
+        center, radius, m_off = mean.center, mean.radius, zero
+    else:
+        center, radius, m_off = torch.zeros(3, **f32), zero, mean.offset
+    vals = (cov.l, torch.sqrt(cov.aniso), torch.sqrt(cov.cov(origin, origin)),
+            ws.sqrt_2_over_n(n, device), center, radius, m_off,
+            torch.full((1,), float(mean.lipschitz()), **f32),
+            torch.full((1,), TRACE_MIN_STEP, **f32))
+    # made on the device: a copy from the host would wait for it
+    return torch.cat([v.to(**f32).reshape(-1) for v in vals])
+
+
+def _check(key, ro, rd, per_ray):
+    R = key.shape[0]
+    if key.dtype != torch.int64 or key.dim() != 1:
+        raise ValueError(f"key must be int64 [R], got {key.dtype} "
+                         f"{tuple(key.shape)}")
+    for name, x, shape in (("ro", ro, (R, 3)), ("rd", rd, (R, 3)),
+                           *((k, v, (R,)) for k, v in per_ray.items())):
+        want = torch.bool if name == "absorb" else torch.float32
+        if x.dtype != want or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {want} {shape}, got {x.dtype} "
                              f"{tuple(x.shape)}")
-        if x.device != a.device:
+        if x.device != key.device:
             raise ValueError("all inputs must be on one device")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if R >= 2 ** 31:
-        raise ValueError("the kernels take fewer than 2^31 rays")
-
-
-def _launch(name, a, slope, amp, aux, state, params, spherical, chunk):
-    params = params.reshape(-1)
-    _check(a, slope, amp, aux, state, params)
-    if a.device.type != "cuda":
+    if key.device.type != "cuda":
         raise ValueError(f"the kernels run on cuda or cpu tensors, not "
-                         f"{a.device}")
+                         f"{key.device}")
+    if R >= 2 ** 30:  # the ray counter runs past R by the warps in flight
+        raise ValueError("the kernels take fewer than 2^30 rays")
+
+
+def pack_keys(key):
+    """The realization and weight keys of stream keys [R] (words in int64)
+    as the kernels take them: uint32 words in int32 [R, 2] (a cast that
+    wraps)."""
+    return torch.stack([key, (key + ws.WEIGHT_KEY_OFFSET) & rng.MASK32],
+                       dim=-1).to(torch.int32)
+
+
+def _launch(name, gp, n, key, ro, rd, per_ray, ints):
+    """Launches kernel `name` on rays [R]; returns its output [R, 8]."""
+    _check(key, ro, rd, per_ray)
     if not _FNS:
         build()
-    out = torch.empty_like(state)
-    err = _FNS[name](a.data_ptr(), slope.data_ptr(), amp.data_ptr(),
-                     aux.data_ptr(), state.data_ptr(), out.data_ptr(),
-                     params.data_ptr(), a.shape[0], a.shape[1], int(chunk),
-                     int(spherical), a.device.index,
-                     torch.cuda.current_stream(a.device).cuda_stream)
+    dev = key.device
+    keys = pack_keys(key)
+    args = [x.contiguous() for x in (ro, rd, *per_ray.values())]
+    params = search_params(gp, n, dev)
+    out = torch.empty((key.shape[0], 8), dtype=torch.float32, device=dev)
+    next_ray = torch.empty(1, dtype=torch.int32, device=dev)  # the counter
+    err = _FNS[name](keys.data_ptr(), *(x.data_ptr() for x in args),
+                     params.data_ptr(), out.data_ptr(), next_ray.data_ptr(),
+                     key.shape[0], n, *ints, dev.index,
+                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
 
 
-def march_chunk(a, slope, amp, aux, state, params, spherical):
-    """K5: MARCH_CHUNK march steps of every ray; returns the new state
-    [R, 8].
+def _result(out, evaluate):
+    res = {"hit": out[:, O_HIT] > 0.5, "t": out[:, O_T],
+           "sign0": out[:, O_SIGN], "steps": out[:, O_STEPS]}
+    if evaluate:
+        res["val"], res["grad"] = out[:, O_VAL], out[:, O_GX:O_GZ + 1]
+    return res
 
-    a, slope, amp [R, n]; aux, state [R, 8]; params [8] (scale, radius,
-    mean offset, -...); spherical: whether the mean is spherical."""
+
+def march_cap(max_steps):
+    """The most steps a ray takes: max_steps rounded up to whole chunks."""
+    return -(-max_steps // MARCH_CHUNK) * MARCH_CHUNK
+
+
+def fixed_march_batch(gp, n, key, ro, rd, near, far, step, u_jitter, absorb,
+                      max_steps, refine=True, evaluate=True):
+    """K5: the fixed-step sign-change march of every ray [R] over its
+    realization (stream key `key` [R], words in int64; n basis functions),
+    then 6 Illinois false-position steps inside [t_hi - step, t_hi] unless
+    `refine` is False.
+
+    f0 at `near` fixes sign0, the first step sits at near + step *
+    u_jitter, the first step after an interior scatter (`absorb`) sets the
+    sign and cannot flip, flips count only before `far`, and no ray takes
+    more than `max_steps` steps (rounded up to whole chunks).  Returns
+    dict(hit [R], t [R] (far where nothing was hit), sign0 [R], steps [R]
+    and, if `evaluate`, val [R] and grad [R, 3] of the realization at
+    ro + t rd)."""
     global MARCH_LAUNCHES
-    if a.device.type == "cpu":
-        return march_chunk_ref(a, slope, amp, aux, state, params, spherical)
-    out = _launch("ws_march_chunk", a, slope, amp, aux, state, params,
-                  spherical, MARCH_CHUNK)
+    if key.device.type == "cpu":
+        return fixed_march_batch_ref(gp, n, key, ro, rd, near, far, step,
+                                     u_jitter, absorb, max_steps, refine,
+                                     evaluate)
+    out = _launch("ws_march", gp, n, key, ro, rd,
+                  {"near": near, "far": far, "step": step,
+                   "u_jitter": u_jitter, "absorb": absorb},
+                  (march_cap(max_steps), isinstance(gp.mean, SphericalMean),
+                   bool(refine), bool(evaluate)))
     MARCH_LAUNCHES += 1
-    return out
+    return _result(out, evaluate)
 
 
-def trace_chunk(a, slope, amp, aux, state, params, spherical):
-    """K4: TRACE_CHUNK range-bound sphere-trace iterations of every ray;
-    params
-    [8] (scale, min_step, mean Lipschitz, radius, mean offset, -...)."""
+def sphere_trace_batch(gp, n, key, ro, rd, near, far, evaluate=True):
+    """K4: the adaptive range-bound sphere trace of every ray [R] over
+    [near, far] on its realization (stream key `key` [R]; n basis
+    functions), at most TRACE_MAX_ITERS iterations.  Returns the dict of
+    `fixed_march_batch` (steps: iterations)."""
     global TRACE_LAUNCHES
-    if a.device.type == "cpu":
-        return trace_chunk_ref(a, slope, amp, aux, state, params, spherical)
-    out = _launch("ws_trace_chunk", a, slope, amp, aux, state, params,
-                  spherical, TRACE_CHUNK)
+    if key.device.type == "cpu":
+        return sphere_trace_batch_ref(gp, n, key, ro, rd, near, far,
+                                      evaluate)
+    out = _launch("ws_trace", gp, n, key, ro, rd, {"near": near, "far": far},
+                  (TRACE_MAX_ITERS, isinstance(gp.mean, SphericalMean),
+                   bool(evaluate)))
     TRACE_LAUNCHES += 1
-    return out
+    return _result(out, evaluate)
+
+
+def fixed_march_batch_ref(gp, n, key, ro, rd, near, far, step, u_jitter,
+                          absorb, max_steps, refine=True, evaluate=True):
+    """Plain PyTorch twin of K5 (`fixed_march_batch`)."""
+    return march_over(realization(gp, n, key), gp, ro, rd, near, far, step,
+                      u_jitter, absorb, max_steps, refine, evaluate)
+
+
+def sphere_trace_batch_ref(gp, n, key, ro, rd, near, far, evaluate=True):
+    """Plain PyTorch twin of K4 (`sphere_trace_batch`)."""
+    return trace_over(realization(gp, n, key), gp, ro, rd, near, far,
+                      evaluate)
 
 
 def _mean_at(spherical, A, B, t, radius, m_off):
@@ -142,8 +236,9 @@ def _mean_at(spherical, A, B, t, radius, m_off):
 
 
 def march_chunk_ref(a, slope, amp, aux, state, params, spherical):
-    """Plain PyTorch twin of K5: the Pallas kernel's step body, MARCH_CHUNK
-    times over the whole batch."""
+    """The Pallas K5's step body, MARCH_CHUNK times over the whole batch:
+    a, slope, amp [R, n]; aux, state [R, 8]; params [8] (scale, radius,
+    mean offset, -...); returns the new state [R, 8]."""
     params = params.reshape(-1)
     scale, radius, m_off = params[0], params[1], params[2]
     A, B, far, t1, step = aux[:, :5].unbind(-1)
@@ -175,8 +270,9 @@ def march_chunk_ref(a, slope, amp, aux, state, params, spherical):
 
 
 def trace_chunk_ref(a, slope, amp, aux, state, params, spherical):
-    """Plain PyTorch twin of K4: the Pallas kernel's iteration body,
-    TRACE_CHUNK times over the whole batch."""
+    """The Pallas K4's iteration body, TRACE_CHUNK times over the whole
+    batch; params [8] (scale, min_step, mean Lipschitz, radius, mean
+    offset, -...)."""
     params = params.reshape(-1)
     scale, min_step, lip_m, radius, m_off = params[:5].unbind()
     A, B, far = aux[:, :3].unbind(-1)
@@ -268,8 +364,8 @@ def _params(*vals):
 
 
 def march_inputs(real, gp, ro, rd, near, far, step, u_jitter, absorb):
-    """K5's inputs for rays [R] at their start: (hoisted basis, aux [R, 8],
-    state [R, 8], params [8]).  f0 at `near` fixes sign0."""
+    """The chunk twin's inputs for rays [R] at their start: (hoisted basis,
+    aux [R, 8], state [R, 8], params [8]).  f0 at `near` fixes sign0."""
     R = ro.shape[0]
     h = _hoisted_params(real, gp, ro, rd)
     f0 = h.value_of(near)
@@ -284,8 +380,9 @@ def march_inputs(real, gp, ro, rd, near, far, step, u_jitter, absorb):
 
 
 def trace_inputs(real, gp, ro, rd, near, far):
-    """K4's inputs for rays [R] at their start: (hoisted basis, aux [R, 8],
-    state [R, 8], params [8]).  The first step is 5% of [near, far]."""
+    """The chunk twin's inputs for rays [R] at their start: (hoisted basis,
+    aux [R, 8], state [R, 8], params [8]).  The first step is 5% of
+    [near, far]."""
     R = ro.shape[0]
     h = _hoisted_params(real, gp, ro, rd)
     f0, _ = ws.evaluate(real, gp, ro + near[:, None] * rd)
@@ -300,28 +397,33 @@ def trace_inputs(real, gp, ro, rd, near, far):
     return h, aux, state, params
 
 
-def fixed_march_batch(real, gp, ro, rd, near, far, step, u_jitter, absorb,
-                      max_steps, refine=True):
-    """Fixed-step sign-change march of every ray [R] over its realization,
-    then 6 Illinois false-position steps inside [t_hi - step, t_hi].
+def _end_point(res, real, gp, ro, rd, evaluate):
+    """Adds the value and gradient of `real` at ro + t rd to res."""
+    if evaluate:
+        ip = ro + res["t"][:, None] * rd
+        res["val"], _ = ws.evaluate(real, gp, ip)
+        res["grad"] = ws.evaluate_gradient(real, gp, ip)
+    return res
 
-    f0 at `near` fixes sign0, the first step sits at near + step * u_jitter,
-    the first step after an interior scatter (`absorb`) sets the sign and
-    cannot flip, flips count only before `far`, and no ray takes more than
-    `max_steps` steps (rounded up to whole chunks).  Returns
-    dict(hit [R], t [R], sign0 [R])."""
+
+def march_over(real, gp, ro, rd, near, far, step, u_jitter, absorb,
+               max_steps, refine=True, evaluate=True):
+    """`fixed_march_batch` on the realizations `real`: the chunk twin
+    re-dispatched until no ray is left (one host sync per chunk), then the
+    refinement and the end point in tensor code."""
     h, aux, S, params = march_inputs(real, gp, ro, rd, near, far, step,
                                      u_jitter, absorb)
-    for _ in range(-(-max_steps // MARCH_CHUNK)):
+    for _ in range(march_cap(max_steps) // MARCH_CHUNK):
         if not bool((S[:, M_DONE] < 0.5).any()):
             break
-        S = march_chunk(h.a, h.slope, h.amp, aux, S, params, h.spherical)
+        S = march_chunk_ref(h.a, h.slope, h.amp, aux, S, params, h.spherical)
     crossed = S[:, M_CROSS] > 0.5
     t_hi = S[:, M_THI]
     sign0 = S[:, M_SIGN]
+    res = {"hit": crossed, "sign0": sign0, "steps": S[:, M_K] + S[:, M_DONE]}
     if not refine:
-        return {"hit": crossed, "t": torch.where(crossed, t_hi, far),
-                "sign0": sign0}
+        res["t"] = torch.where(crossed, t_hi, far)
+        return _end_point(res, real, gp, ro, rd, evaluate)
 
     lo = torch.maximum(t_hi - step, near)
     hi, flo, fhi = t_hi, S[:, M_FLO], S[:, M_FHI]
@@ -337,17 +439,19 @@ def fixed_march_batch(real, gp, ro, rd, near, far, step, u_jitter, absorb,
         hi = torch.where(crossed & ~start_side, mid, hi)
         flo, fhi = (torch.where(start_side, fm, flo * 0.5),
                     torch.where(start_side, fhi * 0.5, fm))
-    return {"hit": crossed, "t": torch.where(crossed, hi, far),
-            "sign0": sign0}
+    res["t"] = torch.where(crossed, hi, far)
+    return _end_point(res, real, gp, ro, rd, evaluate)
 
 
-def sphere_trace_batch(real, gp, ro, rd, near, far):
-    """Adaptive range-bound sphere trace of every ray [R] over [near, far];
-    returns (hit [R], t_hit [R]) (t_hit = far where nothing was hit)."""
+def trace_over(real, gp, ro, rd, near, far, evaluate=True):
+    """`sphere_trace_batch` on the realizations `real`, the chunk twin
+    re-dispatched until no ray is left."""
     h, aux, S, params = trace_inputs(real, gp, ro, rd, near, far)
     for _ in range(-(-TRACE_MAX_ITERS // TRACE_CHUNK)):
         if not bool((S[:, C_DONE] < 0.5).any()):
             break
-        S = trace_chunk(h.a, h.slope, h.amp, aux, S, params, h.spherical)
+        S = trace_chunk_ref(h.a, h.slope, h.amp, aux, S, params, h.spherical)
     hit = S[:, C_HIT] > 0.5
-    return hit, torch.where(hit, S[:, C_T], far)
+    res = {"hit": hit, "t": torch.where(hit, S[:, C_T], far),
+           "sign0": S[:, C_SIGN], "steps": S[:, C_IT]}
+    return _end_point(res, real, gp, ro, rd, evaluate)

@@ -16,12 +16,12 @@ lanes; with one step per iteration the evaluated steps are the same.
 Per-path 1D realizations under renewal+ are first conditioned at the
 segment start on the value and normal the path carries (`_precondition`).
 
-Weight space: each ray synthesises its RFF realization from its (pixel,
-sample, bounce) words, then marches it with K5 in fixed steps (step_size
-> 0) or sphere-traces it with K4 (step_size == 0); see kernels/ws_trace.py.
-Only the active rays are gathered into these calls (the results of the
-others are masked anyway), which bounds the [R, n] basis tensors by the
-rays in the medium.
+Weight space: each ray's RFF realization is keyed by its (pixel, sample,
+bounce) words; K5 marches it in fixed steps (step_size > 0) or K4
+sphere-traces it (step_size == 0), one launch per search that synthesises
+the basis on chip and returns the crossing with the value and gradient
+there; see kernels/ws_trace.py.  Only the active rays are gathered into
+these calls (the results of the others are masked anyway).
 """
 from __future__ import annotations
 
@@ -209,47 +209,44 @@ def march(med, value_at, near, far, state, u_jitter, active, refine=True):
     return crossed & active, torch.where(active, t_hit, far)
 
 
-def _ws_real(med, pss):
-    """Each ray's RFF realization, re-synthesized from its words pss [R, 4]
-    (a single realization takes the words of pixel 0, sample 0).  The
-    profiler range "ws_realization" lets a trace split off its cost."""
+def _ws_key(med, pss):
+    """Each ray's realization key from its words pss [R, 4] (a single
+    realization takes the words of pixel 0, sample 0)."""
     cfg = med.cfg
     if cfg.use_single_realization:
         pss, is_global = torch.zeros_like(pss), True
     else:
         is_global = cfg.ctxt == sc.CTXT_GLOBAL
-    with torch.profiler.record_function("ws_realization"):
-        return ws.sample_realization(med.gp.cov, med.basis_functions, pss,
-                                     cfg.global_seed, is_global)
+    return ws.realization_key(pss, cfg.global_seed, is_global)
 
 
 def _ws_search(med, ro, rd, near, far, first_scatter, pss, u_jitter,
-               refine=True):
+               refine=True, evaluate=True):
     """The first crossing of weight-space rays (all active): K5's march for
-    step_size > 0, K4's sphere trace for step_size == 0.  Returns (hit,
-    t, realization); t = far where nothing was hit."""
-    real = _ws_real(med, pss)
+    step_size > 0, K4's sphere trace for step_size == 0.  Returns the
+    kernels' dict: hit, t (far where nothing was hit) and, if `evaluate`,
+    the realization's value and gradient at ro + t rd."""
+    key = _ws_key(med, pss)
+    n = med.basis_functions
     if med.ws_sphere_trace:
         # a segment that starts at an interior scatter skips its surface
         near_st = near + torch.where(first_scatter, 0.0, 2e-3)
-        hit, t = wst.sphere_trace_batch(real, med.gp, ro, rd, near_st, far)
-        return hit, t, real
+        return wst.sphere_trace_batch(med.gp, n, key, ro, rd, near_st, far,
+                                      evaluate=evaluate)
     step = torch.clamp(torch.minimum(med.step_size,
                                      (far - near) / med.min_step), min=1e-6)
-    m = wst.fixed_march_batch(real, med.gp, ro, rd, near, far, step,
-                              u_jitter, ~first_scatter,
-                              max_steps=med.max_march_steps, refine=refine)
-    return m["hit"], m["t"], real
+    return wst.fixed_march_batch(med.gp, n, key, ro, rd, near, far, step,
+                                 u_jitter, ~first_scatter,
+                                 max_steps=med.max_march_steps, refine=refine,
+                                 evaluate=evaluate)
 
 
-def sample_gradient(med, scene_seed, p, pss, real=None, rd=None,
-                    t_segment=None, coeff1=None):
-    """The conditioned-Gaussian normal: the GP gradient at p [R, 3]; a
-    weight-space medium takes the rays' realization `real`, a 1D-sampled
-    one the rays' directions, distances from the segment start and
-    conditioning coefficients."""
-    if med.kind == GPIS_WEIGHT_SPACE:
-        return ws.evaluate_gradient(real, med.gp, p)
+def sample_gradient(med, scene_seed, p, pss, rd=None, t_segment=None,
+                    coeff1=None):
+    """The conditioned-Gaussian normal of a sparse-conv medium: the GP
+    gradient at p [R, 3]; a 1D-sampled one takes the rays' directions,
+    distances from the segment start and conditioning coefficients (a
+    weight-space medium's comes with its search, `_ws_search`)."""
     return sc.eval_gradient(med.cfg, med.gp, p, pss, scene_seed, ray_dir=rd,
                             t_segment=t_segment, coeff1=coeff1)
 
@@ -272,15 +269,10 @@ def _crossing_ws(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
     gp_id = torch.zeros(active.shape, dtype=torch.int64, device=ro.device)
     idx = torch.nonzero(active).squeeze(1)
     if idx.numel():
-        ro_a, rd_a, pss_a = ro[idx], rd[idx], pss[idx]
-        hit_a, t_a, real = _ws_search(
-            med, ro_a, rd_a, near[idx], far[idx], state.first_scatter[idx],
-            pss_a, u_jitter[idx])
-        ip = ro_a + t_a[:, None] * rd_a
-        val[idx], gp_id[idx] = ws.evaluate(real, med.gp, ip)
-        grad[idx] = sample_gradient(med, scene_seed, ip, pss_a, real)
-        hit[idx] = hit_a
-        t[idx] = t_a
+        res = _ws_search(med, ro[idx], rd[idx], near[idx], far[idx],
+                         state.first_scatter[idx], pss[idx], u_jitter[idx])
+        val[idx], grad[idx] = res["val"], res["grad"]
+        hit[idx], t[idx] = res["hit"], res["t"]
     return hit, t, grad, val, gp_id
 
 
@@ -339,11 +331,10 @@ def transmittance(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
         hit = torch.zeros_like(active)
         idx = torch.nonzero(active).squeeze(1)
         if idx.numel():
-            hit_a, _, _ = _ws_search(
+            hit[idx] = _ws_search(
                 med, ro[idx], rd[idx], near[idx], far_eff[idx],
                 state.first_scatter[idx], pss[idx], u_jitter[idx],
-                refine=False)
-            hit[idx] = hit_a
+                refine=False, evaluate=False)["hit"]
     else:
         state = _precondition(med, scene_seed, ro, rd, near, state, pss,
                               active)

@@ -25,6 +25,7 @@ from ..utils import rng
 from ..utils.vecmath import dot
 
 _TWO_PI = 6.2831855  # float32(2 pi)
+WEIGHT_KEY_OFFSET = 0x9E3779B9  # the weights' stream key is key + this
 _PI = 3.1415927  # float32(pi)
 
 
@@ -46,9 +47,10 @@ class WeightSpaceRealization:
 
 
 def sqrt_2_over_n(n, device):
-    """sqrt(2/n) rounded as float32 arithmetic rounds it."""
-    return torch.sqrt(torch.tensor(2.0 / n, dtype=torch.float32,
-                                   device=device))
+    """sqrt(2/n) rounded as float32 arithmetic rounds it (made on the
+    device, with no copy from the host)."""
+    return torch.sqrt(torch.full((), 2.0 / n, dtype=torch.float32,
+                                 device=device))
 
 
 def project(dirs, v):
@@ -84,11 +86,17 @@ def realization_key(pss, global_seed, is_global_ctxt):
     return (h + global_seed) & rng.MASK32
 
 
-def sample_realization(cov, n, pss, global_seed, is_global_ctxt):
-    key = realization_key(pss, global_seed, is_global_ctxt)
+def realization_from_key(cov, n, key):
+    """The realizations of stream keys [R]: the basis from `key`, the
+    weights from key + WEIGHT_KEY_OFFSET."""
     basis = sample_basis(cov, n, key)
-    weights = sample_weights(n, (key + 0x9E3779B9) & rng.MASK32)
+    weights = sample_weights(n, (key + WEIGHT_KEY_OFFSET) & rng.MASK32)
     return WeightSpaceRealization(basis=basis, weights=weights)
+
+
+def sample_realization(cov, n, pss, global_seed, is_global_ctxt):
+    return realization_from_key(
+        cov, n, realization_key(pss, global_seed, is_global_ctxt))
 
 
 def evaluate(real, gp, p):
