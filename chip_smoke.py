@@ -4,11 +4,12 @@ Builds the port's CUDA kernels from tungsten_tpu_torch/csrc/ (one nvcc per
 source, all started together) and holds each against its plain PyTorch
 twin on the card: K1 and K2 (noise3d.cu), K3 (noise1d.cu) and K5/K4
 (ws_trace.cu, one whole weight-space search per launch).  Each kernel's
-bound is the largest of its bytes over HBM's rate and its integer, float
-and all operations over the lane rates of the card's INT32 and FP32
-lanes.  Then it drives the port's main paths through
-tungsten_tpu_torch.render, each with the launch counts set to 0 just
-before and read just after:
+bound is the largest of its bytes over HBM's rate and its instructions
+per pipe class over that class's rate (K1-K3: counted from the built
+kernels' SASS; K5/K4: operations read off the source, all counted as
+issued); a measured time below its bound fails the run.  Then it drives
+the port's main paths through tungsten_tpu_torch.render, each with the
+launch counts set to 0 just before and read just after:
 - BASELINE config 1 (scenes/gpis-sphere-box.json, sparse-conv noise, K1);
 - BASELINE config 4a (scenes/gpis-weight-space.json, weight-space RFF,
   1024 basis functions, K5's fixed-step march);
@@ -19,10 +20,10 @@ before and read just after:
   procedural-nonstationary noise under the Global context, K2), at its own
   1920x1080 in row bands.
 It checks each image, shows that every weight-space search was one launch
-with no host sync inside, compares config 4a's host syncs, realization
-synthesis and peak memory with the plain twins' [R, n] path, times the
-renders, and compares 64x64 renders with the committed reference goldens
-by bucket means.  Each phase that fails
+with no host sync inside, prints config 4a's host syncs, realization
+synthesis and peak memory beside the earlier design's recorded numbers,
+times the renders, and compares 64x64 renders with the committed
+reference goldens by bucket means.  Each phase that fails
 raises, so the script exits non-zero; it needs CUDA and never imports JAX
 or the JAX package.  It prints the card line of nvidia-smi, then a JSON
 line with every kernel's numbers, and last one JSON object naming the
@@ -33,7 +34,9 @@ renders' time goes (PERF.md section 5): config 1 at 1, 4 and 16 spp per ray
 batch, config 4a (both step sizes) at 8 spp, config 3 and the hero at 16
 spp, each with its launches and host syncs, and one render of each under
 torch.profiler, whose op tables it writes to OUT_DIR, with each kernel's
-bound over that render; and K5/K4 timed whole and in parts.
+bound over that render; K5/K4 timed whole and in parts; and config 4a's
+host syncs, realization synthesis and peak memory through the plain
+twins, which keep the earlier design's [R, n] structure.
 """
 import argparse
 import concurrent.futures
@@ -88,51 +91,46 @@ K2_POINTS = (16384, 65536, 131072, 262144, 524288, 1 << 20)
 K2_LINE_POINTS = 524288
 WS_MAX_SHARE = 1e-3  # rays whose flags or decisions may differ
 
-# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet and Hopper white
-# paper): HBM bytes/s; 132 SMs at 1.98 GHz, each issuing one float32
-# instruction per cycle on each of its 128 FP32 lanes (the data sheet's
-# 67 TFLOP/s counts an FMA as two operations; the kernels are built with
-# -fmad=false, so each counted operation is one instruction) and one 32-bit
-# integer instruction on each of its 64 INT32 lanes.
+# Peaks of one H100 SXM at 700 W: HBM bytes/s (NVIDIA's data sheet), and
+# 132 SMs at 1.98 GHz, each issuing or executing per clock the thread-
+# instructions of tungsten_tpu_torch/kernels/sass.py's SM_RATES: 128 issued,
+# 128 on the FMA pipes (FP32 and integer multiply-add), 64 integer
+# multiply-adds on the heavy FMA pipe, 64 on the ALU (integer add, logic,
+# shift, compare, select), 16 on the XU (MUFU, conversions).  The data
+# sheet's 67 TFLOP/s counts an FMA as two operations; the kernels are built
+# with -fmad=false.
 PEAK_BYTES = 3.35e12
-PEAK_FLOAT = 132 * 128 * 1.98e9  # 33.45e12 instructions/s
-PEAK_INT = 132 * 64 * 1.98e9  # 16.7e12 instructions/s
-# Operation counts behind the bounds, read off the kernels' code and split
-# into 32-bit integer and float instructions.  A precise cosf or sinf: a
-# 3-part Cody-Waite reduction and a polynomial, ~20; an IEEE divide ~10; a
-# precise log1pf ~20; a precise sqrtf ~8.
+SMS, CLOCK = 132, 1.98e9
+# K1, K2 and K3: instructions per point by class, counted from the built
+# kernels' SASS (lattice_pipes).  Each impulse within reach of the point
+# (d^2 < 1) takes the long path (its last variate and expf): with impulses
+# uniform in their cells, per impulse index 4 pi / 3 of the 27 cells' in
+# 3D, 2 of the 3 cells' in 1D.
+LONG_3D, LONG_1D = 4.0 * np.pi / 3.0, 2.0
+# K5 and K4: operations per basis function read off the source, each at
+# least one instruction, so they bound the issue class; the SASS issues
+# more (35.5 instructions per term of K5's march step against 24 counted,
+# 104.5 of K4's against 84).  A precise cosf or sinf: a 3-part Cody-Waite
+# reduction and a polynomial, ~20; an IEEE divide ~10; a precise log1pf
+# ~20; a precise sqrtf ~8; xxhash32_2 with one word fixed 11 (an add, a
+# rotate, 3 multiplies, 3 shifts and 3 xors).
 OPS_COSF, OPS_DIV, OPS_LOG1P, OPS_SQRT = 20, 10, 20, 8
-OPS_HASH2 = 15  # xxhash32_2, integer
-# K1 per cell: xxhash32_4 (27) and 3 index adds (integer), 3 float ops; per
-# impulse: 4 xxhash32_2 and 4 variate shifts (integer), 4 variate
-# conversions and their multiplies and the 48-op splat, expf included
-# (float).
-K1_INT_CELL, K1_FLT_CELL = 27 + 3, 3
-K1_INT_IMPULSE, K1_FLT_IMPULSE = 4 * OPS_HASH2 + 4, 8 + 48
-# K2: K1's sum plus a per-point reciprocal (1 / kr) and one qm multiply
-# per impulse (float)
-K2_FLT_POINT, K2_FLT_IMPULSE = OPS_DIV, K1_FLT_IMPULSE + 1
-# K3 per cell: xxhash32_2 and 3 coordinate/index ops (integer), 3 float
-# ops; per impulse: 2 xxhash32_2 and 2 variate shifts (integer), 2 variate
-# conversions and multiplies, the sign select, d, kr * d, d * d and its
-# compare, the splat's products and sum (8) and a precise expf (~20)
-K3_INT_CELL, K3_FLT_CELL = OPS_HASH2 + 3, 3
-K3_INT_IMPULSE, K3_FLT_IMPULSE = 2 * OPS_HASH2 + 2, 4 + 8 + 20
-# K5 and K4 synthesise each basis function from the ray's keys: 3 Box-
-# Muller pairs (7 xxhash32_2 with their counters and shifts, integer;
-# per pair 2 conversions and multiplies, a negate, log1pf, a multiply,
-# sqrtf and the angle's multiply, float) plus the offset's variate, 4
-# cosf/sinf and their 4 radius products, omega (3 divides, 3 multiplies),
-# freq (dot, max, sqrtf), dirs (3 divides) and the offset's multiply.
+OPS_HASH2 = 11
+# Synthesis of one basis function from the ray's keys: 3 Box-Muller pairs
+# (7 xxhash32_2 with their counters and shifts, integer; per pair 2
+# conversions and multiplies, a negate, log1pf, a multiply, sqrtf and the
+# angle's multiply, float) plus the offset's variate, 4 cosf/sinf and their
+# 4 radius products, omega (3 divides, 3 multiplies), freq (dot, max,
+# sqrtf), dirs (3 divides) and the offset's multiply.
 WS_SYNTH_INT = 7 * (OPS_HASH2 + 1) + 3 * 2 + 7
 WS_SYNTH_FLT = (3 * (4 + 1 + OPS_LOG1P + 1 + OPS_SQRT + 1) + 2 + 1
                 + 4 * OPS_COSF + 4 + 3 * OPS_DIV + 3 + 6 + OPS_SQRT
                 + 3 * OPS_DIV)
 WS_HOIST_FLT = 14  # a, slope (two projections and products) and amp
-# the end point's value and gradient: the projection and phase (7), cosf,
-# sinf and their products and sums (2 + 3), the gradient's 3 products and
-# 3 sums
-WS_EVAL_FLT = 7 + 2 * OPS_COSF + 5 + 6
+# the end point's value and gradient, from the basis the search already
+# holds: the phase a + slope t (2), cosf, sinf, the value's product and sum
+# (2), the gradient's coefficient (3) and its 3 products and 3 sums
+WS_EVAL_FLT = 2 + 2 * OPS_COSF + 2 + 3 + 6
 WS_F0_FLT = 7 + OPS_COSF + 2  # K4's f0 term in the evaluate form
 # per basis function and evaluation: K5's phase (2), cosf, amp * cos and
 # the sum (2); K4's 2 phases (4), 2 cosf, 4 divides by 2 pi (a product and
@@ -147,19 +145,42 @@ K5_BYTES_RAY, K4_BYTES_RAY = 8 + 24 + 8 + 9 + 32, 8 + 24 + 8 + 32
 
 
 def ws_work(name, n, rays, rays_eval, steps, refined):
-    """(bytes, integer ops, float ops) of K5 or K4 (`name`) over `rays`
-    rays of n basis functions that took `steps` march steps or iterations
-    in all, `rays_eval` of them evaluating their end point and `refined` of
-    them (K5) refining a crossing: one synthesis per ray, a second for
-    each end point."""
-    n_int = n * WS_SYNTH_INT * (rays + rays_eval)
-    n_flt = (n * (WS_SYNTH_FLT + WS_HOIST_FLT) * rays
-             + n * (WS_SYNTH_FLT + WS_EVAL_FLT) * rays_eval)
+    """(bytes, {class: instructions}) of K5 or K4 (`name`) over `rays` rays
+    of n basis functions that took `steps` march steps or iterations in
+    all, `rays_eval` of them evaluating their end point and `refined` of
+    them (K5) refining a crossing: one synthesis of the basis per ray (the
+    function needs no second one: the end point's phase is the held
+    a + slope t, its gradient needs omega), all ops counted as issued."""
+    ops = (n * (WS_SYNTH_INT + WS_SYNTH_FLT + WS_HOIST_FLT) * rays
+           + n * WS_EVAL_FLT * rays_eval)
     if name == "K5":  # f0, the steps and 6 Illinois steps per crossing
-        n_flt += n * K5_FLT_STEP * (rays + steps + 6 * refined)
-        return K5_BYTES_RAY * rays, n_int, n_flt
-    n_flt += n * (WS_F0_FLT * rays + K4_FLT_STEP * steps)
-    return K4_BYTES_RAY * rays, n_int, n_flt
+        ops += n * K5_FLT_STEP * (rays + steps + 6 * refined)
+        return K5_BYTES_RAY * rays, {"issue": ops}
+    ops += n * (WS_F0_FLT * rays + K4_FLT_STEP * steps)
+    return K4_BYTES_RAY * rays, {"issue": ops}
+
+
+def lattice_pipes(sass, noise3d, noise1d):
+    """{kernel: (bytes, {class: instructions}) per point} of K1, K2 and K3
+    at K = 3 impulses per cell (every scene's), from the SASS of the
+    libraries just built (K3's K = 3 kernel)."""
+    from tungsten_tpu_torch.kernels.nvcc import compile_library, sass_listing
+    l3 = sass_listing(compile_library(noise3d.SOURCE)[0])
+    l1 = sass_listing(compile_library(noise1d.SOURCE)[0])
+    K = 3
+    return {
+        "K1": (20, sass.lattice_counts(l3, "noise3d_sum_s_kernel", 27 * K,
+                                       LONG_3D * K, cells=27)),
+        "K2": (28, sass.lattice_counts(l3, "noise3d_sum_kernel", 27 * K,
+                                       LONG_3D * K, cells=27)),
+        "K3": (12, sass.lattice_counts(l1, "noise1d_sum_kernelILi3", 1,
+                                       LONG_1D * K))}
+
+
+def per_points(work, n):
+    """(bytes, {class: instructions}) of a lattice kernel on n points."""
+    n_bytes, counts = work
+    return n_bytes * n, {c: v * n for c, v in counts.items()}
 
 
 def phase(name):
@@ -215,18 +236,26 @@ def kernel_device_ms(fn, kernel, reps=20, tries=3):
     raise RuntimeError(f"the profiler saw no device time for {kernel}")
 
 
-def bound_ms(n_bytes, n_int, n_flt):
-    """(least time in ms for the bytes and the integer and float
-    operations, "bytes" or "operations", the class that bounds it): the
-    largest of bytes over HBM's rate, integer ops over the INT32 lanes'
-    rate, float ops over the FP32 lanes' and all ops over the issue rate
-    (one instruction per lane and cycle)."""
-    times = {"bytes": n_bytes / PEAK_BYTES, "integer": n_int / PEAK_INT,
-             "float": n_flt / PEAK_FLOAT,
-             "issue": (n_int + n_flt) / PEAK_FLOAT}
+def bound_ms(n_bytes, counts):
+    """(least time in ms, "bytes" or "operations", the class that bounds
+    it) for n_bytes of device memory traffic and {class: instructions}:
+    the largest of bytes over HBM's rate and each class's instructions over
+    its rate on all SMs (SM_RATES)."""
+    from tungsten_tpu_torch.kernels.sass import SM_RATES
+    times = {"bytes": n_bytes / PEAK_BYTES}
+    for cls, n in counts.items():
+        times[cls] = n / (SM_RATES[cls] * SMS * CLOCK)
     cls = max(times, key=times.get)
     return (times[cls] * 1e3, "bytes" if cls == "bytes" else "operations",
             cls)
+
+
+def check_bound(what, ms, b_ms):
+    """A measured time below its lower bound means the counts behind the
+    bound are wrong: fail."""
+    if ms < b_ms:
+        raise RuntimeError(f"{what}: {ms:.4f} ms measured is below its bound "
+                           f"{b_ms:.4f} ms; the bound's counts are wrong")
 
 
 def buckets(img, b=8):
@@ -360,6 +389,7 @@ def ws_kernel_checks(wst, med, dev, card_line):
                 t_p = median_ms(lambda: twin(*args), reps=3)
                 b_ms, b_by, b_cls = bound_ms(*ws_work(
                     name, n, R, R, steps, hits if name == "K5" else 0))
+                check_bound(f"{name} R={R}", t_k, b_ms)
                 print(f"{name} R={R}: twin {t_p:.4f} ms per search (median "
                       f"of 3); bound {b_ms:.4f} ms ({b_cls}), the kernel at "
                       f"{b_ms / t_k:.3f} of it", flush=True)
@@ -468,7 +498,7 @@ def check_image(img, what, shape=(128, 128, 3)):
     return lum
 
 
-def k3_checks(noise1d, dev, card_line):
+def k3_checks(noise1d, work, dev, card_line):
     """K3 against its twin at K3_POINTS random iso-ray coordinates (both
     signs, many cells) and seeds; returns (max |diff|, {N: (kernel device
     ms, twin ms, bound ms, bound_by)}).  The seeds are int32 words, as
@@ -496,9 +526,8 @@ def k3_checks(noise1d, dev, card_line):
         t_k = kernel_device_ms(lambda: noise1d.noise1d_sum(pk, sk, kr, K),
                                "noise1d_sum_kernel")
         t_p = median_ms(lambda: noise1d.noise1d_sum_ref(pk, sk, kr, K))
-        b_ms, b_by, b_cls = bound_ms(
-            12 * n, n * 3 * (K3_INT_CELL + K * K3_INT_IMPULSE),
-            n * 3 * (K3_FLT_CELL + K * K3_FLT_IMPULSE))
+        b_ms, b_by, b_cls = bound_ms(*per_points(work, n))
+        check_bound(f"K3 N={n}", t_k, b_ms)
         times[n] = (t_k, t_p, b_ms, b_by, b_cls)
         print(f"K3 K={K} N={n}: max |kernel - twin| = {err:.3e} (atol "
               f"{K3_ATOL}); kernel {t_k:.4f} ms of device time (mean of 20, "
@@ -538,7 +567,7 @@ def k2_inputs(base, n, dev):
     return tuple(torch.from_numpy(x).to(dev) for x in (p, seed, kr, qm))
 
 
-def k2_checks(noise3d, base, dev, card_line):
+def k2_checks(noise3d, base, work, dev, card_line):
     """K2 against its twin at K2_POINTS points (K = 1 and 3); returns
     (max |diff|, {N: (kernel device ms, twin ms, bound ms, bound_by)} at
     the hero's K = 3)."""
@@ -565,9 +594,8 @@ def k2_checks(noise3d, base, dev, card_line):
         t_k = kernel_device_ms(lambda: noise3d.noise3d_sum(*args, K),
                                "noise3d_sum_kernel")
         t_p = median_ms(lambda: noise3d.noise3d_sum_ref(*args, K))
-        b_ms, b_by, b_cls = bound_ms(
-            28 * n, n * 27 * (K1_INT_CELL + K * K1_INT_IMPULSE),
-            n * (K2_FLT_POINT + 27 * (K1_FLT_CELL + K * K2_FLT_IMPULSE)))
+        b_ms, b_by, b_cls = bound_ms(*per_points(work, n))
+        check_bound(f"K2 N={n}", t_k, b_ms)
         times[n] = (t_k, t_p, b_ms, b_by, b_cls)
         print(f"K2 K={K} N={n}: kernel {t_k:.4f} ms of device time (mean of "
               f"20, torch.profiler), wrapper call {t_w:.4f} ms and twin "
@@ -595,7 +623,7 @@ def profile_table(prof, name):
     return os.path.relpath(path, ROOT)
 
 
-def profile(trender, noise3d, wst, searches, scene, ws_scene,
+def profile(trender, noise3d, wst, searches, lattice, scene, ws_scene,
             ws_trace_scene, dev, card_line):
     """Where the 128x128 renders' time goes; see the module docstring."""
     from torch.autograd import DeviceType
@@ -646,9 +674,7 @@ def profile(trender, noise3d, wst, searches, scene, ws_scene,
     events = prof.key_averages()
     dev_ms, k1_ms = device_ms(events), device_ms(events,
                                                  "noise3d_sum_s_kernel")
-    b_ms, _, b_cls = bound_ms(
-        20 * points[0], points[0] * 27 * (K1_INT_CELL + 3 * K1_INT_IMPULSE),
-        points[0] * 27 * (K1_FLT_CELL + 3 * K1_FLT_IMPULSE))
+    b_ms, _, b_cls = bound_ms(*per_points(lattice["K1"], points[0]))
     n_launch, launch_ms = launches(events)
     table = profile_table(prof, "profile_16spp.txt")
     print(f"config 1, 16 spp under torch.profiler: wall {wall * 1e3:.1f} ms,"
@@ -660,6 +686,7 @@ def profile(trender, noise3d, wst, searches, scene, ws_scene,
           f"{table}", flush=True)
     if dev_ms <= 0 or k1_ms <= 0:
         raise RuntimeError("the profiler saw no device time for config 1")
+    check_bound("K1 over config 1's render", k1_ms, b_ms)
 
     for what, sc, name, kernel, counter in (
             ("config 4a", ws_scene, "K5", "ws_march_kernel",
@@ -704,6 +731,7 @@ def profile(trender, noise3d, wst, searches, scene, ws_scene,
               f"{table}", flush=True)
         if dev_ms <= 0 or k_ms <= 0:
             raise RuntimeError(f"the profiler saw no device time for {what}")
+        check_bound(f"{name} over the {what} render", k_ms, b_ms)
 
 
 def ws_kernel_parts(searches, med, dev, card_line):
@@ -724,69 +752,80 @@ def ws_kernel_parts(searches, med, dev, card_line):
                   f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
 
 
-def ws_before_after(trender, wst, searches, scenes, dev, card_line):
-    """Config 4a at 128x128 and 8 spp, both step sizes, through the
-    one-launch kernels ("after") and through their plain twins ("before"),
-    which keep the earlier design's structure: each realization made as
-    [R, n] tensors in the profiler range "ws_realization", and one host
-    sync per 32-step or 16-iteration chunk of the search (the twins' chunks
+# What config 4a's 8-spp render cost through the earlier design (kernels
+# over [R, n] realizations made by int64 hash glue, one dispatch and host
+# sync per chunk), as PERF.md records it from runs of this script on an
+# NVIDIA H100 80GB HBM3 at 700 W
+WS_BEFORE = {
+    "K5": "29 K5 launches, 114 host syncs, ws_realization 0.763 of 865.2 ms "
+          "of device time, peak 6.95 GiB (PERF.md)",
+    "K4": "122 K4 launches, 899.0 ms of device time (PERF.md; host syncs "
+          "and the range's share not recorded)"}
+
+
+def ws_realization_runs(trender, wst, searches, scenes, dev, card_line,
+                        twins=False):
+    """Config 4a at 128x128 and 8 spp, both step sizes, each under
+    torch.profiler: prints the render's host syncs, the device time and
+    share of the profiler range "ws_realization", peak device memory, and
+    searches and launches.  Through the one-launch kernels it fails unless
+    the range holds no time, peak memory stays below WS_OLD_PEAK_GIB, and
+    each search was one launch with no host sync; beside it stand the
+    earlier design's recorded numbers (WS_BEFORE).  With `twins`, the
+    renders go through the plain twins instead, which keep the earlier
+    design's structure (each realization made as [R, n] tensors inside the
+    range, one host sync per 32-step or 16-iteration chunk; their chunks
     are plain PyTorch, so their device time and peak memory exceed the
-    earlier kernels').  Prints each render's host syncs, the range's device
-    time and share, peak device memory, and searches and launches; fails
-    unless "after" has no time in the range, peak memory below
-    WS_OLD_PEAK_GIB, and one launch and no host sync per search."""
+    earlier kernels')."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     for (what, sc), name in zip(scenes, WS_FNS):
         fn = WS_FNS[name]
-        for mode in ("before", "after"):
-            wrapped = getattr(wst, fn)
-            if mode == "before":
-                setattr(wst, fn, getattr(wst, fn + "_ref"))
-            searches.reset()
-            wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            try:
-                with torch.profiler.profile(activities=[
-                        ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    syncs = host_syncs(lambda: trender.render(sc, 8,
-                                                              device=dev))
-            finally:
-                setattr(wst, fn, wrapped)
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            events = prof.key_averages()
-            dev_ms = sum(e.self_device_time_total for e in events
-                         if e.device_type == DeviceType.CUDA
-                         and not getattr(e, "is_user_annotation", False)) / 1e3
-            synth_ms = sum(e.device_time_total for e in events
-                           if e.key == "ws_realization"
-                           and e.device_type == DeviceType.CPU) / 1e3
-            label = ("before: the plain twins' [R, n] synthesis and chunk loop"
-                     if mode == "before" else "after: one K5/K4 launch per "
-                     "search")
-            print(f"{what}, 8 spp, {label}: host syncs {syncs}; "
-                  f"ws_realization {synth_ms:.1f} ms of device time "
-                  f"({synth_ms / max(dev_ms, 1e-9):.3f} of {dev_ms:.1f} ms); "
-                  f"peak device memory {peak:.2f} GiB ({card_line})",
-                  flush=True)
-            if mode == "after":
-                searches.check(name, f"{what}, after")
-                if synth_ms > 0 or peak >= WS_OLD_PEAK_GIB:
-                    raise RuntimeError(f"{what} still synthesises [R, n] "
-                                       "realizations on the card")
+        wrapped = getattr(wst, fn)
+        if twins:
+            setattr(wst, fn, getattr(wst, fn + "_ref"))
+        searches.reset()
+        wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with torch.profiler.profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                syncs = host_syncs(lambda: trender.render(sc, 8, device=dev))
+        finally:
+            setattr(wst, fn, wrapped)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        events = prof.key_averages()
+        dev_ms = sum(e.self_device_time_total for e in events
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)) / 1e3
+        synth_ms = sum(e.device_time_total for e in events
+                       if e.key == "ws_realization"
+                       and e.device_type == DeviceType.CPU) / 1e3
+        label = ("the plain twins' [R, n] synthesis and chunk loop" if twins
+                 else "one K5/K4 launch per search")
+        print(f"{what}, 8 spp, {label}: host syncs {syncs}; "
+              f"ws_realization {synth_ms:.1f} ms of device time "
+              f"({synth_ms / max(dev_ms, 1e-9):.3f} of {dev_ms:.1f} ms); "
+              f"peak device memory {peak:.2f} GiB ({card_line})", flush=True)
+        if twins:
+            continue
+        print(f"{what}, 8 spp, the earlier design as recorded: "
+              f"{WS_BEFORE[name]}", flush=True)
+        searches.check(name, what)
+        if synth_ms > 0 or peak >= WS_OLD_PEAK_GIB:
+            raise RuntimeError(f"{what} still synthesises [R, n] "
+                               "realizations on the card")
 
 
 def profile_render(trender, what, scene, spp, mod, counter, kernel, label,
-                   table_name, dev, card_line, wrapper, bytes_pt, int_pt,
-                   flt_pt):
+                   table_name, dev, card_line, wrapper, work):
     """Where a 128x128 render spends its time: walls and launches of the
     kernel (counted by mod.<counter>) of two runs, host syncs of a third,
     and one run under torch.profiler (op table in chiprun_out/), with the
     kernel's bound over that run: the points its wrapper mod.<wrapper> was
-    called on, at bytes_pt bytes, int_pt integer and flt_pt float
-    operations each."""
+    called on, each with the bytes and instructions of `work`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     walls, counts = [], []
@@ -814,8 +853,7 @@ def profile_render(trender, what, scene, spp, mod, counter, kernel, label,
     finally:
         setattr(mod, wrapper, fn)
     n_k = getattr(mod, counter)
-    b_ms, _, b_cls = bound_ms(points[0] * bytes_pt, points[0] * int_pt,
-                              points[0] * flt_pt)
+    b_ms, _, b_cls = bound_ms(*per_points(work, points[0]))
     events = prof.key_averages()
     kern = [e for e in events if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
@@ -841,6 +879,7 @@ def profile_render(trender, what, scene, spp, mod, counter, kernel, label,
           + f"; table in {table}", flush=True)
     if dev_ms <= 0 or k_ms <= 0:
         raise RuntimeError(f"the profiler saw no device time for {what}")
+    check_bound(f"{label} over the {what} render", k_ms, b_ms)
 
 
 def main():
@@ -858,7 +897,7 @@ def main():
     sys.path.insert(0, ROOT)
     from tungsten_tpu_torch import render as trender
     from tungsten_tpu_torch.io.image import read_pfm
-    from tungsten_tpu_torch.kernels import noise1d, noise3d
+    from tungsten_tpu_torch.kernels import noise1d, noise3d, sass
     from tungsten_tpu_torch.kernels import ws_trace as wst
     from tungsten_tpu_torch.scene.parse import load_scene, scene_from_dict
     dev = torch.device("cuda")
@@ -885,6 +924,11 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("  ptxas:", line.strip())
+    lattice = lattice_pipes(sass, noise3d, noise1d)
+    for name, (n_bytes, counts) in lattice.items():
+        print(f"{name} per point at K = 3, from its SASS: {n_bytes} bytes; "
+              + ", ".join(f"{c} {v:.1f}" for c, v in counts.items()),
+              flush=True)
     done(t0)
 
     phase("K1 against its plain twin")
@@ -913,6 +957,8 @@ def main():
         if err > K1_ATOL:
             raise RuntimeError(f"K1 disagrees with its twin: {err}")
     K = scene.media[0].cfg.impulse_count
+    if K != 3:
+        raise RuntimeError(f"config 1 has K = {K}; K1's SASS counts K = 3")
     k1_times = {}
     for n in (16384, 65536, 131072, K1_MAIN_POINTS, TWIN_POINTS):
         pk, sk = p[:n].contiguous(), seed[:n].contiguous()
@@ -924,9 +970,8 @@ def main():
             raise RuntimeError(f"K1 disagrees with its twin at N={n}: {err}")
         t_k = median_ms(lambda: noise3d.noise3d_sum_s(pk, sk, kr, m6, K))
         t_p = median_ms(lambda: noise3d.noise3d_sum_s_ref(pk, sk, kr, m6, K))
-        b_ms, b_by, b_cls = bound_ms(
-            20 * n, n * 27 * (K1_INT_CELL + K * K1_INT_IMPULSE),
-            n * 27 * (K1_FLT_CELL + K * K1_FLT_IMPULSE))
+        b_ms, b_by, b_cls = bound_ms(*per_points(lattice["K1"], n))
+        check_bound(f"K1 N={n}", t_k, b_ms)
         k1_times[n] = (t_k, t_p, b_ms, b_by, b_cls)
         print(f"K={K} N={n}: kernel {t_k:.4f} ms, twin {t_p:.4f} ms "
               f"(median of 20, CUDA events; {card_line}); bound "
@@ -937,12 +982,13 @@ def main():
     phase("K2 against its plain twin (the hero's levels)")
     t0 = time.perf_counter()
     hero_base = load_scene(HERO_SCENE, device=dev)[0].media[0].gp.cov.base
-    k2_err, k2_times = k2_checks(noise3d, hero_base, dev, card_line)
+    k2_err, k2_times = k2_checks(noise3d, hero_base, lattice["K2"], dev,
+                                 card_line)
     done(t0)
 
     phase("K3 against its plain twin")
     t0 = time.perf_counter()
-    k3_err, k3_times = k3_checks(noise1d, dev, card_line)
+    k3_err, k3_times = k3_checks(noise1d, lattice["K3"], dev, card_line)
     done(t0)
 
     phase("K5 and K4 against their plain twins (config 4a rays, n=1024)")
@@ -1006,13 +1052,15 @@ def main():
         done(t0)
 
         phase("config 4a (128x128, 8 spp, both step sizes): host syncs, "
-              "realization synthesis and peak memory before and after")
+              "realization synthesis and peak memory")
         t0 = time.perf_counter()
-        ws_before_after(trender, wst, searches, (
+        ws_scenes = (
             ("config 4a", load_scene(WS_SCENE, res_override=(128, 128),
                                      device=dev)[0]),
             ("config 4a, step_size 0", scene_from_dict(
-                ws_doc(0.0, (128, 128)), device=dev)[0])), dev, card_line)
+                ws_doc(0.0, (128, 128)), device=dev)[0]))
+        ws_realization_runs(trender, wst, searches, ws_scenes, dev,
+                            card_line)
         done(t0)
 
         m1d = {}
@@ -1111,21 +1159,19 @@ def main():
     if args.profile:
         phase("profile (128x128)")
         t0 = time.perf_counter()
-        profile(trender, noise3d, wst, searches, scene128, ws128,
+        profile(trender, noise3d, wst, searches, lattice, scene128, ws128,
                 scene_from_dict(ws_doc(0.0), device=dev)[0], dev, card_line)
         ws_kernel_parts(searches, ws_scene_full.media[0], dev, card_line)
+        ws_realization_runs(trender, wst, searches, ws_scenes, dev,
+                            card_line, twins=True)
         profile_render(trender, "config 3", m1d128, 16, noise1d, "LAUNCHES",
                        "noise1d_sum_kernel", "K3",
                        "profile_mirror1d_16spp.txt", dev, card_line,
-                       "noise1d_sum", 12,
-                       3 * (K3_INT_CELL + 3 * K3_INT_IMPULSE),
-                       3 * (K3_FLT_CELL + 3 * K3_FLT_IMPULSE))
+                       "noise1d_sum", lattice["K3"])
         profile_render(trender, "config 5", hero128, 16, noise3d,
                        "K2_LAUNCHES", "noise3d_sum_kernel", "K2",
                        "profile_hero_16spp.txt", dev, card_line,
-                       "noise3d_sum", 28,
-                       27 * (K1_INT_CELL + 3 * K1_INT_IMPULSE),
-                       K2_FLT_POINT + 27 * (K1_FLT_CELL + 3 * K2_FLT_IMPULSE))
+                       "noise3d_sum", lattice["K2"])
         check_k3_points(noise1d, "the profiled renders")
         check_k2_points(noise3d, "the profiled renders")
         done(t0)

@@ -10,11 +10,11 @@ machine that has only PyTorch:
 Tolerances: K1 and K2 vs twin atol 1e-5 (a raw sum of at most 81
 unit-bounded fp32 terms; K1 measured 0 on an H100); K3 vs twin atol 1e-5
 (at most 9 such terms).  K5/K4 vs twin, one whole search of 4096 rays of
-config 4a at n = 1024 (the register tile) and n = 1100 (beyond it): hit,
-sign0 or the step count differ on at most 0.1% of rays (the warp sums add
-in another order than the twin's, so a value within rounding of 0 may
-decide otherwise), and t, the value and the gradient of the other rays
-within 1e-5 * (1 + |twin|).  GPU vs CPU render
+config 4a at n = 1024 (the shared-memory tile) and n = 1100 (beyond it):
+hit, sign0 or the step count differ on at most 0.1% of rays (the warp
+sums add in another order than the twin's, so a value within rounding of
+0 may decide otherwise), and t, the value and the gradient of the other
+rays within 1e-5 * (1 + |twin|).  GPU vs CPU render
 at 8x8, 1 spp: at least 97% of pixels within 1e-3 * (1 + |cpu|) and means
 within 1% (the elementwise math around the kernels may round differently
 on the two devices, and an ulp can flip one ray's crossing).

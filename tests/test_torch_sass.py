@@ -1,0 +1,88 @@
+"""tungsten_tpu_torch/kernels/sass.py: pipe classes of SASS instructions,
+and per-class instruction counts along the paths of a lattice kernel's
+loops, on a small hand-written listing in the form `cuobjdump -sass`
+prints.  The counts are exact integers (or their products with the given
+expected hits), so they are compared for equality."""
+import pytest
+
+from tungsten_tpu_torch.kernels import sass
+
+# One kernel: an early exit, a cell loop (header 0x30) around an impulse
+# loop (header 0x60) whose long path (0xa0, with MUFU.EX2) the branch at
+# 0x90 skips, a store, and the padding after EXIT that nothing reaches.
+LISTING = """
+        code for sm_90a
+                Function : _ZN12_GLOBAL__N_112fake_lattice_kernelEPf
+        .headerflags    @"EF_CUDA_SM90"
+        /*0000*/                   S2R R0, SR_TID.X ;           /* 0x0 */
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, 0x10, PT ;
+        /*0020*/               @P0 EXIT ;
+        /*0030*/                   MOV R1, RZ ;
+        /*0040*/                   IMAD R2, R1, 0x3, RZ ;
+        /*0050*/                   LOP3.LUT R2, R2, R1, RZ, 0x3c, !PT ;
+        /*0060*/                   IADD3 R3, RZ, RZ, RZ ;
+        /*0070*/                   FADD R4, R4, 1 ;
+        /*0080*/                   FSETP.GEU.AND P1, PT, R4, 1, PT ;
+        /*0090*/               @P1 BRA 0xd0 ;
+        /*00a0*/                   IMAD R5, R3, 0x2, RZ ;
+        /*00b0*/                   MUFU.EX2 R6, R4 ;
+        /*00c0*/                   FMUL R7, R6, R5 ;
+        /*00d0*/                   IADD3 R3, R3, 0x1, RZ ;
+        /*00e0*/                   ISETP.GE.AND P2, PT, R3, 0x3, PT ;
+        /*00f0*/              @!P2 BRA 0x60 ;
+        /*0100*/                   IADD3 R1, R1, 0x1, RZ ;
+        /*0110*/                   ISETP.GE.AND P3, PT, R1, 0x3, PT ;
+        /*0120*/              @!P3 BRA 0x30 ;
+        /*0130*/                   STG.E desc[UR6][R8.64], R7 ;
+        /*0140*/                   EXIT ;
+        /*0150*/                   BRA 0x150;
+        /*0160*/                   NOP;
+"""
+
+
+@pytest.mark.parametrize("op,classes", [
+    ("FFMA.SAT", ("issue", "fma")),
+    ("FMUL", ("issue", "fma")),
+    ("IMAD.MOV.U32", ("issue", "fma", "fmaheavy")),
+    ("LOP3.LUT", ("issue", "alu")),
+    ("SHF.L.W.U32.HI", ("issue", "alu")),
+    ("I2FP.F32.U32", ("issue",)),
+    ("I2F.U32", ("issue", "xu")),
+    ("MUFU.EX2", ("issue", "xu")),
+    ("VIADD", ("issue",)),
+    ("NOP", ()),
+])
+def test_pipes(op, classes):
+    assert sass.pipes(op) == classes
+
+
+def test_cfg_loops():
+    instrs = sass.parse(LISTING)["_ZN12_GLOBAL__N_112fake_lattice_kernelEPf"]
+    assert len(instrs) == 23
+    cfg = sass.Cfg(instrs)
+    assert 0x150 not in cfg.blocks  # padding after EXIT
+    assert {h: (sorted(b), sorted(l)) for h, (b, l) in cfg.loops.items()} == {
+        0x30: ([0x30, 0x60, 0xa0, 0xd0, 0x100], [0x100]),
+        0x60: ([0x60, 0xa0, 0xd0], [0xd0])}
+    assert cfg.parent(0x60) == 0x30
+    assert cfg.innermost("MUFU.EX2") == [0x60]
+
+
+def test_lattice_counts_with_cells():
+    # per impulse, short path 0x60 + 0xd0: issue 7, fma 1, alu 4; the long
+    # path adds 0xa0: issue 3, fma 2, fmaheavy 1, xu 1; per cell, 0x30 and
+    # 0x100: issue 6, fma 1, fmaheavy 1, alu 3
+    got = sass.lattice_counts(LISTING, "fake_lattice", 6, 2.5, cells=2)
+    assert got == {"issue": 6 * 7 + 2.5 * 3 + 2 * 6, "fma": 6 + 5.0 + 2,
+                   "fmaheavy": 2.5 + 2, "alu": 6 * 4 + 2 * 3, "xu": 2.5}
+
+
+def test_lattice_counts_one_iteration_per_point():
+    got = sass.lattice_counts(LISTING, "fake_lattice", 1, 2.0)
+    assert got == {"issue": 7 + 6.0, "fma": 1 + 4.0, "fmaheavy": 2.0,
+                   "alu": 4 + 0.0, "xu": 2.0}
+
+
+def test_lattice_counts_unknown_kernel():
+    with pytest.raises(ValueError):
+        sass.lattice_counts(LISTING, "no_such_kernel", 1, 1.0)

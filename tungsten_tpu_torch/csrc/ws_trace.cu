@@ -43,14 +43,14 @@
 // Design: one warp per ray; warps take rays from a counter, so a warp whose
 // ray ends early starts the next instead of idling beside a long one, and
 // the grid holds as many 64-thread blocks as the card runs at once.  Lane j
-// synthesises basis functions j, j+32, ... and keeps the first T of them
-// (T = 2, 8 or 32 by n) as (a, slope, amp) in its column of shared memory
-// for the whole search: 12 KB a warp at n = 1024, ~60 registers a lane.
+// synthesises basis functions j, j+32, ... and keeps the first kTile = 32
+// of them as (a, slope, amp) in its column of shared memory for the whole
+// search: 12 KB a warp at n = 1024, ~60 registers a lane.
 // (Holding them in registers instead, 96 a lane, needs the step's 32 terms
 // unrolled, each with a precise cosf and its slow path inline; on the H100
-// that ran 3.8-4.9x slower than this tile, see PERF.md.)  Basis functions past
-// 32 T (n > 1024) are synthesised again at every evaluation, which is
-// correct and slower.  Padding entries (j >= n) hold amp = a = slope = 0 and
+// that ran 3.8-4.9x slower than this tile, see PERF.md.)  Basis functions
+// past 32 kTile (n > 1024) are synthesised again at every evaluation, which
+// is correct and slower.  Padding entries (j >= n) hold amp = a = slope = 0 and
 // add an exact 0.  A __shfl_xor_sync butterfly sums the lanes, so every lane
 // holds the same bits and the warp takes one branch; the step loop, the
 // refinement and the evaluation run without leaving the kernel.  Precise
@@ -66,6 +66,9 @@ namespace {
 
 constexpr int kLanes = 32;  // lanes per ray: one warp
 constexpr int kWarpsPerBlock = 2;
+// basis functions a lane keeps in the tile: kLanes * kTile = 1024 a warp;
+// any smaller n pads with entries that add an exact 0
+constexpr int kTile = 32;
 constexpr float kTwoPi = 6.2831855f;  // float32(2 pi)
 constexpr float kPi = 3.1415927f;     // float32(pi)
 constexpr float kInvTwoPi = 1.0f / kTwoPi;  // rounded to nearest
@@ -208,20 +211,19 @@ __device__ __forceinline__ float mean_point(bool spherical, float px, float py,
 }
 
 // This lane's share of sum_i amp_i cos(a_i + slope_i t): the tile (this
-// lane's column: a, slope and amp of T functions, kLanes floats apart),
+// lane's column: a, slope and amp of kTile functions, kLanes floats apart),
 // then the basis functions past it, synthesised again.
-template <int T>
 __device__ __forceinline__ float lane_sum(const float* __restrict__ tile,
                                           float t, const Ray& ray, int n,
                                           int lane,
                                           const float* __restrict__ prm) {
   float acc = 0.0f;
 #pragma unroll 2
-  for (int i = 0; i < T; ++i) {
+  for (int i = 0; i < kTile; ++i) {
     const float* c = tile + i * kLanes;
-    acc += c[2 * T * kLanes] * cosf(c[0] + c[T * kLanes] * t);
+    acc += c[2 * kTile * kLanes] * cosf(c[0] + c[kTile * kLanes] * t);
   }
-  for (int j = lane + kLanes * T; j < n; j += kLanes) {
+  for (int j = lane + kLanes * kTile; j < n; j += kLanes) {
     float a, s, m;
     hoist(synth(ray, (uint32_t)j, prm), ray, prm, a, s, m);
     acc += m * cosf(a + s * t);
@@ -230,13 +232,12 @@ __device__ __forceinline__ float lane_sum(const float* __restrict__ tile,
 }
 
 // f at t along the ray, in the hoisted form of the twin's value_of
-template <int T>
 __device__ __forceinline__ float value_at(const float* __restrict__ tile,
                                           float t, const Ray& ray, int n,
                                           int lane,
                                           const float* __restrict__ prm,
                                           bool spherical, float A, float B) {
-  const float nsum = warp_sum(lane_sum<T>(tile, t, ray, n, lane, prm));
+  const float nsum = warp_sum(lane_sum(tile, t, ray, n, lane, prm));
   return prm[kScale] * nsum + mean_at(spherical, A, B, t, prm);
 }
 
@@ -271,14 +272,14 @@ __device__ __forceinline__ void bound_term(float th0, float th1, float w,
 // Synthesises this lane's column of the tile; padding entries are 0.  With
 // kF0 it also returns this lane's share of sum_i w_i cos(phase_i(p)) at the
 // point p, over all n basis functions (K4's f0).
-template <int T, bool kF0>
+template <bool kF0>
 __device__ __forceinline__ float load_tile(float* __restrict__ tile,
                                            const Ray& ray, int n, int lane,
                                            const float* __restrict__ prm,
                                            float px, float py, float pz) {
   float s0 = 0.0f;
 #pragma unroll 1
-  for (int i = 0; i < T; ++i) {
+  for (int i = 0; i < kTile; ++i) {
     const int j = lane + kLanes * i;
     float a = 0.0f, s = 0.0f, m = 0.0f;
     if (j < n) {
@@ -287,11 +288,11 @@ __device__ __forceinline__ float load_tile(float* __restrict__ tile,
       hoist(b, ray, prm, a, s, m);
     }
     tile[i * kLanes] = a;
-    tile[(T + i) * kLanes] = s;
-    tile[(2 * T + i) * kLanes] = m;
+    tile[(kTile + i) * kLanes] = s;
+    tile[(2 * kTile + i) * kLanes] = m;
   }
   if (kF0)
-    for (int j = lane + kLanes * T; j < n; j += kLanes)
+    for (int j = lane + kLanes * kTile; j < n; j += kLanes)
       s0 += term_at(synth(ray, (uint32_t)j, prm), px, py, pz);
   return s0;
 }
@@ -355,7 +356,6 @@ __device__ __forceinline__ void mean_consts(const Ray& ray, const float* prm,
 }
 
 // K5's search of ray r by one warp
-template <int T>
 __device__ __forceinline__ void march_ray(
     int64_t r, int lane, float* __restrict__ tile,
     const int32_t* __restrict__ keys,
@@ -369,11 +369,11 @@ __device__ __forceinline__ void march_ray(
   const bool sph = spherical != 0;
   float A = 0.0f, B = 0.0f;
   if (sph) mean_consts(ray, prm, A, B);
-  load_tile<T, false>(tile, ray, n, lane, prm, 0.0f, 0.0f, 0.0f);
+  load_tile<false>(tile, ray, n, lane, prm, 0.0f, 0.0f, 0.0f);
 
   const float t_near = near[r], t_far = far[r], dt = step[r];
   const bool absorbs = absorb[r] != 0;
-  const float f0 = value_at<T>(tile, t_near, ray, n, lane, prm, sph, A, B);
+  const float f0 = value_at(tile, t_near, ray, n, lane, prm, sph, A, B);
   float sign0 = f0 < 0.0f ? -1.0f : 1.0f;
   const float t1 = t_near + dt * u_jitter[r];
   float k = 0.0f, t_hi = t_far, f_lo = f0, f_hi = 0.0f, f_prev = f0;
@@ -382,7 +382,7 @@ __device__ __forceinline__ void march_ray(
   for (int it = 0; it < max_steps; ++it) {
     const bool first_abs = absorbs && k < 0.5f;
     const float tc = t1 + dt * k;
-    const float f = value_at<T>(tile, tc, ray, n, lane, prm, sph, A, B);
+    const float f = value_at(tile, tc, ray, n, lane, prm, sph, A, B);
     ++steps;
     const float sgn = f < 0.0f ? -1.0f : 1.0f;
     if (first_abs) sign0 = sgn;
@@ -407,8 +407,7 @@ __device__ __forceinline__ void march_ray(
       const float mid_s = lo + flo * (hi - lo) / (tiny ? 1.0f : denom);
       const float mid =
           (tiny || mid_s <= lo || mid_s >= hi) ? 0.5f * (lo + hi) : mid_s;
-      const float fm = value_at<T>(tile, mid, ray, n, lane, prm, sph,
-                                   A, B);
+      const float fm = value_at(tile, mid, ray, n, lane, prm, sph, A, B);
       if ((fm < 0.0f ? -1.0f : 1.0f) == sign0) {
         lo = mid;
         flo = fm;
@@ -434,7 +433,6 @@ __device__ __forceinline__ void march_ray(
 }
 
 // K4's search of ray r by one warp
-template <int T>
 __device__ __forceinline__ void trace_ray(
     int64_t r, int lane, float* __restrict__ tile,
     const int32_t* __restrict__ keys,
@@ -451,7 +449,7 @@ __device__ __forceinline__ void trace_ray(
   const float px = ray.ox + t_near * ray.dx;
   const float py = ray.oy + t_near * ray.dy;
   const float pz = ray.oz + t_near * ray.dz;
-  const float s0 = load_tile<T, true>(tile, ray, n, lane, prm, px, py, pz);
+  const float s0 = load_tile<true>(tile, ray, n, lane, prm, px, py, pz);
   float mg[3];
   const float f0 = prm[kScale] * (warp_sum(s0) * prm[kSqrt2n]) +
                    mean_point(sph, px, py, pz, prm, mg);
@@ -466,12 +464,13 @@ __device__ __forceinline__ void trace_ray(
     const float t_end = t + dt;
     float acc_lo = 0.0f, acc_hi = 0.0f;
 #pragma unroll 2
-    for (int i = 0; i < T; ++i) {
+    for (int i = 0; i < kTile; ++i) {
       const float* c = tile + i * kLanes;
-      bound_term(c[0] + c[T * kLanes] * t, c[0] + c[T * kLanes] * t_end,
-                 c[2 * T * kLanes], acc_lo, acc_hi);
+      bound_term(c[0] + c[kTile * kLanes] * t,
+                 c[0] + c[kTile * kLanes] * t_end, c[2 * kTile * kLanes],
+                 acc_lo, acc_hi);
     }
-    for (int j = lane + kLanes * T; j < n; j += kLanes) {
+    for (int j = lane + kLanes * kTile; j < n; j += kLanes) {
       float a, s, m;
       hoist(synth(ray, (uint32_t)j, prm), ray, prm, a, s, m);
       bound_term(a + s * t, a + s * t_end, m, acc_lo, acc_hi);
@@ -516,7 +515,6 @@ __device__ __forceinline__ int64_t next_ray(int* __restrict__ next, int lane) {
   return __shfl_sync(0xffffffffu, r, 0);
 }
 
-template <int T>
 __global__ void __launch_bounds__(kLanes * kWarpsPerBlock)
 ws_march_kernel(int* __restrict__ next, int R,
                 const int32_t* __restrict__ keys, const float* __restrict__ ro,
@@ -527,14 +525,13 @@ ws_march_kernel(int* __restrict__ next, int R,
                 const float* __restrict__ prm, float* __restrict__ out, int n,
                 int max_steps, int spherical, int refine, int with_eval) {
   const int lane = threadIdx.x % kLanes;
-  __shared__ float tiles[kWarpsPerBlock][3 * T * kLanes];
+  __shared__ float tiles[kWarpsPerBlock][3 * kTile * kLanes];
   float* tile = tiles[threadIdx.x / kLanes] + lane;
   for (int64_t r = next_ray(next, lane); r < R; r = next_ray(next, lane))
-    march_ray<T>(r, lane, tile, keys, ro, rd, near, far, step, u_jitter, absorb,
-                 prm, out, n, max_steps, spherical, refine, with_eval);
+    march_ray(r, lane, tile, keys, ro, rd, near, far, step, u_jitter, absorb,
+              prm, out, n, max_steps, spherical, refine, with_eval);
 }
 
-template <int T>
 __global__ void __launch_bounds__(kLanes * kWarpsPerBlock)
 ws_trace_kernel(int* __restrict__ next, int R,
                 const int32_t* __restrict__ keys, const float* __restrict__ ro,
@@ -543,19 +540,11 @@ ws_trace_kernel(int* __restrict__ next, int R,
                 float* __restrict__ out, int n, int max_iters, int spherical,
                 int with_eval) {
   const int lane = threadIdx.x % kLanes;
-  __shared__ float tiles[kWarpsPerBlock][3 * T * kLanes];
+  __shared__ float tiles[kWarpsPerBlock][3 * kTile * kLanes];
   float* tile = tiles[threadIdx.x / kLanes] + lane;
   for (int64_t r = next_ray(next, lane); r < R; r = next_ray(next, lane))
-    trace_ray<T>(r, lane, tile, keys, ro, rd, near, far, prm, out, n, max_iters,
-                 spherical, with_eval);
-}
-
-// The tile that holds n basis functions per warp (32 T >= n), or 32 with
-// the rest synthesised again at every step.
-int tile_for(int n) {
-  if (n <= 2 * kLanes) return 2;
-  if (n <= 8 * kLanes) return 8;
-  return 32;
+    trace_ray(r, lane, tile, keys, ro, rd, near, far, prm, out, n, max_iters,
+              spherical, with_eval);
 }
 
 // Makes `device` current for the launch, then the caller's device again;
@@ -609,19 +598,12 @@ extern "C" int ws_march(const void* keys, const void* ro, const void* rd,
                         int with_eval, int device, void* stream) {
   return on_device(device, [&] {
     const cudaStream_t s = (cudaStream_t)stream;
-#define WS_MARCH_LAUNCH(T)                                                    \
-  launch_persistent(                                                          \
-      ws_march_kernel<T>, R, (int*)next, s, (const int32_t*)keys,             \
-      (const float*)ro, (const float*)rd, (const float*)near,                 \
-      (const float*)far, (const float*)step, (const float*)u_jitter,          \
-      (const uint8_t*)absorb, (const float*)params, (float*)out, n,           \
-      max_steps, spherical, refine, with_eval)
-    switch (tile_for(n)) {
-      case 2: return WS_MARCH_LAUNCH(2);
-      case 8: return WS_MARCH_LAUNCH(8);
-      default: return WS_MARCH_LAUNCH(32);
-    }
-#undef WS_MARCH_LAUNCH
+    return launch_persistent(
+        ws_march_kernel, R, (int*)next, s, (const int32_t*)keys,
+        (const float*)ro, (const float*)rd, (const float*)near,
+        (const float*)far, (const float*)step, (const float*)u_jitter,
+        (const uint8_t*)absorb, (const float*)params, (float*)out, n,
+        max_steps, spherical, refine, with_eval);
   });
 }
 
@@ -634,17 +616,10 @@ extern "C" int ws_trace(const void* keys, const void* ro, const void* rd,
                         void* stream) {
   return on_device(device, [&] {
     const cudaStream_t s = (cudaStream_t)stream;
-#define WS_TRACE_LAUNCH(T)                                                    \
-  launch_persistent(ws_trace_kernel<T>, R, (int*)next, s,                     \
-                    (const int32_t*)keys, (const float*)ro, (const float*)rd, \
-                    (const float*)near, (const float*)far,                    \
-                    (const float*)params, (float*)out, n, max_iters,          \
-                    spherical, with_eval)
-    switch (tile_for(n)) {
-      case 2: return WS_TRACE_LAUNCH(2);
-      case 8: return WS_TRACE_LAUNCH(8);
-      default: return WS_TRACE_LAUNCH(32);
-    }
-#undef WS_TRACE_LAUNCH
+    return launch_persistent(
+        ws_trace_kernel, R, (int*)next, s, (const int32_t*)keys,
+        (const float*)ro, (const float*)rd, (const float*)near,
+        (const float*)far, (const float*)params, (float*)out, n, max_iters,
+        spherical, with_eval);
   });
 }

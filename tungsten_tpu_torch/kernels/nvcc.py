@@ -47,3 +47,14 @@ def compile_library(source):
                            f"{res.stderr}")
     os.replace(tmp, lib)
     return lib, res.stdout + res.stderr
+
+
+def sass_listing(lib):
+    """`cuobjdump -sass` of the library `lib` (a Path), with the toolkit
+    that builds it."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: cuobjdump is needed")
+    tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
