@@ -2,13 +2,14 @@
 
 Builds the port's CUDA kernels from tungsten_tpu_torch/csrc/ (one nvcc per
 source, all started together) and holds each against its plain PyTorch
-twin on the card: K1 and K2 (noise3d.cu), K3 (noise1d.cu) and K5/K4
-(ws_trace.cu, one whole weight-space search per launch).  Each kernel's
-bound is the largest of its bytes over HBM's rate and its instructions
-per pipe class over that class's rate (K1-K3: counted from the built
-kernels' SASS; K5/K4: operations read off the source, all counted as
-issued); a measured time below its bound fails the run.  Then it drives
-the port's main paths through tungsten_tpu_torch.render, each with the
+twin on the card: K1, its backward K1b and K2 (noise3d.cu), K3
+(noise1d.cu) and K5/K4 (ws_trace.cu, one whole weight-space search per
+launch).  Each kernel's bound is the largest of its bytes over HBM's rate
+and its instructions per pipe class over that class's rate (K1, K1b, K2
+and K3: counted from the built kernels' SASS; K5/K4: operations read off
+the source, all counted as issued); a measured time below its bound fails
+the run.  Then it drives the port's main paths through
+tungsten_tpu_torch.render and tungsten_tpu_torch.entry, each with the
 launch counts set to 0 just before and read just after:
 - BASELINE config 1 (scenes/gpis-sphere-box.json, sparse-conv noise, K1);
 - BASELINE config 4a (scenes/gpis-weight-space.json, weight-space RFF,
@@ -18,7 +19,12 @@ launch counts set to 0 just before and read just after:
   sparse-conv sampling with renewal+ conditioning and mirror NEE/MIS, K3);
 - BASELINE config 5, the hero (scenes/gpis-hero.json, multi-resolution
   procedural-nonstationary noise under the Global context, K2), at its own
-  1920x1080 in row bands.
+  1920x1080 in row bands;
+- config 1's hyperparameter gradient: sample_distance's d sum(t) /
+  d(sigma, l) on 32 rays against central FD and against the port on the
+  CPU, then 3 inverse-rendering steps of tungsten_tpu_torch.entry's
+  train_step at 128x128, 4 spp, depth 2 (K1 forward, K1b backward), each
+  with its loss, parameters, gradient, wall, launches and host syncs.
 It checks each image, shows that every weight-space search was one launch
 with no host sync inside, prints config 4a's host syncs, realization
 synthesis and peak memory beside the earlier design's recorded numbers,
@@ -36,7 +42,9 @@ spp, each with its launches and host syncs, and one render of each under
 torch.profiler, whose op tables it writes to OUT_DIR, with each kernel's
 bound over that render; K5/K4 timed whole and in parts; and config 4a's
 host syncs, realization synthesis and peak memory through the plain
-twins, which keep the earlier design's [R, n] structure.
+twins, which keep the earlier design's [R, n] structure; and one
+training step of config 1 under torch.profiler, with K1's and K1b's
+bounds over it.
 """
 import argparse
 import concurrent.futures
@@ -90,6 +98,20 @@ K2_ATOL = 1e-5  # raw sum of at most 81 unit-bounded terms, fp32
 K2_POINTS = (16384, 65536, 131072, 262144, 524288, 1 << 20)
 K2_LINE_POINTS = 524288
 WS_MAX_SHARE = 1e-3  # rays whose flags or decisions may differ
+# K1b against its twin up to 2^20 points; the kernels line gives the numbers
+# at the training step's launch (65,536 rays: config 1's 128x128 at 4 spp).
+# dp per point within K1B_DP_RTOL * (1 + |x|) (sums of at most 81 terms,
+# expf may differ by an ulp); the sums over points of the parameters'
+# partials (in float64) within K1B_SUM_RTOL relative.
+K1B_POINTS = (4096, 65536, 1 << 20)
+K1B_LINE_POINTS = 65536
+K1B_DP_RTOL, K1B_SUM_RTOL = 1e-5, 1e-4
+# The medium-level gradient against central FD, with the limits of the JAX
+# package's tests/test_grad_e2e.py::test_medium_level_grad_matches_fd, and
+# against the port on the CPU
+MEDIUM_EPS, MEDIUM_FD_RTOL, MEDIUM_FD_ATOL = 4e-3, 0.15, 0.5
+MEDIUM_CPU_RTOL = 1e-3
+TRAIN_STEPS = 3
 
 # Peaks of one H100 SXM at 700 W: HBM bytes/s (NVIDIA's data sheet), and
 # 132 SMs at 1.98 GHz, each issuing or executing per clock the thread-
@@ -161,9 +183,9 @@ def ws_work(name, n, rays, rays_eval, steps, refined):
 
 
 def lattice_pipes(sass, noise3d, noise1d):
-    """{kernel: (bytes, {class: instructions}) per point} of K1, K2 and K3
-    at K = 3 impulses per cell (every scene's), from the SASS of the
-    libraries just built (K3's K = 3 kernel)."""
+    """{kernel: (bytes, {class: instructions}) per point} of K1, K1b, K2
+    and K3 at K = 3 impulses per cell (every scene's), from the SASS of
+    the libraries just built (K3's K = 3 kernel)."""
     from tungsten_tpu_torch.kernels.nvcc import compile_library, sass_listing
     l3 = sass_listing(compile_library(noise3d.SOURCE)[0])
     l1 = sass_listing(compile_library(noise1d.SOURCE)[0])
@@ -171,6 +193,9 @@ def lattice_pipes(sass, noise3d, noise1d):
     return {
         "K1": (20, sass.lattice_counts(l3, "noise3d_sum_s_kernel", 27 * K,
                                        LONG_3D * K, cells=27)),
+        # p, seed and the cotangent in; dp and 4 partials out
+        "K1b": (48, sass.lattice_counts(l3, "noise3d_sum_s_bwd_kernel",
+                                        27 * K, LONG_3D * K, cells=27)),
         "K2": (28, sass.lattice_counts(l3, "noise3d_sum_kernel", 27 * K,
                                        LONG_3D * K, cells=27)),
         "K3": (12, sass.lattice_counts(l1, "noise1d_sum_kernelILi3", 1,
@@ -882,6 +907,249 @@ def profile_render(trender, what, scene, spp, mod, counter, kernel, label,
     check_bound(f"{label} over the {what} render", k_ms, b_ms)
 
 
+def k1b_inputs(n, dev, seed=5):
+    """n random points, seeds and cotangents of K1b, made with numpy."""
+    r = np.random.default_rng(seed)
+    p = torch.from_numpy(r.uniform(-3.0, 3.0, (n, 3)).astype(np.float32))
+    sd = torch.from_numpy(r.integers(0, 2 ** 32, n, dtype=np.uint64)
+                          .astype(np.int64))
+    g = torch.from_numpy(r.normal(size=n).astype(np.float32))
+    return p.to(dev), sd.to(dev), g.to(dev)
+
+
+def k1b_checks(noise3d, cov, K, work, dev, card_line):
+    """K1b against its twin at K1B_POINTS, with config 1's cell radius and
+    splat form and a random cotangent: dp within K1B_DP_RTOL * (1 + |x|)
+    per point, the sums over points of the parameters' partials within
+    K1B_SUM_RTOL relative; each size timed beside its bound, by the
+    kernel's device time (a CUDA-event window around a launch this short
+    holds mostly the wrapper's host work).  Returns (max |kernel - twin| of
+    dp, {n: (device ms, twin ms, bound ms, by, class)})."""
+    host = noise3d.host_params(cov.splat_radius(), cov.splat_form())
+    kr, m3 = host[0], host[1:]
+    err, times = 0.0, {}
+    for n in K1B_POINTS:
+        p, sd, g = k1b_inputs(n, dev)
+        dp, part = noise3d.noise3d_sum_s_bwd(p, sd, kr, m3, K, g)
+        dp_t, part_t = noise3d.noise3d_sum_s_bwd_ref(p, sd, kr, m3, K, g)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(dp).all() and torch.isfinite(part).all()):
+            raise RuntimeError("K1b returned non-finite values")
+        rel = float(((dp - dp_t).abs() / (1.0 + dp_t.abs())).max())
+        s = part.sum(dim=0, dtype=torch.float64)
+        s_t = part_t.sum(dim=0, dtype=torch.float64)
+        srel = float(((s - s_t).abs() / s_t.abs().clamp(min=1e-30)).max())
+        err = max(err, float((dp - dp_t).abs().max()))
+        if rel > K1B_DP_RTOL or srel > K1B_SUM_RTOL:
+            raise RuntimeError(f"K1b disagrees with its twin at N={n}: dp "
+                               f"{rel:.3e} of 1 + |x|, sums {srel:.3e}")
+
+        def launch():
+            return noise3d.noise3d_sum_s_bwd(p, sd, kr, m3, K, g)
+        t_w = median_ms(launch)
+        t_k = kernel_device_ms(launch, "noise3d_sum_s_bwd_kernel")
+        t_p = median_ms(lambda: noise3d.noise3d_sum_s_bwd_ref(p, sd, kr, m3,
+                                                              K, g), reps=5)
+        b_ms, b_by, b_cls = bound_ms(*per_points(work, n))
+        check_bound(f"K1b N={n}", t_k, b_ms)
+        times[n] = (t_k, t_p, b_ms, b_by, b_cls)
+        print(f"K1b K={K} N={n}: dp within {rel:.2e} * (1 + |x|) "
+              f"({K1B_DP_RTOL}), sums of the partials in (kr, m00, m11, m22)"
+              f" {[round(v, 6) for v in s.tolist()]} within {srel:.2e} "
+              f"({K1B_SUM_RTOL}); kernel {t_k:.4f} ms of device time (mean "
+              f"of 20, torch.profiler), wrapper call {t_w:.4f} ms (median of "
+              f"20) and twin {t_p:.4f} ms (median of 5; CUDA events; "
+              f"{card_line}); bound {b_ms:.4f} ms ({b_cls})", flush=True)
+    return err, times
+
+
+def medium_grad(md, convert, scene, dev):
+    """d sum(t) / d(sigma, l) of config 1's sample_distance on the 32 rays
+    of the JAX package's medium-level gradient test, over the lanes that
+    hit at every FD evaluation, and its central FD at MEDIUM_EPS: returns
+    (dsigma, dl, FD dsigma, FD dl, stable lanes)."""
+    R = 32
+    ths = np.linspace(-0.12, 0.12, R, dtype=np.float32)
+    ro = np.tile(np.array([[0.0, 1.0, 3.8]], np.float32), (R, 1))
+    rd = np.stack([np.sin(ths), np.zeros(R, np.float32) - 0.02,
+                   -np.cos(ths)], axis=-1)
+    rd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
+    pss = np.stack([np.arange(R), np.zeros(R), np.zeros(R), np.zeros(R)],
+                   axis=-1).astype(np.int64)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        ro, rd, np.full(R, 2.0, np.float32), np.full(R, 4.5, np.float32))]
+    rest = (torch.from_numpy(pss).to(dev),
+            torch.full((R,), 0.5, device=dev),
+            torch.ones(R, dtype=torch.bool, device=dev))
+
+    def crossing(sigma, l):
+        med = convert.set_params(scene, sigma, l).media[0]
+        res, _ = md.sample_distance(med, scene.scene_seed, *args,
+                                    md.MediumState.make(R, dev), *rest)
+        return res
+
+    sigma0, l0 = (float(x) for x in (scene.media[0].gp.cov.sigma,
+                                     scene.media[0].gp.cov.l))
+    eps = MEDIUM_EPS
+
+    def val(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    with torch.no_grad():
+        stable = torch.ones(R, dtype=torch.bool, device=dev)
+        for ds, dl in ((0, 0), (eps, 0), (-eps, 0), (0, eps), (0, -eps)):
+            stable &= ~crossing(val(sigma0 + ds), val(l0 + dl))["exited"]
+
+        def f(s, l):
+            return float(torch.where(stable, crossing(val(s), val(l))["t"],
+                                     0.0).sum())
+        fd_s = (f(sigma0 + eps, l0) - f(sigma0 - eps, l0)) / (2 * eps)
+        fd_l = (f(sigma0, l0 + eps) - f(sigma0, l0 - eps)) / (2 * eps)
+    sigma = val(sigma0).requires_grad_()
+    l = val(l0).requires_grad_()
+    loss = torch.where(stable, crossing(sigma, l)["t"], 0.0).sum()
+    gs, gl = torch.autograd.grad(loss, (sigma, l))
+    return float(gs), float(gl), fd_s, fd_l, stable.cpu()
+
+
+def grad_checks(md, convert, load_scene, dev):
+    """Config 1's medium-level gradient on the card against central FD and
+    against the port on the CPU."""
+    scene, _ = load_scene(SCENE, device=dev)
+    gs, gl, fd_s, fd_l, stable = medium_grad(md, convert, scene, dev)
+    cpu_scene, _ = load_scene(SCENE, device="cpu")
+    c_gs, c_gl, _, _, c_stable = medium_grad(md, convert, cpu_scene, "cpu")
+    print(f"config 1 medium-level d sum(t) / d(sigma, l) on "
+          f"{int(stable.sum())} of 32 rays: card ({gs:.5f}, {gl:.5f}), "
+          f"central FD at eps {MEDIUM_EPS} ({fd_s:.5f}, {fd_l:.5f}), CPU "
+          f"({c_gs:.5f}, {c_gl:.5f})", flush=True)
+    if not torch.equal(stable, c_stable) or int(stable.sum()) < 16:
+        raise RuntimeError("the card and the CPU disagree on the stable "
+                           "lanes, or fewer than 16 lanes are stable")
+    for what, ad, fd, cpu in (("dsigma", gs, fd_s, c_gs),
+                              ("dl", gl, fd_l, c_gl)):
+        if ad == 0.0 or abs(ad - fd) > MEDIUM_FD_ATOL + MEDIUM_FD_RTOL * abs(
+                fd):
+            raise RuntimeError(f"medium-level {what} {ad} is not within "
+                               f"rtol {MEDIUM_FD_RTOL}, atol "
+                               f"{MEDIUM_FD_ATOL} of FD {fd}")
+        if abs(ad - cpu) > MEDIUM_CPU_RTOL * abs(cpu):
+            raise RuntimeError(f"medium-level {what} on the card {ad} is not "
+                               f"within {MEDIUM_CPU_RTOL} of the CPU's {cpu}")
+
+
+def train_steps(entry, noise3d, noise1d, wst, load_scene, dev, card_line):
+    """TRAIN_STEPS steps of entry.train_step on config 1 at its own
+    128x128, 4 spp and depth 2 (one batch of 65,536 rays) against a zero
+    target, with the launch counts set to 0 just before and read just
+    after.  Returns the K1b launches."""
+    from tungsten_tpu_torch import convert
+    scene, rdoc = load_scene(SCENE, device=dev)
+    spp = int(rdoc["spp"])
+    H, W = scene.camera.res_y, scene.camera.res_x
+    if (H, W, spp, scene.max_bounces) != (128, 128, 4, 2):
+        raise RuntimeError("config 1 is no longer 128x128, 4 spp, depth 2")
+    spp_idx = torch.arange(spp, device=dev)
+    target = torch.zeros(H, W, 3, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    noise3d.LAUNCHES = noise3d.K1B_LAUNCHES = noise3d.K2_LAUNCHES = 0
+    noise1d.LAUNCHES = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
+    for step in range(TRAIN_STEPS):
+        out = []
+        k1, k1b = noise3d.LAUNCHES, noise3d.K1B_LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        syncs = host_syncs(lambda: out.append(entry.train_step(
+            scene, target, spp_idx)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sigma, l, loss, (gs, gl) = out[0]
+        print(f"step {step}: loss {float(loss):.6f}, sigma {float(sigma):.6f},"
+              f" l {float(l):.6f}, dsigma {float(gs):.6e}, dl "
+              f"{float(gl):.6e}; {wall:.3f} s, K1 launches "
+              f"{noise3d.LAUNCHES - k1}, K1b launches "
+              f"{noise3d.K1B_LAUNCHES - k1b}, host syncs {syncs} "
+              f"({card_line})", flush=True)
+        if not bool(torch.isfinite(loss)):
+            raise RuntimeError(f"step {step}: the loss is not finite")
+        if float(gs) == 0.0 or float(gl) == 0.0:
+            raise RuntimeError(f"step {step}: dsigma {float(gs)}, dl "
+                               f"{float(gl)}: the gradient chain is severed")
+        scene = convert.set_params(scene, sigma, l)
+    k1, k1b = noise3d.LAUNCHES, noise3d.K1B_LAUNCHES
+    print(f"{TRAIN_STEPS} steps: K1 launches {k1}, K1b launches {k1b}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB ({card_line})", flush=True)
+    if (k1 <= 0 or k1b <= 0 or noise3d.K2_LAUNCHES or noise1d.LAUNCHES
+            or wst.MARCH_LAUNCHES or wst.TRACE_LAUNCHES):
+        raise RuntimeError("the training steps did not go through K1 and "
+                           "K1b alone")
+    return k1b
+
+
+def profile_grad(entry, noise3d, lattice, load_scene, dev, card_line):
+    """One 128x128, 4-spp training step of config 1 under torch.profiler:
+    wall, device time and busy share, K1 and K1b device time against their
+    bounds over the points the step gave them (op table in OUT_DIR)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    scene, _ = load_scene(SCENE, device=dev)
+    spp_idx = torch.arange(4, device=dev)
+    target = torch.zeros(128, 128, 3, device=dev)
+    walls = [timed(lambda: entry.train_step(scene, target, spp_idx))
+             for _ in range(2)]
+    fns = {"K1": "noise3d_sum_s", "K1b": "noise3d_sum_s_bwd"}
+    orig = {k: getattr(noise3d, v) for k, v in fns.items()}
+    points = {k: 0 for k in fns}
+
+    def counter(k):
+        def counted(p, *rest):
+            points[k] += p.shape[0]
+            return orig[k](p, *rest)
+        return counted
+
+    for k, v in fns.items():
+        setattr(noise3d, v, counter(k))
+    try:
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = timed(lambda: entry.train_step(scene, target, spp_idx))
+    finally:
+        for k, v in fns.items():
+            setattr(noise3d, v, orig[k])
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    parts = []
+    for k, name in (("K1", "noise3d_sum_s_kernel"),
+                    ("K1b", "noise3d_sum_s_bwd_kernel")):
+        k_ms = sum(e.self_device_time_total for e in kern
+                   if name in e.key) / 1e3
+        b_ms, _, b_cls = bound_ms(*per_points(lattice[k], points[k]))
+        parts.append(f"{k} {k_ms:.2f} ms on {points[k]} points, bound "
+                     f"{b_ms:.3f} ms ({b_cls})")
+        if k_ms <= 0:
+            raise RuntimeError(f"the profiler saw no device time for {k}")
+        check_bound(f"{k} over config 1's training step", k_ms, b_ms)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    launch = [e for e in events if e.key.startswith("cudaLaunchKernel")]
+    table = profile_table(prof, "profile_grad_step.txt")
+    print(f"config 1 training step (128x128, 4 spp) under torch.profiler: "
+          f"wall {wall * 1e3:.1f} ms (unprofiled {walls[0] * 1e3:.1f}, "
+          f"{walls[1] * 1e3:.1f} ms), device {dev_ms:.1f} ms (busy "
+          f"{dev_ms / (wall * 1e3):.3f} of the profiled wall, "
+          f"{dev_ms / (min(walls) * 1e3):.3f} of the fastest unprofiled "
+          f"wall); " + "; ".join(parts) + f"; cudaLaunchKernel "
+          f"x{sum(e.count for e in launch)}, "
+          f"{sum(e.cpu_time_total for e in launch) / 1e3:.1f} ms host "
+          f"({card_line}); top kernels: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
+                      f" x{e.count}" for e in top)
+          + f"; table in {table}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -895,10 +1163,12 @@ def main():
     card_line = card()
     print(card_line, flush=True)
     sys.path.insert(0, ROOT)
+    from tungsten_tpu_torch import convert, entry
     from tungsten_tpu_torch import render as trender
     from tungsten_tpu_torch.io.image import read_pfm
     from tungsten_tpu_torch.kernels import noise1d, noise3d, sass
     from tungsten_tpu_torch.kernels import ws_trace as wst
+    from tungsten_tpu_torch.models import media as md
     from tungsten_tpu_torch.scene.parse import load_scene, scene_from_dict
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -977,6 +1247,12 @@ def main():
               f"(median of 20, CUDA events; {card_line}); bound "
               f"{b_ms:.4f} ms ({b_cls})", flush=True)
     del p, seed
+    done(t0)
+
+    phase("K1b (K1's backward) against its plain twin")
+    t0 = time.perf_counter()
+    k1b_err, k1b_times = k1b_checks(noise3d, cov, K, lattice["K1b"], dev,
+                                    card_line)
     done(t0)
 
     phase("K2 against its plain twin (the hero's levels)")
@@ -1105,6 +1381,18 @@ def main():
         check_k2_points(noise3d, "the hero")
         done(t0)
 
+    phase("config 1's medium-level gradient: card against FD and the CPU")
+    t0 = time.perf_counter()
+    grad_checks(md, convert, load_scene, dev)
+    done(t0)
+
+    phase(f"config 1's training step (128x128, 4 spp, depth 2): "
+          f"{TRAIN_STEPS} steps of entry.train_step")
+    t0 = time.perf_counter()
+    k1b_launches = train_steps(entry, noise3d, noise1d, wst, load_scene,
+                               dev, card_line)
+    done(t0)
+
     phase("timing runs (128x128)")
     t0 = time.perf_counter()
     noise1d.MOST_POINTS = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
@@ -1174,6 +1462,7 @@ def main():
                        "noise3d_sum", lattice["K2"])
         check_k3_points(noise1d, "the profiled renders")
         check_k2_points(noise3d, "the profiled renders")
+        profile_grad(entry, noise3d, lattice, load_scene, dev, card_line)
         done(t0)
 
     if "jax" in sys.modules or "tungsten_tpu" in sys.modules:
@@ -1185,6 +1474,9 @@ def main():
     for name, src, line, launched, err, (t_k, t_p, b_ms, b_by, b_cls) in (
             ("K1 noise3d_sum_s", "noise3d.cu", "sparse_conv_pallas.py:144",
              k1_launches, k1_err, k1_times[K1_MAIN_POINTS]),
+            ("K1b noise3d_sum_s_bwd", "noise3d.cu",
+             "sparse_conv_pallas.py:234 _noise3d_sum_s_bwd", k1b_launches,
+             k1b_err, k1b_times[K1B_LINE_POINTS]),
             ("K2 noise3d_sum", "noise3d.cu", "sparse_conv_pallas.py:136",
              k2_launches, k2_err, k2_times[K2_LINE_POINTS]),
             ("K3 noise1d_sum", "noise1d.cu", "sparse_conv_pallas.py:321",

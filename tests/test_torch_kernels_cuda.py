@@ -1,6 +1,7 @@
-"""Kernels K1, K2, K3, K5 and K4 on the card, against their plain PyTorch
-twins, and the config-1, config-4a, config-3 and hero renders on the card
-against the same renders on the CPU.
+"""Kernels K1, K1b, K2, K3, K5 and K4 on the card, against their plain
+PyTorch twins, the config-1, config-4a, config-3 and hero renders on the
+card against the same renders on the CPU, and config 1's training step on
+the card against the same step on the CPU.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they are
 marked `cuda` and skip without one.  They import no JAX, so they run on a
@@ -8,7 +9,12 @@ machine that has only PyTorch:
 `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py`.
 
 Tolerances: K1 and K2 vs twin atol 1e-5 (a raw sum of at most 81
-unit-bounded fp32 terms; K1 measured 0 on an H100); K3 vs twin atol 1e-5
+unit-bounded fp32 terms; K1 measured 0 on an H100); K1b vs its twin on
+the CPU: dp within rtol and atol 1e-5 per point, the per-point partials
+in (kr, m00, m11, m22) within rtol 1e-5, atol 1e-4 (the kr partial is a
+difference of sums of terms up to ~1e2 each, so the CPU's exp, an ulp
+from the card's expf, shows at ~1e-5 of them; measured 6.9e-5 at most on
+an H100), and their sums over points within 1e-4; K3 vs twin atol 1e-5
 (at most 9 such terms).  K5/K4 vs twin, one whole search of 4096 rays of
 config 4a at n = 1024 (the shared-memory tile) and n = 1100 (beyond it):
 hit, sign0 or the step count differ on at most 0.1% of rays (the warp
@@ -17,7 +23,9 @@ sums add in another order than the twin's, so a value within rounding of
 rays within 1e-5 * (1 + |twin|).  GPU vs CPU render
 at 8x8, 1 spp: at least 97% of pixels within 1e-3 * (1 + |cpu|) and means
 within 1% (the elementwise math around the kernels may round differently
-on the two devices, and an ulp can flip one ray's crossing).
+on the two devices, and an ulp can flip one ray's crossing).  The 16x16,
+1-spp training step: loss, new parameters and gradient within 1e-3
+relative of the CPU's.
 """
 import os
 
@@ -64,6 +72,51 @@ def test_k1_kernel_matches_twin_on_the_card(cuda, K):
     want = noise3d.noise3d_sum_s_ref(p, seed, kr, m6, K)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_k1b_kernel_matches_twin_on_the_card(cuda, K):
+    scene, _ = load_scene(SCENE, device="cpu")
+    cov = scene.media[0].gp.cov
+    host = noise3d.host_params(cov.splat_radius(), cov.splat_form())
+    r = np.random.default_rng(23)
+    n = (1 << 16) + 3  # a ragged tail
+    p = torch.from_numpy(r.uniform(-3.0, 3.0, (n, 3)).astype(np.float32))
+    seed = torch.from_numpy(r.integers(0, 2 ** 32, n, dtype=np.uint64)
+                            .astype(np.int64))
+    g = torch.from_numpy(r.normal(size=n).astype(np.float32))
+    before = noise3d.K1B_LAUNCHES
+    dp, part = noise3d.noise3d_sum_s_bwd(p.to(cuda), seed.to(cuda), host[0],
+                                         host[1:], K, g.to(cuda))
+    torch.cuda.synchronize()
+    assert noise3d.K1B_LAUNCHES == before + 1
+    dp_t, part_t = noise3d.noise3d_sum_s_bwd_ref(p, seed, host[0], host[1:],
+                                                 K, g)
+    np.testing.assert_allclose(dp.cpu().numpy(), dp_t.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(part.cpu().numpy(), part_t.numpy(),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(
+        part.cpu().double().sum(0).numpy(), part_t.double().sum(0).numpy(),
+        rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_goes_through_k1b_and_matches_cpu(cuda):
+    from tungsten_tpu_torch import entry
+    scene, _ = load_scene(SCENE, res_override=(16, 16), device="cpu")
+    target = torch.zeros(16, 16, 3)
+    ref = entry.train_step(scene, target, torch.arange(1))
+    noise3d.LAUNCHES = noise3d.K1B_LAUNCHES = 0
+    got = entry.train_step(trender.to_device(scene, cuda), target.to(cuda),
+                           torch.arange(1, device=cuda))
+    assert noise3d.LAUNCHES > 0 and noise3d.K1B_LAUNCHES > 0
+    for a, b in ((got[0], ref[0]), (got[1], ref[1]), (got[2], ref[2]),
+                 *zip(got[3], ref[3])):
+        assert bool(torch.isfinite(a))
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-3)
+    assert float(got[3][0]) != 0.0 and float(got[3][1]) != 0.0
 
 
 @pytest.mark.cuda

@@ -6,7 +6,10 @@ or this package's) into a flat dict keyed by dataclass field path, e.g.
 `np.asarray`, so JAX arrays convert without importing JAX), Python values
 stay as they are, and each dataclass adds a "<path>__type__" entry with its
 class name.  `scene_from_numpy(tree)` builds this package's Scene from such
-a dict, so both renderers compute from the same parameters.
+a dict, so both renderers compute from the same parameters; every tensor
+of it is a leaf of its own, which a caller may mark `requires_grad`.
+`set_params(scene, sigma, l)` puts other GP hyperparameters into a scene,
+as the JAX package's gradient checks do.
 """
 from __future__ import annotations
 
@@ -187,3 +190,13 @@ def scene_from_numpy(tree, device="cuda"):
         enable_light_sampling=tree["enable_light_sampling"],
         enable_volume_light_sampling=tree["enable_volume_light_sampling"],
         cam_medium=tree["cam_medium"], shadow_hops=tree["shadow_hops"])
+
+
+def set_params(scene, sigma, l):
+    """The scene with medium 0's covariance amplitude sigma and length
+    scale l replaced (scalar tensors, e.g. leaves that require grad): the
+    counterpart of the JAX package's `set_params` in gradcheck.py."""
+    med = scene.media[0]
+    cov = dataclasses.replace(med.gp.cov, sigma=sigma, l=l)
+    med = dataclasses.replace(med, gp=dataclasses.replace(med.gp, cov=cov))
+    return dataclasses.replace(scene, media=(med,) + tuple(scene.media[1:]))

@@ -1,4 +1,4 @@
-// K1 and K2: the raw 3D sparse-convolution noise sum.
+// K1 and K2: the raw 3D sparse-convolution noise sum; K1b: K1's backward.
 //
 // K1 (noise3d_sum_s_kernel) replaces
 // tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_scalar (launched by
@@ -10,16 +10,22 @@
 // lattice cells around p and K impulses per cell, w * exp(-q) where the
 // impulse offset and its +-1 weight come from xxhash32 counters keyed by the
 // cell, q is the splat's quadratic form (m6 at cell radius kr, times qm for
-// K2), and the sum is cut off at r^2 < 1 in cell units.
+// K2), and the sum is cut off at r^2 < 1 in cell units.  K1b
+// (noise3d_sum_s_bwd_kernel) replaces ::_noise3d_sum_s_bwd, which the JAX
+// package runs as an XLA re-trace (jax.vjp) of the same lattice sum: the
+// partials of K1's sum in p, kr and the diagonal of m6, for a diagonal
+// splat form.
 //
 // What bounds them: integer ALU.  A point costs 27 xxhash32_4 cell keys and
 // 27 * 4K xxhash32_2 variates -- about 330 hashes, thousands of 32-bit
 // integer operations -- against 20 bytes moved for K1 (12 in, 4 seed, 4
 // out) and 28 for K2 (its kr and qm).  K2 adds a per-point reciprocal and
-// 27 * K multiplies by qm.  The lever for later is data reuse: neighbouring
-// points share most of their 27 cells and all of those cells' impulses, so
-// a block could hash each cell once into shared memory instead of once per
-// point.
+// 27 * K multiplies by qm.  K1b hashes as K1 does and adds 12 float
+// operations per impulse within reach, against 48 bytes (p, seed and the
+// cotangent in; 3 + 4 partials out).  The lever for later is data reuse:
+// neighbouring points share most of their 27 cells and all of those cells'
+// impulses, so a block could hash each cell once into shared memory instead
+// of once per point.
 //
 // Design: simple and exact first.  One thread per point, 256 threads per
 // block, a masked tail and no padding; p is read as [N,3] AoS; m6 (and K1's
@@ -28,9 +34,11 @@
 // gx = px * inv_r, the cell index is (uint32)(int32)floor(g), keys are
 // hashed in (z, y, x, seed) order, variates are (h >> 8) * 2^-24, K2 scales
 // the finished quadratic form (q = qm * quad), and the sum runs dx, dy, dz,
-// k.  Built without fast math and with -fmad=false, so float rounding
-// follows the plain PyTorch twins (kernels/noise3d.py) operation for
-// operation.
+// k.  K1b accumulates its nine sums per point in registers in the same
+// order, with its loops kept rolled so that its SASS has K1's loop shape,
+// and leaves the sum over points to the caller (no atomics).  Built without
+// fast math and with -fmad=false, so float rounding follows the plain
+// PyTorch twins (kernels/noise3d.py) operation for operation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -157,9 +165,112 @@ noise3d_sum_kernel(const float* __restrict__ p,
                              m12, impulse_count);
 }
 
+// K1b: the backward of K1.  For each point it walks the same 27 cells and K
+// impulses, with the same hashes and cut-off, and accumulates each in-reach
+// term e = w exp(-q) times the splat's offset ab = kr dd (S), times ab dd
+// (T) and times ab^2 (Q), per axis.  With the diagonal form m (m01 = m02 =
+// m12 = 0, as in every ported covariance) the partials of the sum, scaled by
+// the point's cotangent g, are
+//   d/dp_i   = g (-2 m_ii S_i) kr / kr,
+//   d/dkr    = g sum_i -2 m_ii (T_i - S_i p_i / kr),
+//   d/dm_ii  = -g Q_i,
+// written as dp [N, 3] and the per-point partials [N, 4] of (kr, m00, m11,
+// m22), which the caller sums over points.
+__global__ void __launch_bounds__(256)
+noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
+                         const uint32_t* __restrict__ seed,
+                         const float* __restrict__ g, float* __restrict__ dp,
+                         float* __restrict__ part, int n, float kr, float m00,
+                         float m11, float m22, int impulse_count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float px = p[3 * i + 0];
+  const float py = p[3 * i + 1];
+  const float pz = p[3 * i + 2];
+  const uint32_t sd = seed[i];
+  const float inv_r = 1.0f / kr;
+  const float gx = px * inv_r;
+  const float gy = py * inv_r;
+  const float gz = pz * inv_r;
+  const float bx = floorf(gx);
+  const float by = floorf(gy);
+  const float bz = floorf(gz);
+  const float fx = gx - bx;
+  const float fy = gy - by;
+  const float fz = gz - bz;
+  const uint32_t ix = (uint32_t)(int32_t)bx;
+  const uint32_t iy = (uint32_t)(int32_t)by;
+  const uint32_t iz = (uint32_t)(int32_t)bz;
+
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+  float tx = 0.0f, ty = 0.0f, tz = 0.0f;
+  float qx2 = 0.0f, qy2 = 0.0f, qz2 = 0.0f;
+#pragma unroll 1
+  for (int dx = -1; dx <= 1; ++dx) {
+#pragma unroll 1
+    for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll 1
+      for (int dz = -1; dz <= 1; ++dz) {
+        const uint32_t cx = ix + (uint32_t)dx;
+        const uint32_t cy = iy + (uint32_t)dy;
+        const uint32_t cz = iz + (uint32_t)dz;
+        const uint32_t h = xxhash32_4(cz, cy, cx, sd) + 1u;
+        const float qx = fx - (float)dx;
+        const float qy = fy - (float)dy;
+        const float qz = fz - (float)dz;
+#pragma unroll 1
+        for (int k = 0; k < impulse_count; ++k) {
+          const uint32_t c = 4u * (uint32_t)k;
+          const float ux = u01(xxhash32_2(h, c));
+          const float uy = u01(xxhash32_2(h, c + 1u));
+          const float uz = u01(xxhash32_2(h, c + 2u));
+          const float ddx = qx - ux;
+          const float ddy = qy - uy;
+          const float ddz = qz - uz;
+          const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
+          if (r2 < 1.0f) {
+            const float uw = u01(xxhash32_2(h, c + 3u));
+            const float abx = kr * ddx;
+            const float aby = kr * ddy;
+            const float abz = kr * ddz;
+            const float q = m00 * abx * abx + m11 * aby * aby
+                + m22 * abz * abz;
+            const float w = uw < 0.5f ? -1.0f : 1.0f;
+            const float e = w * expf(-q);
+            const float ex = e * abx;
+            const float ey = e * aby;
+            const float ez = e * abz;
+            sx = sx + ex;
+            sy = sy + ey;
+            sz = sz + ez;
+            tx = tx + ex * ddx;
+            ty = ty + ey * ddy;
+            tz = tz + ez * ddz;
+            qx2 = qx2 + ex * abx;
+            qy2 = qy2 + ey * aby;
+            qz2 = qz2 + ez * abz;
+          }
+        }
+      }
+    }
+  }
+  const float ct = g[i];
+  const float c2x = -2.0f * m00;
+  const float c2y = -2.0f * m11;
+  const float c2z = -2.0f * m22;
+  dp[3 * i + 0] = ct * (c2x * sx) * kr * inv_r;
+  dp[3 * i + 1] = ct * (c2y * sy) * kr * inv_r;
+  dp[3 * i + 2] = ct * (c2z * sz) * kr * inv_r;
+  part[4 * i + 0] = ct * (c2x * (tx - sx * gx) + c2y * (ty - sy * gy)
+                          + c2z * (tz - sz * gz));
+  part[4 * i + 1] = -ct * qx2;
+  part[4 * i + 2] = -ct * qy2;
+  part[4 * i + 3] = -ct * qz2;
+}
+
 }  // namespace
 
-// Both launchers run their kernel on `stream` of `device`, then make the
+// The launchers run their kernel on `stream` of `device`, then make the
 // caller's current device current again; each returns the launch's
 // cudaGetLastError() as an int.
 
@@ -179,6 +290,29 @@ extern "C" int noise3d_sum_s(const void* p, const void* seed, void* out, int n,
     noise3d_sum_s_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const float*)p, (const uint32_t*)seed, (float*)out, n, kr, m00, m11,
         m22, m01, m02, m12, impulse_count);
+  }
+  err = cudaGetLastError();
+  const cudaError_t restore = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restore);
+}
+
+// K1b.
+extern "C" int noise3d_sum_s_bwd(const void* p, const void* seed,
+                                 const void* g, void* dp, void* part, int n,
+                                 float kr, float m00, float m11, float m22,
+                                 int impulse_count, int device,
+                                 void* stream) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0) {
+    const int threads = 256;
+    const int blocks = (n + threads - 1) / threads;
+    noise3d_sum_s_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)p, (const uint32_t*)seed, (const float*)g, (float*)dp,
+        (float*)part, n, kr, m00, m11, m22, impulse_count);
   }
   err = cudaGetLastError();
   const cudaError_t restore = cudaSetDevice(prev);

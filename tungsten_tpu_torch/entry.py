@@ -1,0 +1,120 @@
+"""The hyperparameter gradient of BASELINE config 1, the port's counterpart
+of the JAX package's `__graft_entry__.py`:
+`python -m tungsten_tpu_torch.entry --device cuda --steps 3`.
+
+`fwd_bwd(scene, spp_idx)` renders one pass and returns the image with
+d sum(image) / d(sigma, l) of medium 0's covariance, as `entry()` does
+there; `train_step(scene, target, spp_idx, lr)` is one step of
+`dryrun_multichip`'s inverse rendering on one device: the L2 loss of the
+pass against `target` (a mean where step_shard sums; see train_step), its
+gradient in (sigma, l), and one SGD step on them (no all-reduce: one
+device).
+The render keeps its graph only from the parameters on, by the
+detached-sampling estimator (models/integrator.py); on CUDA tensors the
+lattice sum's backward is kernel K1b.
+
+The CLI loads `scenes/gpis-sphere-box.json` at its own 128x128 (or
+`--res WxH`), 4 spp and depth (max_bounces 2), renders all samples of a
+step in one ray batch and takes `--steps` steps against a zero target,
+printing each step's loss, parameters and gradient.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+
+from . import convert
+from .models.integrator import render_pass
+from .scene.parse import check_device, load_scene
+
+SCENE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "scenes", "gpis-sphere-box.json")
+
+
+def params(scene):
+    """(sigma, l) of medium 0's covariance."""
+    cov = scene.media[0].gp.cov
+    return cov.sigma, cov.l
+
+
+def _leaves(scene):
+    """Fresh leaves holding (sigma, l), which require grad."""
+    return tuple(x.detach().clone().requires_grad_() for x in params(scene))
+
+
+def fwd_bwd(scene, spp_idx):
+    """(image [H, W, 3], (d sum(image) / d sigma, d sum(image) / d l)) of
+    one render pass at sample index spp_idx (an int or an [S] tensor)."""
+    sigma, l = _leaves(scene)
+    img = render_pass(convert.set_params(scene, sigma, l), spp_idx)
+    grads = torch.autograd.grad(img.sum(), (sigma, l))
+    return img.detach(), grads
+
+
+def train_step(scene, target, spp_idx, lr=1e-3):
+    """One SGD step on (sigma, l) against the L2 loss of a render pass:
+    returns (new sigma, new l, loss, (dsigma, dl)), the first three as the
+    JAX package's step_shard returns them.
+
+    The loss differs from step_shard's by a known factor: it is the MEAN
+    squared error of the pass's image (the mean of its samples) against
+    target [H, W, 3], where step_shard takes the SUM over its 16x16 pixels
+    at 1 spp.  At 1 spp, loss and gradient here are step_shard's divided by
+    3 * H * W (tests/test_torch_grad.py holds them so).  The mean keeps the
+    step of lr = 1e-3 small at any resolution: at 128x128 the sum's first
+    step would move sigma by hundreds of times its value."""
+    sigma, l = _leaves(scene)
+    spp = torch.as_tensor(spp_idx).reshape(-1).numel()
+    img = render_pass(convert.set_params(scene, sigma, l), spp_idx) / spp
+    loss = ((img - target) ** 2).mean()
+    gs, gl = torch.autograd.grad(loss, (sigma, l))
+    return (sigma.detach() - lr * gs, l.detach() - lr * gl, loss.detach(),
+            (gs, gl))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Inverse-rendering steps on BASELINE config 1's GP "
+                    "hyperparameters with tungsten_tpu_torch.")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--res", default=None, metavar="WxH",
+                    help="override the camera resolution (the scene's: "
+                         "128x128)")
+    args = ap.parse_args(argv)
+
+    device = check_device(args.device)
+    res = None
+    if args.res:
+        w, h = args.res.lower().split("x")
+        res = (int(w), int(h))
+    scene, rdoc = load_scene(SCENE, res_override=res, device=device)
+    spp = int(rdoc.get("spp", 4))
+    spp_idx = torch.arange(spp, device=device)
+    target = torch.zeros(scene.camera.res_y, scene.camera.res_x, 3,
+                         device=device)
+    print(f"{scene.camera.res_x}x{scene.camera.res_y}, {spp} spp in one "
+          f"batch of {scene.camera.res_x * scene.camera.res_y * spp} rays, "
+          f"max_bounces {scene.max_bounces}, on {device}", flush=True)
+    for step in range(args.steps):
+        t0 = time.perf_counter()
+        sigma, l, loss, (gs, gl) = train_step(scene, target, spp_idx)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        if not (bool(torch.isfinite(loss)) and float(gs) != 0.0
+                and float(gl) != 0.0):
+            raise RuntimeError(f"step {step}: loss {float(loss)}, dsigma "
+                               f"{float(gs)}, dl {float(gl)}: the "
+                               "hyperparameter gradient is severed")
+        print(f"step {step}: loss {float(loss):.6f} sigma {float(sigma):.6f}"
+              f" l {float(l):.6f} dsigma {float(gs):.6e} dl {float(gl):.6e}"
+              f" ({wall:.2f} s)", flush=True)
+        scene = convert.set_params(scene, sigma, l)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,19 +1,30 @@
-"""K1 and K2: the 27-cell x K-impulse sparse-convolution noise sum.
+"""K1 and K2: the 27-cell x K-impulse sparse-convolution noise sum, and
+K1b: K1's backward.
 
 `noise3d_sum_s` (K1: scalar kr, qm folded into m6) and `noise3d_sum` (K2:
 per-point kr and qm, the multi-resolution levels of a nonstationary
 covariance) wrap the CUDA kernels in csrc/noise3d.cu, the counterparts of
 tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_scalar and
-::_noise_kernel.  A CUDA tensor launches the kernel; a CPU tensor takes the
-plain twin (`noise3d_sum_s_ref`, `noise3d_sum_ref`), which computes the
-same sum with the same operations in the same order in PyTorch.
+::_noise_kernel.  `noise3d_sum_s_bwd` (K1b) wraps the kernel that takes the
+place of ::_noise3d_sum_s_bwd (the JAX package's XLA re-trace of the sum
+under jax.vjp): the partials of K1's sum in p, kr and the diagonal of a
+diagonal splat form.  A CUDA tensor launches the kernel; a CPU tensor takes
+the plain twin (`noise3d_sum_s_ref`, `noise3d_sum_ref`,
+`noise3d_sum_s_bwd_ref`), which computes the same sums with the same
+operations in the same order in PyTorch.
+
+`noise3d_sum_s_diff` is K1 under autograd: kr and the splat form's
+diagonal are tensors (read on the host once per batch, `host_params`),
+and the backward is K1b on CUDA tensors and its twin on CPU tensors.  K2
+has no backward yet and refuses inputs that require grad.
 
 The kernels are built at first use with nvcc into
 `tungsten_tpu_torch/_build/` (one shared library with a plain C interface,
 loaded with ctypes; see kernels/nvcc.py), once per content of the source,
-nvcc flags and nvcc version.  `LAUNCHES` (K1) and `K2_LAUNCHES` count
-kernel launches, so a run can show that its main path went through the
-kernel; `K2_MOST_POINTS` records the most points one K2 launch took.
+nvcc flags and nvcc version.  `LAUNCHES` (K1), `K1B_LAUNCHES` and
+`K2_LAUNCHES` count kernel launches, so a run can show that its main path
+went through the kernel; `K2_MOST_POINTS` records the most points one K2
+launch took.
 """
 from __future__ import annotations
 
@@ -28,9 +39,11 @@ from .nvcc import compile_library
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "noise3d.cu"
 
 LAUNCHES = 0
+K1B_LAUNCHES = 0
 K2_LAUNCHES = 0
 K2_MOST_POINTS = 0
 _FN = None
+_FN1B = None
 _FN2 = None
 
 # (dx, dy, dz) in the kernel's loop order
@@ -45,7 +58,7 @@ def build():
 
     Returns nvcc's output (register and spill report), or "" when the
     library was already built."""
-    global _FN, _FN2
+    global _FN, _FN1B, _FN2
     lib, log = compile_library(SOURCE)
     if _FN is None:
         dll = ctypes.CDLL(str(lib))
@@ -54,12 +67,17 @@ def build():
                        + [ctypes.c_float] * 7
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn1b = dll.noise3d_sum_s_bwd
+        fn1b.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                         + [ctypes.c_float] * 4
+                         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn1b.restype = ctypes.c_int
         fn2 = dll.noise3d_sum
         fn2.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
                         + [ctypes.c_float] * 6
                         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn2.restype = ctypes.c_int
-        _FN, _FN2 = fn, fn2
+        _FN, _FN1B, _FN2 = fn, fn1b, fn2
     return log
 
 
@@ -77,8 +95,13 @@ def _check(p, seed, name="K1", kr=None, qm=None):
                              f"{x.dtype} {tuple(x.shape)}")
         if x.device != p.device:
             raise ValueError(f"p and {what} must be on one device")
-    if p.requires_grad or (kr is not None and (kr.requires_grad
-                                               or qm.requires_grad)):
+    if torch.is_grad_enabled() and (
+            p.requires_grad or (kr is not None and (kr.requires_grad
+                                                    or qm.requires_grad))):
+        if name == "K1":
+            raise NotImplementedError(
+                "K1's raw launch records no graph: noise3d_sum_s_diff is K1 "
+                "under autograd")
         raise NotImplementedError(f"{name} has no backward yet")
 
 
@@ -86,7 +109,8 @@ def noise3d_sum_s(p, seed, kr, m6q, impulse_count):
     """Raw lattice sum at points p [N, 3] with per-point seeds [N].
 
     kr: cell radius; m6q: the 6 unique entries (xx, yy, zz, xy, xz, yz) of
-    the splat quadratic form with qm folded in.  Returns [N] float32."""
+    the splat quadratic form with qm folded in; Python floats.  Returns [N]
+    float32 and records no graph (see `noise3d_sum_s_diff`)."""
     global LAUNCHES
     if p.device.type == "cpu":
         return noise3d_sum_s_ref(p, seed, kr, m6q, impulse_count)
@@ -110,6 +134,86 @@ def noise3d_sum_s(p, seed, kr, m6q, impulse_count):
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
+
+
+def noise3d_sum_s_bwd(p, seed, kr, m3, impulse_count, g):
+    """K1b: the partials of K1's sum at points p [N, 3] with seeds [N], each
+    scaled by the point's cotangent g [N] (float32).
+
+    kr and m3 = (m00, m11, m22), the diagonal of the qm-folded splat form
+    (its off-diagonal entries are 0), are Python floats.  Returns (dp
+    [N, 3], the per-point partials [N, 4] in (kr, m00, m11, m22)); the
+    partials in the parameters are their sums over points."""
+    global K1B_LAUNCHES
+    if p.device.type == "cpu":
+        return noise3d_sum_s_bwd_ref(p, seed, kr, m3, impulse_count, g)
+    _check(p, seed)
+    if p.device.type != "cuda":
+        raise ValueError(f"K1b runs on cuda or cpu tensors, not {p.device}")
+    n = p.shape[0]
+    if g.dtype != torch.float32 or tuple(g.shape) != (n,) or \
+            g.device != p.device:
+        raise ValueError(f"g must be float32 [{n}] on {p.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    if not (p.is_contiguous() and g.is_contiguous()):
+        raise ValueError("p and g must be contiguous")
+    if n >= 2 ** 31 // 4:
+        raise ValueError(f"K1b takes fewer than {2 ** 31 // 4} points")
+    if _FN1B is None:
+        build()
+    seed32 = seed.to(torch.int32).contiguous()
+    dp = torch.empty(n, 3, dtype=torch.float32, device=p.device)
+    part = torch.empty(n, 4, dtype=torch.float32, device=p.device)
+    err = _FN1B(p.data_ptr(), seed32.data_ptr(), g.data_ptr(), dp.data_ptr(),
+                part.data_ptr(), n, float(kr), *(float(v) for v in m3),
+                int(impulse_count), p.device.index,
+                torch.cuda.current_stream(p.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K1b launch failed: CUDA error {err}")
+    K1B_LAUNCHES += 1
+    return dp, part
+
+
+def host_params(kr, m3):
+    """(kr, m00, m11, m22) as Python floats, K1's by-value arguments, from
+    the cell radius kr (a scalar tensor) and the splat form's diagonal m3
+    [3]: one host read, made once per ray batch."""
+    return tuple(torch.cat([kr.detach().reshape(1), m3.detach()]).tolist())
+
+
+class _LatticeSumS(torch.autograd.Function):
+    """K1 forward, K1b (or its twin on CPU tensors) backward."""
+
+    @staticmethod
+    def forward(ctx, p, kr, m3, seed, host, impulse_count):
+        ctx.save_for_backward(p, seed)
+        ctx.host, ctx.impulse_count = host, impulse_count
+        return noise3d_sum_s(p, seed, host[0], (*host[1:], 0.0, 0.0, 0.0),
+                             impulse_count)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, seed = ctx.saved_tensors
+        dp, part = noise3d_sum_s_bwd(p, seed, ctx.host[0], ctx.host[1:],
+                                     ctx.impulse_count, g.contiguous())
+        # the sum over points, in float64 so its order hardly matters
+        d = part.sum(dim=0, dtype=torch.float64).to(torch.float32)
+        return dp, d[0], d[1:], None, None, None
+
+
+def noise3d_sum_s_diff(p, seed, kr, m3, impulse_count, host):
+    """K1's sum at points p [N, 3] with seeds [N], differentiable in p, the
+    cell radius kr (scalar tensor) and the diagonal m3 [3] of the
+    qm-folded splat form (diagonal: its off-diagonal entries are 0).
+
+    host: `host_params(kr, m3)`, read once per batch.  When nothing requires
+    grad (or grad mode is off) this is K1's raw launch and records no
+    graph."""
+    if torch.is_grad_enabled() and (p.requires_grad or kr.requires_grad
+                                    or m3.requires_grad):
+        return _LatticeSumS.apply(p, kr, m3, seed, host, impulse_count)
+    return noise3d_sum_s(p, seed, host[0], (*host[1:], 0.0, 0.0, 0.0),
+                         impulse_count)
 
 
 def noise3d_sum(p, seed, kr, qm, m6, impulse_count):
@@ -162,6 +266,27 @@ def noise3d_sum_s_ref(p, seed, kr, m6q, impulse_count):
     return out
 
 
+def noise3d_sum_s_bwd_ref(p, seed, kr, m3, impulse_count, g):
+    """Plain PyTorch twin of K1b: the same partials in closed form (not
+    autograd through the forward twin), chunked, each in-reach term and
+    each of the nine sums per point computed with the kernel's operations
+    in its order."""
+    _check(p, seed)
+    n = p.shape[0]
+    if g.dtype != torch.float32 or tuple(g.shape) != (n,):
+        raise ValueError(f"g must be float32 [{n}], got {g.dtype} "
+                         f"{tuple(g.shape)}")
+    krt = torch.tensor(float(kr), dtype=torch.float32, device=p.device)
+    m3 = tuple(float(v) for v in m3)
+    dp = torch.empty(n, 3, dtype=torch.float32, device=p.device)
+    part = torch.empty(n, 4, dtype=torch.float32, device=p.device)
+    for s in range(0, n, _TWIN_CHUNK):
+        c = slice(s, s + _TWIN_CHUNK)
+        dp[c], part[c] = _twin_bwd_chunk(p[c], rng.u32(seed[c]), krt, m3,
+                                         impulse_count, g[c])
+    return dp, part
+
+
 def noise3d_sum_ref(p, seed, kr, qm, m6, impulse_count):
     """Plain PyTorch twin of K2: K1's twin with a per-point radius (and its
     reciprocal) and each quadratic form scaled by the point's qm."""
@@ -174,15 +299,13 @@ def noise3d_sum_ref(p, seed, kr, qm, m6, impulse_count):
     return out
 
 
-def _twin_chunk(p, seed, kr, qm, m6q, K):
-    """The sum over one chunk; kr is a scalar tensor (K1) or [N] (K2, with
-    qm [N]; None for K1)."""
+def _twin_offsets(p, seed, kr, K):
+    """The 27 x K impulse offsets of one chunk: (g = p / kr [N, 3], dd =
+    the point's offset from each impulse in cell units [N, 27, K, 3], the
+    impulses' fourth variates [N, 27, K]); kr is a scalar tensor or [N, 1].
+    """
     dev = p.device
-    m00, m11, m22, m01, m02, m12 = (float(v) for v in m6q)
     offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=dev)  # [27, 3]
-
-    if kr.dim():
-        kr = kr[:, None]
     g = p * (1.0 / kr)
     b = torch.floor(g)
     f = g - b
@@ -194,6 +317,16 @@ def _twin_chunk(p, seed, kr, qm, m6q, K):
     u = rng.uniform(h[:, :, None, None], ctr)  # [N, 27, K, 4]
     q0 = f[:, None, :] - offs.to(torch.float32)  # [N, 27, 3]
     dd = q0[:, :, None, :] - u[..., :3]  # [N, 27, K, 3]
+    return g, dd, u[..., 3]
+
+
+def _twin_chunk(p, seed, kr, qm, m6q, K):
+    """The sum over one chunk; kr is a scalar tensor (K1) or [N] (K2, with
+    qm [N]; None for K1)."""
+    m00, m11, m22, m01, m02, m12 = (float(v) for v in m6q)
+    if kr.dim():
+        kr = kr[:, None]
+    _, dd, uw = _twin_offsets(p, seed, kr, K)
     ddx, ddy, ddz = dd.unbind(-1)
     r2 = ddx * ddx + ddy * ddy + ddz * ddz
     kr = kr[..., None]  # against [N, 27, K]
@@ -202,9 +335,41 @@ def _twin_chunk(p, seed, kr, qm, m6q, K):
          + 2.0 * (m01 * abx * aby + m02 * abx * abz + m12 * aby * abz))
     if qm is not None:
         q = qm[:, None, None] * q
-    w = torch.where(u[..., 3] < 0.5, -1.0, 1.0)
+    w = torch.where(uw < 0.5, -1.0, 1.0)
     terms = torch.where(r2 < 1.0, w * torch.exp(-q), 0.0).reshape(len(p), -1)
-    total = torch.zeros(len(p), dtype=torch.float32, device=dev)
+    total = torch.zeros(len(p), dtype=torch.float32, device=p.device)
     for j in range(terms.shape[1]):
         total = total + terms[:, j]
     return total
+
+
+def _twin_bwd_chunk(p, seed, kr, m3, K, ct):
+    """K1b over one chunk: (dp [N, 3], partials [N, 4]); kr is a scalar
+    tensor, m3 three floats, ct the cotangents [N]."""
+    g, dd, uw = _twin_offsets(p, seed, kr, K)
+    ddx, ddy, ddz = dd.unbind(-1)
+    r2 = ddx * ddx + ddy * ddy + ddz * ddz
+    abx, aby, abz = kr * ddx, kr * ddy, kr * ddz
+    m00, m11, m22 = m3
+    q = m00 * abx * abx + m11 * aby * aby + m22 * abz * abz
+    w = torch.where(uw < 0.5, -1.0, 1.0)
+    e = torch.where(r2 < 1.0, w * torch.exp(-q), 0.0)
+    ex, ey, ez = e * abx, e * aby, e * abz
+    # [9, N, 27 K]: the terms of S, T and Q per axis, summed one by one in
+    # the kernel's (dx, dy, dz, k) order
+    terms = torch.stack([ex, ey, ez, ex * ddx, ey * ddy, ez * ddz,
+                         ex * abx, ey * aby, ez * abz]).reshape(9, len(p), -1)
+    acc = torch.zeros(9, len(p), dtype=torch.float32, device=p.device)
+    for j in range(terms.shape[2]):
+        acc = acc + terms[:, :, j]
+    sx, sy, sz, tx, ty, tz, qx, qy, qz = acc
+    inv_r = 1.0 / kr
+    gx, gy, gz = g.unbind(-1)
+    c2x, c2y, c2z = -2.0 * m00, -2.0 * m11, -2.0 * m22
+    dp = torch.stack([ct * (c2x * sx) * kr * inv_r,
+                      ct * (c2y * sy) * kr * inv_r,
+                      ct * (c2z * sz) * kr * inv_r], dim=-1)
+    dkr = ct * (c2x * (tx - sx * gx) + c2y * (ty - sy * gy)
+                + c2z * (tz - sz * gz))
+    part = torch.stack([dkr, -ct * qx, -ct * qy, -ct * qz], dim=-1)
+    return dp, part

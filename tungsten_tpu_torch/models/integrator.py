@@ -15,6 +15,16 @@ sampling scheme.
 A loop ends early when no ray is left to advance, and a medium or shadow
 hop is skipped when no ray is in it: every result there is masked, so the
 image is the same as running every iteration.
+
+The render is differentiable in the scene's parameters that require grad
+(the GP hyperparameters) by the JAX package's detached-sampling estimator:
+discrete events (crossings, visibility, sampled directions) and sampling
+densities carry no gradient, while crossing positions (media.py's IFT
+reattachment), the sampled normals, the geometric factor of area-light
+sampling and the BSDF and phase values do; each weight whose density was
+detached is multiplied by `_reattach_ratio`, which is 1 in value.  A
+render in which nothing requires grad computes no ratio and records no
+graph.
 """
 from __future__ import annotations
 
@@ -60,10 +70,22 @@ def _where3(mask, a, b):
     return torch.where(mask[:, None], a, b)
 
 
+def _reattach_ratio(f):
+    """f / f.detach() where |f| > 1e-12, else 1: exactly 1 in value, and
+    grad log f in gradient.  A weight whose sampling density was detached
+    (the pdf cancelled analytically, or an area-form geometric factor)
+    times this ratio regains the integrand's dependence on the parameters
+    without changing the estimate."""
+    fd = f.detach()
+    ok = fd.abs() > 1e-12
+    return torch.where(ok, f / torch.where(ok, fd, 1.0), 1.0)
+
+
+@torch.no_grad()
 def shadow_walk(scene, ro, rd, dist, light_prim, med_idx, med_state, pss,
                 u_jitter, active):
     """Visibility [N, 3] toward a light through forward-lobed surfaces and
-    binary GPIS transmittance."""
+    binary GPIS transmittance: a discrete event, so it records no graph."""
     N = ro.shape[0]
     thr = torch.ones(N, 3, dtype=torch.float32, device=ro.device)
     zeros = torch.zeros(N, dtype=torch.float32, device=ro.device)
@@ -114,11 +136,16 @@ def _next_bounce(pss):
 
 def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
                bfr, wi_local, bsdf_idx, med_idx, med_state, pss_next, draw,
-               bounce, gate):
+               bounce, gate, ad=False):
     """One-light NEE with both MIS strategies for surface and volume
     vertices, in one [2R] shadow walk.  scheme and t_seg are the 1D
     sampling scheme and segment length of each volume vertex.  Returns
-    radiance [R, 3]."""
+    radiance [R, 3].
+
+    Detached sampling: visibility, the occlusion query of strategy 2, the
+    pdfs and the MIS weights carry no gradient; the BSDF and phase values
+    do, and with `ad` (a parameter requires grad) each strategy's weight
+    is reattached by a ratio that is 1 in value."""
     R = p_vtx.shape[0]
     nl = scene.lights.shape[0]
     if nl == 0:
@@ -134,9 +161,15 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
     d1, ldist, lpdf, lvalid = pr.sample_direct(prims, light, p_vtx,
                                                draw(bounce, 41),
                                                draw(bounce, 42))
-    # the area-form direction: through the sampled light point
-    dv = (p_vtx + d1 * ldist[:, None]) - p_vtx
-    d1 = dv / torch.sqrt(torch.clamp(dot(dv, dv), min=1e-12))[:, None]
+    # area form (every ported light is a quad): the sampled light point is
+    # held fixed and the direction to it, with the geometric factor
+    # |n_l . d| / r^2 that the solid-angle pdf cancelled, follows the
+    # vertex
+    dv = (p_vtx + d1 * ldist[:, None]).detach() - p_vtx
+    r2q = torch.clamp(dot(dv, dv), min=1e-12)
+    d1 = dv / torch.sqrt(r2q)[:, None]
+    ratio1 = (_reattach_ratio(dot(prims.n[light], d1).abs() / r2q) if ad
+              else None)
 
     wo_local = frame_to_local(tfr, bfr, normal, d1)
     f_surf = bs.eval_bsdf(scene.bsdfs, bsdf_idx, wi_local, wo_local)
@@ -203,7 +236,7 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
         valid2 = valid2 | (gate & in_m & v_m)
     o2 = p_vtx + _where3(is_vol, 0.0, normal
                          * torch.sign(s_surf["wo"][:, 2:3]) * EPS)
-    isect2 = pr.intersect(prims, o2, d2, EPS, INF)
+    isect2 = pr.intersect(prims, o2.detach(), d2.detach(), EPS, INF)
     # front-side hits only: a primitive emits from its front side
     hit_light2 = (valid2 & isect2["hit"] & (isect2["prim"] == light)
                   & ~isect2["back_side"])
@@ -227,10 +260,24 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
     tr1, tr2 = tr[:R], tr[R:]
 
     mis1 = torch.where(disable_mis, 1.0, _power_heuristic(lpdf, mat_pdf1))
-    w_est1 = tr1 * (mis1 / torch.clamp(lpdf, min=1e-9) * float(nl))[:, None]
+    w_est1 = (tr1 * (mis1 / torch.clamp(lpdf, min=1e-9)
+                     * float(nl))[:, None]).detach()
+    if ad:
+        w_est1 = w_est1 * ratio1[:, None]
+        # strategy 2's weight is f / pdf with the pdf cancelled: its value
+        # at the (held) sampled direction restores d f / d theta
+        f2 = _where3(is_vol, 0.0, bs.eval_bsdf(scene.bsdfs, bsdf_idx,
+                                               wi_local,
+                                               s_surf["wo"].detach()))
+        for mi, medium in enumerate(scene.media):
+            if not ph.phase_is_specular(medium, scene.bsdfs):
+                f2 = _where3(is_vol & (med_idx == mi),
+                             ph.eval_phase(medium, scene.bsdfs, rd,
+                                           d2.detach(), aniso), f2)
+        w2 = w2 * _reattach_ratio(f2)
     c1 = _where3(valid1 & (tr1.amax(dim=-1) > 0), f1 * light_e * w_est1, 0.0)
     mis2 = _power_heuristic(pdf2, ld_pdf2)
-    w_est2 = tr2 * (mis2 * float(nl))[:, None]
+    w_est2 = (tr2 * (mis2 * float(nl))[:, None]).detach()
     c2 = _where3(hit_light2 & (tr2.amax(dim=-1) > 0), w2 * light_e * w_est2,
                  0.0)
     return c1 + c2
@@ -239,10 +286,15 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
 def trace(scene, px, py, spp_idx):
     """One sample for each ray of the flat batch px, py [R] (int64) at
     sample index spp_idx (an int, or an [R] tensor: several samples in one
-    batch give the same values as one batch each).  Returns radiance [R, 3].
-    """
+    batch give the same values as one batch each).  Returns radiance [R, 3],
+    differentiable in the scene's parameters that require grad (the
+    detached-sampling estimator: discrete events and sampling densities
+    are held, the integrand follows the parameters)."""
     R = px.shape[0]
     dev = px.device
+    # the reattachment ratios are 1 in value: a render without gradient
+    # skips them
+    ad = torch.is_grad_enabled() and md.requires_grad(scene)
     spp = torch.as_tensor(spp_idx, dtype=torch.int64, device=dev).expand(R)
     key = rng.xxhash32_4(px, py, spp, scene.scene_seed ^ 0x5F356495)
 
@@ -329,7 +381,7 @@ def trace(scene, px, py, spp_idx):
         p_vtx = _where3(vol_event, vol_p, hit_p)
         c = next_event(scene, p_vtx, vol_event, rd, med_aniso, scheme, med_t,
                        sh_normal, tfr, bfr, wi_local, bsdf_idx, med_idx,
-                       med_state, pss_next, draw, bounce, gate)
+                       med_state, pss_next, draw, bounce, gate, ad)
         emission = emission + _where3(gate, throughput * c, 0.0)
 
         # ---- volume scattering --------------------------------------------
@@ -340,7 +392,13 @@ def trace(scene, px, py, spp_idx):
             u = torch.stack([draw(bounce, s) for s in range(8, 13)], dim=-1)
             psamp = ph.sample_phase(medium, scene.bsdfs, rd, med_aniso, u)
             new_rd = _where3(in_m, psamp["w"], new_rd)
-            throughput = throughput * _where3(in_m, psamp["weight"], 1.0)
+            w_m = psamp["weight"]
+            if ad and not ph.phase_is_specular(medium, scene.bsdfs):
+                # the weight has the pdf cancelled: the phase's value at the
+                # held direction restores its dependence on the normal
+                w_m = w_m * _reattach_ratio(ph.eval_phase(
+                    medium, scene.bsdfs, rd, psamp["w"].detach(), med_aniso))
+            throughput = throughput * _where3(in_m, w_m, 1.0)
             phase_ok = phase_ok & torch.where(in_m, psamp["valid"], True)
             # the JAX package's ~(enable_volume_light_sampling &
             # (medium_bounces > 0 | low_order_scattering)), with
@@ -359,7 +417,13 @@ def trace(scene, px, py, spp_idx):
         is_fwd = bs.is_forward(scene.bsdfs, bsdf_idx)
         wo_world = _where3(surf_scatter & is_fwd, rd,
                            frame_to_world(tfr, bfr, sh_normal, s["wo"]))
-        throughput = throughput * _where3(surf_scatter, s["weight"], 1.0)
+        s_w = s["weight"]
+        if ad:
+            s_w = s_w * torch.where(s["specular"][:, None], 1.0,
+                                    _reattach_ratio(bs.eval_bsdf(
+                                        scene.bsdfs, bsdf_idx, wi_local,
+                                        s["wo"].detach())))
+        throughput = throughput * _where3(surf_scatter, s_w, 1.0)
         # a passthrough keeps wasSpecular from the last real scatter
         passthrough = is_fwd | ((s["wo"] + wi_local).abs().sum(dim=-1)
                                 < 1e-6)

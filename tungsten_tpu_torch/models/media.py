@@ -22,6 +22,13 @@ sphere-traces it (step_size == 0), one launch per search that synthesises
 the basis on chip and returns the crossing with the value and gradient
 there; see kernels/ws_trace.py.  Only the active rays are gathered into
 these calls (the results of the others are masked anyway).
+
+Gradients (the JAX package's detached-sampling estimator): the marches
+and visibility record no graph; a sparse-conv crossing is reattached to
+the GP hyperparameters by the implicit function theorem and its normal is
+sampled at the reattached point.  On the 3D stationary path the lattice
+sum's backward is K1b; K2 and K3 have no backward yet, and the
+weight-space crossing has no gradient yet: each refuses by name.
 """
 from __future__ import annotations
 
@@ -276,6 +283,39 @@ def _crossing_ws(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
     return hit, t, grad, val, gp_id
 
 
+def requires_grad(*trees):
+    """Whether a tensor in these tensors, tuples and trees of dataclasses
+    requires grad."""
+    for x in trees:
+        if isinstance(x, torch.Tensor):
+            if x.requires_grad:
+                return True
+        elif isinstance(x, tuple):
+            if requires_grad(*x):
+                return True
+        elif dataclasses.is_dataclass(x) and requires_grad(
+                *(getattr(x, f.name) for f in dataclasses.fields(x))):
+            return True
+    return False
+
+
+def _reattach_crossing(value_at, t, hit, f_at_t):
+    """The march's crossing t [R] with the parameters' gradient reattached
+    by the implicit function theorem: f(t*, theta) = 0 gives dt*/dtheta =
+    -(df/dtheta) / (df/dt), taken as one Newton step around the detached
+    root, t - (f - f.detach()) / dfdt, whose value is t.
+
+    dfdt is the derivative in t of the realization's value at the detached
+    t, with the parameters held (amplitude, normalization and mean
+    included); through the lattice sum it is K1b's d/dp . rd.  Grazing
+    crossings (|dfdt| <= 1e-3) and rays without a crossing are detached."""
+    tt = t.detach().requires_grad_()
+    dfdt, = torch.autograd.grad(value_at(tt)[0].sum(), tt)
+    ift_ok = hit & (dfdt.abs() > 1e-3)
+    corr = (f_at_t - f_at_t.detach()) / torch.where(ift_ok, dfdt, 1.0)
+    return t - torch.where(ift_ok, corr, 0.0)
+
+
 def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
                     u_jitter, active):
     """Batched Medium::sampleDistance.
@@ -283,9 +323,21 @@ def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
     Returns (result, new state).  result: exited [R] (no crossing), t [R],
     weight [R, 3], aniso [R, 3] (the sampled normal), gp_id [R], scheme [R]
     (the 1D sampling scheme at the crossing) and failed [R] (wrong-sided,
-    zero or non-finite normal: the path dies)."""
+    zero or non-finite normal: the path dies).
+
+    Differentiable in the medium's parameters (and ro, rd) by the
+    detached-sampling estimator of the JAX package: the march is a discrete
+    search and records no graph; the crossing is reattached by the
+    implicit function theorem (`_reattach_crossing`) and the normal is
+    sampled at the reattached point, so it carries d(normal)/dtheta.  The
+    weight-space search has no gradient yet and refuses parameters that
+    require grad."""
     far_eff = _far_eff(med, ro, rd, near, far)
     if med.kind == GPIS_WEIGHT_SPACE:
+        if torch.is_grad_enabled() and requires_grad(med, ro, rd, state):
+            raise NotImplementedError(
+                "the weight-space crossing has no gradient yet (the IFT "
+                "through the realization's evaluate)")
         hit, t, grad, end_val, gp_id = _crossing_ws(
             med, scene_seed, ro, rd, near, far_eff, state, pss, u_jitter,
             active)
@@ -293,8 +345,13 @@ def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
         state = _precondition(med, scene_seed, ro, rd, near, state, pss,
                               active)
         value_at = make_value_at(med, scene_seed, ro, rd, pss, state)
-        hit, t = march(med, value_at, near, far_eff, state, u_jitter, active)
-        end_val, gp_id = value_at(t)
+        with torch.no_grad():
+            hit, t = march(med, value_at, near, far_eff, state, u_jitter,
+                           active)
+        f_at_t, gp_id = value_at(t)
+        if f_at_t.requires_grad:
+            t = _reattach_crossing(value_at, t, hit, f_at_t)
+        end_val = f_at_t.detach()
         grad = sample_gradient(med, scene_seed, ro + t[:, None] * rd, pss,
                                rd=rd, t_segment=t - near,
                                coeff1=state.coeff1)
@@ -322,10 +379,12 @@ def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
              "gp_id": gp_id, "scheme": scheme, "failed": failed}, new_state)
 
 
+@torch.no_grad()
 def transmittance(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
                   active):
     """Binary visibility [R, 3] on the realization (1 where the segment
-    crosses no surface, and on inactive rays)."""
+    crosses no surface, and on inactive rays): a discrete event, so it
+    records no graph."""
     far_eff = _far_eff(med, ro, rd, near, far)
     if med.kind == GPIS_WEIGHT_SPACE:
         hit = torch.zeros_like(active)

@@ -29,16 +29,17 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed):
     if not cov.is_stationary:
         return _make_value_at_multi_res(cfg, gp, ro, rd, seed0)
     kr = cov.splat_radius()
-    # K1 takes its scalars by value: one host read for all four; the splat
-    # form is diagonal, so its off-diagonal entries are 0
-    *diag, kr_f = torch.cat([cov.splat_form(), kr[None]]).tolist()
-    m6 = diag + [0.0, 0.0, 0.0]
+    # the splat form is diagonal: K1 takes its diagonal and kr as tensors
+    # (differentiable in l) and by value (one host read for all four per
+    # batch)
+    m3 = cov.splat_form()
+    host = noise3d.host_params(kr, m3)
     norm = torch.sqrt(cov.variance3(cfg.impulse_density, kr))
     K = cfg.impulse_count
 
     def value_at(t):
         p = ro + t[:, None] * rd
-        total = noise3d.noise3d_sum_s(p, seed0, kr_f, m6, K)
+        total = noise3d.noise3d_sum_s_diff(p, seed0, kr, m3, K, host)
         mean, gp_id = gp.mean_and_id(p)
         return cov.amplitude(p) * (total / norm) + mean, gp_id
 
