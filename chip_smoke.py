@@ -2,13 +2,13 @@
 
 Builds the port's CUDA kernels from tungsten_tpu_torch/csrc/ (one nvcc per
 source, all started together) and holds each against its plain PyTorch
-twin on the card: K1, its backward K1b and K2 (noise3d.cu), K3
-(noise1d.cu) and K5/K4 (ws_trace.cu, one whole weight-space search per
-launch).  Each kernel's bound is the largest of its bytes over HBM's rate
-and its instructions per pipe class over that class's rate (K1, K1b, K2
-and K3: counted from the built kernels' SASS; K5/K4: operations read off
-the source, all counted as issued); a measured time below its bound fails
-the run.  Then it drives the port's main paths through
+twin on the card: K1, its backward K1b and K2 (noise3d.cu), K3 and its
+backward K3b (noise1d.cu) and K5/K4 (ws_trace.cu, one whole weight-space
+search per launch).  Each kernel's bound is the largest of its bytes over
+HBM's rate and its instructions per pipe class over that class's rate (K1,
+K1b, K2, K3 and K3b: counted from the built kernels' SASS; K5/K4:
+operations read off the source, all counted as issued); a measured time
+below its bound fails the run.  Then it drives the port's main paths through
 tungsten_tpu_torch.render and tungsten_tpu_torch.entry, each with the
 launch counts set to 0 just before and read just after:
 - BASELINE config 1 (scenes/gpis-sphere-box.json, sparse-conv noise, K1);
@@ -24,7 +24,14 @@ launch counts set to 0 just before and read just after:
   d(sigma, l) on 32 rays against central FD and against the port on the
   CPU, then 3 inverse-rendering steps of tungsten_tpu_torch.entry's
   train_step at 128x128, 4 spp, depth 2 (K1 forward, K1b backward), each
-  with its loss, parameters, gradient, wall, launches and host syncs.
+  with its loss, parameters, gradient, wall, launches and host syncs;
+- the hyperparameter gradient of configs 3 and 3b: config 3's
+  sample_distance gradient on 48 rays against central FD and the CPU,
+  then 3 training steps of config 3 and one of config 3b at 128x128,
+  16 spp, depth 2 (K3 forward, K3b backward), each with its loss,
+  gradient, wall, launches, host syncs and peak memory, and one step
+  through the CLI (`python -m tungsten_tpu_torch.entry --scene
+  scenes/gpis-mirror-1d.json --steps 1`).
 It checks each image, shows that every weight-space search was one launch
 with no host sync inside, prints config 4a's host syncs, realization
 synthesis and peak memory beside the earlier design's recorded numbers,
@@ -43,8 +50,8 @@ torch.profiler, whose op tables it writes to OUT_DIR, with each kernel's
 bound over that render; K5/K4 timed whole and in parts; and config 4a's
 host syncs, realization synthesis and peak memory through the plain
 twins, which keep the earlier design's [R, n] structure; and one
-training step of config 1 under torch.profiler, with K1's and K1b's
-bounds over it.
+training step each of configs 1 and 3 under torch.profiler, with the
+bounds of their lattice kernel and its backward over it.
 """
 import argparse
 import concurrent.futures
@@ -106,10 +113,20 @@ WS_MAX_SHARE = 1e-3  # rays whose flags or decisions may differ
 K1B_POINTS = (4096, 65536, 1 << 20)
 K1B_LINE_POINTS = 65536
 K1B_DP_RTOL, K1B_SUM_RTOL = 1e-5, 1e-4
+# K3b against its twin at K3_POINTS; the kernels line gives the numbers at
+# config 3's 16-spp training batch (262,144 rays).  dpz per point within
+# K3B_DP_RTOL * (1 + |x|) (sums of at most 9 terms), the sums over points
+# of the partials in (kr, inv_r) (in float64) within K3B_SUM_RTOL relative.
+K3B_LINE_POINTS = 262144
+K3B_DP_RTOL, K3B_SUM_RTOL = 1e-5, 1e-4
 # The medium-level gradient against central FD, with the limits of the JAX
-# package's tests/test_grad_e2e.py::test_medium_level_grad_matches_fd, and
-# against the port on the CPU
-MEDIUM_EPS, MEDIUM_FD_RTOL, MEDIUM_FD_ATOL = 4e-3, 0.15, 0.5
+# package's tests/test_grad_e2e.py::test_medium_level_grad_matches_fd and
+# ::test_medium_level_grad_matches_fd_1d, and against the port on the CPU.
+# Per scene, the rays of that test: (count, origin, half-angle of the fan,
+# y of the direction, near, far, FD step).
+MEDIUM_RAYS = {"config 1": (32, (0.0, 1.0, 3.8), 0.12, -0.02, 2.0, 4.5, 4e-3),
+               "config 3": (48, (0.0, 0.9, 3.0), 0.15, -0.01, 1.2, 4.5, 2e-3)}
+MEDIUM_FD_RTOL, MEDIUM_FD_ATOL = 0.15, 0.5
 MEDIUM_CPU_RTOL = 1e-3
 TRAIN_STEPS = 3
 
@@ -183,9 +200,9 @@ def ws_work(name, n, rays, rays_eval, steps, refined):
 
 
 def lattice_pipes(sass, noise3d, noise1d):
-    """{kernel: (bytes, {class: instructions}) per point} of K1, K1b, K2
-    and K3 at K = 3 impulses per cell (every scene's), from the SASS of
-    the libraries just built (K3's K = 3 kernel)."""
+    """{kernel: (bytes, {class: instructions}) per point} of K1, K1b, K2,
+    K3 and K3b at K = 3 impulses per cell (every scene's), from the SASS of
+    the libraries just built (K3's and K3b's K = 3 kernels)."""
     from tungsten_tpu_torch.kernels.nvcc import compile_library, sass_listing
     l3 = sass_listing(compile_library(noise3d.SOURCE)[0])
     l1 = sass_listing(compile_library(noise1d.SOURCE)[0])
@@ -199,7 +216,10 @@ def lattice_pipes(sass, noise3d, noise1d):
         "K2": (28, sass.lattice_counts(l3, "noise3d_sum_kernel", 27 * K,
                                        LONG_3D * K, cells=27)),
         "K3": (12, sass.lattice_counts(l1, "noise1d_sum_kernelILi3", 1,
-                                       LONG_1D * K))}
+                                       LONG_1D * K)),
+        # pz, seed and the cotangent in; dpz and 2 partials out
+        "K3b": (24, sass.lattice_counts(l1, "noise1d_sum_bwd_kernelILi3", 1,
+                                        LONG_1D * K))}
 
 
 def per_points(work, n):
@@ -917,67 +937,100 @@ def k1b_inputs(n, dev, seed=5):
     return p.to(dev), sd.to(dev), g.to(dev)
 
 
-def k1b_checks(noise3d, cov, K, work, dev, card_line):
-    """K1b against its twin at K1B_POINTS, with config 1's cell radius and
-    splat form and a random cotangent: dp within K1B_DP_RTOL * (1 + |x|)
-    per point, the sums over points of the parameters' partials within
-    K1B_SUM_RTOL relative; each size timed beside its bound, by the
-    kernel's device time (a CUDA-event window around a launch this short
-    holds mostly the wrapper's host work).  Returns (max |kernel - twin| of
-    dp, {n: (device ms, twin ms, bound ms, by, class)})."""
-    host = noise3d.host_params(cov.splat_radius(), cov.splat_form())
-    kr, m3 = host[0], host[1:]
+def bwd_checks(name, launch, twin, kernel, sizes, work, part_names, rtols,
+               card_line):
+    """A backward kernel (`launch(n)` -> (d [n, ...], per-point partials
+    [n, k])) against its twin (`twin(n)`) at each of `sizes`: d within
+    rtols[0] * (1 + |x|) per point, the partials' sums over points (in
+    float64) within rtols[1] relative; each size timed beside its bound by
+    the kernel's device time (a CUDA-event window around a launch this
+    short holds mostly the wrapper's host work).  Returns (max |kernel -
+    twin| of d, {n: (device ms, twin ms, bound ms, by, class)})."""
     err, times = 0.0, {}
-    for n in K1B_POINTS:
-        p, sd, g = k1b_inputs(n, dev)
-        dp, part = noise3d.noise3d_sum_s_bwd(p, sd, kr, m3, K, g)
-        dp_t, part_t = noise3d.noise3d_sum_s_bwd_ref(p, sd, kr, m3, K, g)
+    for n in sizes:
+        d, part = launch(n)
+        d_t, part_t = twin(n)
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(dp).all() and torch.isfinite(part).all()):
-            raise RuntimeError("K1b returned non-finite values")
-        rel = float(((dp - dp_t).abs() / (1.0 + dp_t.abs())).max())
+        if not bool(torch.isfinite(d).all() and torch.isfinite(part).all()):
+            raise RuntimeError(f"{name} returned non-finite values")
+        rel = float(((d - d_t).abs() / (1.0 + d_t.abs())).max())
         s = part.sum(dim=0, dtype=torch.float64)
         s_t = part_t.sum(dim=0, dtype=torch.float64)
         srel = float(((s - s_t).abs() / s_t.abs().clamp(min=1e-30)).max())
-        err = max(err, float((dp - dp_t).abs().max()))
-        if rel > K1B_DP_RTOL or srel > K1B_SUM_RTOL:
-            raise RuntimeError(f"K1b disagrees with its twin at N={n}: dp "
+        err = max(err, float((d - d_t).abs().max()))
+        if rel > rtols[0] or srel > rtols[1]:
+            raise RuntimeError(f"{name} disagrees with its twin at N={n}: "
                                f"{rel:.3e} of 1 + |x|, sums {srel:.3e}")
-
-        def launch():
-            return noise3d.noise3d_sum_s_bwd(p, sd, kr, m3, K, g)
-        t_w = median_ms(launch)
-        t_k = kernel_device_ms(launch, "noise3d_sum_s_bwd_kernel")
-        t_p = median_ms(lambda: noise3d.noise3d_sum_s_bwd_ref(p, sd, kr, m3,
-                                                              K, g), reps=5)
+        t_w = median_ms(lambda: launch(n))
+        t_k = kernel_device_ms(lambda: launch(n), kernel)
+        t_p = median_ms(lambda: twin(n), reps=5)
         b_ms, b_by, b_cls = bound_ms(*per_points(work, n))
-        check_bound(f"K1b N={n}", t_k, b_ms)
+        check_bound(f"{name} N={n}", t_k, b_ms)
         times[n] = (t_k, t_p, b_ms, b_by, b_cls)
-        print(f"K1b K={K} N={n}: dp within {rel:.2e} * (1 + |x|) "
-              f"({K1B_DP_RTOL}), sums of the partials in (kr, m00, m11, m22)"
-              f" {[round(v, 6) for v in s.tolist()]} within {srel:.2e} "
-              f"({K1B_SUM_RTOL}); kernel {t_k:.4f} ms of device time (mean "
-              f"of 20, torch.profiler), wrapper call {t_w:.4f} ms (median of "
-              f"20) and twin {t_p:.4f} ms (median of 5; CUDA events; "
-              f"{card_line}); bound {b_ms:.4f} ms ({b_cls})", flush=True)
+        print(f"{name} K=3 N={n}: within {rel:.2e} * (1 + |x|) ({rtols[0]}),"
+              f" max |kernel - twin| {err:.3e}, sums of the partials in "
+              f"{part_names} {[round(v, 6) for v in s.tolist()]} within "
+              f"{srel:.2e} ({rtols[1]}); kernel {t_k:.4f} ms of device time "
+              f"(mean of 20, torch.profiler), wrapper call {t_w:.4f} ms "
+              f"(median of 20) and twin {t_p:.4f} ms (median of 5; CUDA "
+              f"events; {card_line}); bound {b_ms:.4f} ms ({b_cls})",
+              flush=True)
     return err, times
 
 
-def medium_grad(md, convert, scene, dev):
-    """d sum(t) / d(sigma, l) of config 1's sample_distance on the 32 rays
-    of the JAX package's medium-level gradient test, over the lanes that
-    hit at every FD evaluation, and its central FD at MEDIUM_EPS: returns
-    (dsigma, dl, FD dsigma, FD dl, stable lanes)."""
-    R = 32
-    ths = np.linspace(-0.12, 0.12, R, dtype=np.float32)
-    ro = np.tile(np.array([[0.0, 1.0, 3.8]], np.float32), (R, 1))
-    rd = np.stack([np.sin(ths), np.zeros(R, np.float32) - 0.02,
+def k1b_checks(noise3d, cov, K, work, dev, card_line):
+    """K1b against its twin at K1B_POINTS (fresh points, seeds and
+    cotangents per size) with config 1's cell radius and splat form."""
+    host = noise3d.host_params(cov.splat_radius(), cov.splat_form())
+    kr, m3 = host[0], host[1:]
+    inputs = {n: k1b_inputs(n, dev) for n in K1B_POINTS}
+
+    def args(n):
+        p, sd, g = inputs[n]
+        return p, sd, kr, m3, K, g
+    return bwd_checks(
+        "K1b", lambda n: noise3d.noise3d_sum_s_bwd(*args(n)),
+        lambda n: noise3d.noise3d_sum_s_bwd_ref(*args(n)),
+        "noise3d_sum_s_bwd_kernel", K1B_POINTS, work,
+        "(kr, m00, m11, m22)", (K1B_DP_RTOL, K1B_SUM_RTOL), card_line)
+
+
+def k3b_checks(noise1d, work, dev, card_line):
+    """K3b against its twin at K3_POINTS random iso-ray coordinates and
+    seeds (those of k3_checks; each size a prefix) with config 3's cell
+    radius and a random cotangent."""
+    rs = np.random.default_rng(3)
+    n_max = max(K3_POINTS)
+    pz = torch.from_numpy(rs.uniform(-40.0, 40.0, n_max).astype(
+        np.float32)).to(dev)
+    seed = torch.from_numpy(rs.integers(0, 2 ** 32, n_max, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+    g = torch.from_numpy(rs.normal(size=n_max).astype(np.float32)).to(dev)
+
+    def args(n):
+        return pz[:n], seed[:n], 3.0, 3, g[:n]
+    return bwd_checks(
+        "K3b", lambda n: noise1d.noise1d_sum_bwd(*args(n)),
+        lambda n: noise1d.noise1d_sum_bwd_ref(*args(n)),
+        "noise1d_sum_bwd_kernel", K3_POINTS, work, "(kr, inv_r)",
+        (K3B_DP_RTOL, K3B_SUM_RTOL), card_line)
+
+
+def medium_grad(md, convert, scene, dev, spec):
+    """d sum(t) / d(sigma, l) of a scene's sample_distance on the rays of
+    the JAX package's medium-level gradient test for it (`spec`, an entry
+    of MEDIUM_RAYS), over the lanes that hit at every FD evaluation, and
+    its central FD: returns (dsigma, dl, FD dsigma, FD dl, stable lanes)."""
+    R, origin, half, dy, near, far, eps = spec
+    ths = np.linspace(-half, half, R, dtype=np.float32)
+    ro = np.tile(np.array([origin], np.float32), (R, 1))
+    rd = np.stack([np.sin(ths), np.zeros(R, np.float32) + dy,
                    -np.cos(ths)], axis=-1)
     rd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
     pss = np.stack([np.arange(R), np.zeros(R), np.zeros(R), np.zeros(R)],
                    axis=-1).astype(np.int64)
     args = [torch.from_numpy(a).to(dev) for a in (
-        ro, rd, np.full(R, 2.0, np.float32), np.full(R, 4.5, np.float32))]
+        ro, rd, np.full(R, near, np.float32), np.full(R, far, np.float32))]
     rest = (torch.from_numpy(pss).to(dev),
             torch.full((R,), 0.5, device=dev),
             torch.ones(R, dtype=torch.bool, device=dev))
@@ -990,7 +1043,6 @@ def medium_grad(md, convert, scene, dev):
 
     sigma0, l0 = (float(x) for x in (scene.media[0].gp.cov.sigma,
                                      scene.media[0].gp.cov.l))
-    eps = MEDIUM_EPS
 
     def val(x):
         return torch.tensor(x, dtype=torch.float32, device=dev)
@@ -1012,95 +1064,149 @@ def medium_grad(md, convert, scene, dev):
     return float(gs), float(gl), fd_s, fd_l, stable.cpu()
 
 
-def grad_checks(md, convert, load_scene, dev):
-    """Config 1's medium-level gradient on the card against central FD and
+def grad_checks(md, convert, load_scene, dev, what, path):
+    """A scene's medium-level gradient on the card against central FD and
     against the port on the CPU."""
-    scene, _ = load_scene(SCENE, device=dev)
-    gs, gl, fd_s, fd_l, stable = medium_grad(md, convert, scene, dev)
-    cpu_scene, _ = load_scene(SCENE, device="cpu")
-    c_gs, c_gl, _, _, c_stable = medium_grad(md, convert, cpu_scene, "cpu")
-    print(f"config 1 medium-level d sum(t) / d(sigma, l) on "
-          f"{int(stable.sum())} of 32 rays: card ({gs:.5f}, {gl:.5f}), "
-          f"central FD at eps {MEDIUM_EPS} ({fd_s:.5f}, {fd_l:.5f}), CPU "
+    spec = MEDIUM_RAYS[what]
+    R, eps = spec[0], spec[-1]
+    scene, _ = load_scene(path, device=dev)
+    gs, gl, fd_s, fd_l, stable = medium_grad(md, convert, scene, dev, spec)
+    cpu_scene, _ = load_scene(path, device="cpu")
+    c_gs, c_gl, _, _, c_stable = medium_grad(md, convert, cpu_scene, "cpu",
+                                             spec)
+    print(f"{what} medium-level d sum(t) / d(sigma, l) on "
+          f"{int(stable.sum())} of {R} rays: card ({gs:.5f}, {gl:.5f}), "
+          f"central FD at eps {eps} ({fd_s:.5f}, {fd_l:.5f}), CPU "
           f"({c_gs:.5f}, {c_gl:.5f})", flush=True)
-    if not torch.equal(stable, c_stable) or int(stable.sum()) < 16:
-        raise RuntimeError("the card and the CPU disagree on the stable "
-                           "lanes, or fewer than 16 lanes are stable")
-    for what, ad, fd, cpu in (("dsigma", gs, fd_s, c_gs),
+    if not torch.equal(stable, c_stable) or int(stable.sum()) < R // 2:
+        raise RuntimeError(f"{what}: the card and the CPU disagree on the "
+                           "stable lanes, or fewer than half of the lanes "
+                           "are stable")
+    for name, ad, fd, cpu in (("dsigma", gs, fd_s, c_gs),
                               ("dl", gl, fd_l, c_gl)):
         if ad == 0.0 or abs(ad - fd) > MEDIUM_FD_ATOL + MEDIUM_FD_RTOL * abs(
                 fd):
-            raise RuntimeError(f"medium-level {what} {ad} is not within "
-                               f"rtol {MEDIUM_FD_RTOL}, atol "
+            raise RuntimeError(f"{what}: medium-level {name} {ad} is not "
+                               f"within rtol {MEDIUM_FD_RTOL}, atol "
                                f"{MEDIUM_FD_ATOL} of FD {fd}")
         if abs(ad - cpu) > MEDIUM_CPU_RTOL * abs(cpu):
-            raise RuntimeError(f"medium-level {what} on the card {ad} is not "
-                               f"within {MEDIUM_CPU_RTOL} of the CPU's {cpu}")
+            raise RuntimeError(f"{what}: medium-level {name} on the card {ad}"
+                               f" is not within {MEDIUM_CPU_RTOL} of the "
+                               f"CPU's {cpu}")
 
 
-def train_steps(entry, noise3d, noise1d, wst, load_scene, dev, card_line):
-    """TRAIN_STEPS steps of entry.train_step on config 1 at its own
-    128x128, 4 spp and depth 2 (one batch of 65,536 rays) against a zero
-    target, with the launch counts set to 0 just before and read just
-    after.  Returns the K1b launches."""
+def launch_counters(noise3d, noise1d, wst):
+    """{kernel: (module, name of its launch counter)} of every kernel."""
+    return {"K1": (noise3d, "LAUNCHES"), "K1b": (noise3d, "K1B_LAUNCHES"),
+            "K2": (noise3d, "K2_LAUNCHES"), "K3": (noise1d, "LAUNCHES"),
+            "K3b": (noise1d, "K3B_LAUNCHES"), "K5": (wst, "MARCH_LAUNCHES"),
+            "K4": (wst, "TRACE_LAUNCHES")}
+
+
+def read_counts(counters):
+    return {k: getattr(mod, name) for k, (mod, name) in counters.items()}
+
+
+def zero_counts(counters):
+    for mod, name in counters.values():
+        setattr(mod, name, 0)
+
+
+def check_counts(counters, used, what):
+    """Every kernel of `used` was launched and no other kernel was."""
+    counts = read_counts(counters)
+    if any(counts[k] <= 0 for k in used) or any(
+            v for k, v in counts.items() if k not in used):
+        raise RuntimeError(f"{what} did not go through {' and '.join(used)} "
+                           f"alone: launches {counts}")
+    return counts
+
+
+def train_steps(entry, counters, load_scene, dev, card_line, what, path,
+                steps, shape, used):
+    """`steps` steps of entry.train_step on a scene at its own resolution,
+    spp and depth (`shape`: (H, W, spp, max_bounces), checked) in one ray
+    batch, against a zero target, with the launch counts set to 0 just
+    before and read just after; each step must have a finite loss and a
+    nonzero dsigma and dl, and go through the kernels `used` (a forward
+    and its backward) alone.  Returns the launch counts."""
     from tungsten_tpu_torch import convert
-    scene, rdoc = load_scene(SCENE, device=dev)
+    scene, rdoc = load_scene(path, device=dev)
     spp = int(rdoc["spp"])
     H, W = scene.camera.res_y, scene.camera.res_x
-    if (H, W, spp, scene.max_bounces) != (128, 128, 4, 2):
-        raise RuntimeError("config 1 is no longer 128x128, 4 spp, depth 2")
+    if (H, W, spp, scene.max_bounces) != shape:
+        raise RuntimeError(f"{what} is no longer {shape[1]}x{shape[0]}, "
+                           f"{shape[2]} spp, depth {shape[3]}")
     spp_idx = torch.arange(spp, device=dev)
     target = torch.zeros(H, W, 3, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    noise3d.LAUNCHES = noise3d.K1B_LAUNCHES = noise3d.K2_LAUNCHES = 0
-    noise1d.LAUNCHES = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
-    for step in range(TRAIN_STEPS):
+    zero_counts(counters)
+    for step in range(steps):
         out = []
-        k1, k1b = noise3d.LAUNCHES, noise3d.K1B_LAUNCHES
+        before = read_counts(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         syncs = host_syncs(lambda: out.append(entry.train_step(
             scene, target, spp_idx)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        after = read_counts(counters)
         sigma, l, loss, (gs, gl) = out[0]
-        print(f"step {step}: loss {float(loss):.6f}, sigma {float(sigma):.6f},"
-              f" l {float(l):.6f}, dsigma {float(gs):.6e}, dl "
-              f"{float(gl):.6e}; {wall:.3f} s, K1 launches "
-              f"{noise3d.LAUNCHES - k1}, K1b launches "
-              f"{noise3d.K1B_LAUNCHES - k1b}, host syncs {syncs} "
-              f"({card_line})", flush=True)
+        print(f"{what} step {step}: loss {float(loss):.6f}, sigma "
+              f"{float(sigma):.6f}, l {float(l):.6f}, dsigma {float(gs):.6e}"
+              f", dl {float(gl):.6e}; {wall:.3f} s, "
+              + ", ".join(f"{k} launches {after[k] - before[k]}"
+                          for k in used)
+              + f", host syncs {syncs} ({card_line})", flush=True)
         if not bool(torch.isfinite(loss)):
-            raise RuntimeError(f"step {step}: the loss is not finite")
-        if float(gs) == 0.0 or float(gl) == 0.0:
-            raise RuntimeError(f"step {step}: dsigma {float(gs)}, dl "
-                               f"{float(gl)}: the gradient chain is severed")
+            raise RuntimeError(f"{what} step {step}: the loss is not finite")
+        if not all(np.isfinite(float(g)) and float(g) != 0.0
+                   for g in (gs, gl)):
+            raise RuntimeError(f"{what} step {step}: dsigma {float(gs)}, dl "
+                               f"{float(gl)}: the gradient chain is severed "
+                               "or not finite")
         scene = convert.set_params(scene, sigma, l)
-    k1, k1b = noise3d.LAUNCHES, noise3d.K1B_LAUNCHES
-    print(f"{TRAIN_STEPS} steps: K1 launches {k1}, K1b launches {k1b}; peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
-          f"GiB ({card_line})", flush=True)
-    if (k1 <= 0 or k1b <= 0 or noise3d.K2_LAUNCHES or noise1d.LAUNCHES
-            or wst.MARCH_LAUNCHES or wst.TRACE_LAUNCHES):
-        raise RuntimeError("the training steps did not go through K1 and "
-                           "K1b alone")
-    return k1b
+    counts = read_counts(counters)
+    print(f"{what}, {steps} steps: "
+          + ", ".join(f"{k} launches {v}" for k, v in counts.items())
+          + f"; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({card_line})", flush=True)
+    return check_counts(counters, used, f"{what}'s training steps")
 
 
-def profile_grad(entry, noise3d, lattice, load_scene, dev, card_line):
-    """One 128x128, 4-spp training step of config 1 under torch.profiler:
-    wall, device time and busy share, K1 and K1b device time against their
-    bounds over the points the step gave them (op table in OUT_DIR)."""
+def train_cli(entry, counters, path, card_line):
+    """One step through the gradient CLI, `python -m
+    tungsten_tpu_torch.entry --scene <path> --steps 1`, run in this process
+    (it fails by itself on a non-finite loss or a severed gradient), with
+    the launch counts set to 0 just before and read just after."""
+    zero_counts(counters)
+    wall = timed(lambda: entry.main(["--scene", path, "--steps", "1",
+                                     "--device", "cuda"]))
+    counts = check_counts(counters, ("K3", "K3b"), "the gradient CLI")
+    print(f"the CLI's step with scene load: {wall:.2f} s, K3 launches "
+          f"{counts['K3']}, K3b launches {counts['K3b']} ({card_line})",
+          flush=True)
+
+
+def profile_grad(entry, mod, fns, lattice, load_scene, what, path, dev,
+                 card_line):
+    """One training step of a scene at its own resolution and spp under
+    torch.profiler: wall, device time and busy share, and the device time
+    of its lattice kernel and that kernel's backward against their bounds
+    over the points the step gave them (op table in OUT_DIR).  fns:
+    {kernel: (wrapper in mod, CUDA kernel name)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    scene, _ = load_scene(SCENE, device=dev)
-    spp_idx = torch.arange(4, device=dev)
-    target = torch.zeros(128, 128, 3, device=dev)
+    scene, rdoc = load_scene(path, device=dev)
+    spp = int(rdoc["spp"])
+    H, W = scene.camera.res_y, scene.camera.res_x
+    spp_idx = torch.arange(spp, device=dev)
+    target = torch.zeros(H, W, 3, device=dev)
     walls = [timed(lambda: entry.train_step(scene, target, spp_idx))
              for _ in range(2)]
-    fns = {"K1": "noise3d_sum_s", "K1b": "noise3d_sum_s_bwd"}
-    orig = {k: getattr(noise3d, v) for k, v in fns.items()}
+    orig = {k: getattr(mod, v) for k, (v, _) in fns.items()}
     points = {k: 0 for k in fns}
 
     def counter(k):
@@ -1109,22 +1215,21 @@ def profile_grad(entry, noise3d, lattice, load_scene, dev, card_line):
             return orig[k](p, *rest)
         return counted
 
-    for k, v in fns.items():
-        setattr(noise3d, v, counter(k))
+    for k, (v, _) in fns.items():
+        setattr(mod, v, counter(k))
     try:
         with torch.profiler.profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = timed(lambda: entry.train_step(scene, target, spp_idx))
     finally:
-        for k, v in fns.items():
-            setattr(noise3d, v, orig[k])
+        for k, (v, _) in fns.items():
+            setattr(mod, v, orig[k])
     events = prof.key_averages()
     kern = [e for e in events if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     parts = []
-    for k, name in (("K1", "noise3d_sum_s_kernel"),
-                    ("K1b", "noise3d_sum_s_bwd_kernel")):
+    for k, (_, name) in fns.items():
         k_ms = sum(e.self_device_time_total for e in kern
                    if name in e.key) / 1e3
         b_ms, _, b_cls = bound_ms(*per_points(lattice[k], points[k]))
@@ -1132,11 +1237,12 @@ def profile_grad(entry, noise3d, lattice, load_scene, dev, card_line):
                      f"{b_ms:.3f} ms ({b_cls})")
         if k_ms <= 0:
             raise RuntimeError(f"the profiler saw no device time for {k}")
-        check_bound(f"{k} over config 1's training step", k_ms, b_ms)
+        check_bound(f"{k} over {what}'s training step", k_ms, b_ms)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     launch = [e for e in events if e.key.startswith("cudaLaunchKernel")]
-    table = profile_table(prof, "profile_grad_step.txt")
-    print(f"config 1 training step (128x128, 4 spp) under torch.profiler: "
+    stem = what.replace(" ", "")
+    table = profile_table(prof, f"profile_grad_step_{stem}.txt")
+    print(f"{what} training step ({W}x{H}, {spp} spp) under torch.profiler: "
           f"wall {wall * 1e3:.1f} ms (unprofiled {walls[0] * 1e3:.1f}, "
           f"{walls[1] * 1e3:.1f} ms), device {dev_ms:.1f} ms (busy "
           f"{dev_ms / (wall * 1e3):.3f} of the profiled wall, "
@@ -1267,6 +1373,11 @@ def main():
     k3_err, k3_times = k3_checks(noise1d, lattice["K3"], dev, card_line)
     done(t0)
 
+    phase("K3b (K3's backward) against its plain twin")
+    t0 = time.perf_counter()
+    k3b_err, k3b_times = k3b_checks(noise1d, lattice["K3b"], dev, card_line)
+    done(t0)
+
     phase("K5 and K4 against their plain twins (config 4a rays, n=1024)")
     t0 = time.perf_counter()
     ws_scene_full, _ = load_scene(WS_SCENE, device=dev)
@@ -1344,7 +1455,7 @@ def main():
             phase(f"{what} (128x128, 16 spp) through the CLI")
             t0 = time.perf_counter()
             noise3d.LAUNCHES = noise1d.LAUNCHES = noise1d.MOST_POINTS = 0
-            wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
+            noise1d.K3B_LAUNCHES = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
             img, wall, peak = render_cli(trender, path, 16, tmp,
                                          os.path.basename(path)[:-5])
             m1d[what] = noise1d.LAUNCHES
@@ -1355,7 +1466,8 @@ def main():
                   f"peak device memory {peak / 2 ** 30:.2f} GiB "
                   f"({card_line})", flush=True)
             if (noise1d.LAUNCHES <= 0 or noise3d.LAUNCHES
-                    or wst.MARCH_LAUNCHES or wst.TRACE_LAUNCHES):
+                    or noise1d.K3B_LAUNCHES or wst.MARCH_LAUNCHES
+                    or wst.TRACE_LAUNCHES):
                 raise RuntimeError(f"the {what} render did not go through "
                                    "K3 alone")
             check_k3_points(noise1d, what)
@@ -1381,16 +1493,43 @@ def main():
         check_k2_points(noise3d, "the hero")
         done(t0)
 
+    counters = launch_counters(noise3d, noise1d, wst)
     phase("config 1's medium-level gradient: card against FD and the CPU")
     t0 = time.perf_counter()
-    grad_checks(md, convert, load_scene, dev)
+    grad_checks(md, convert, load_scene, dev, "config 1", SCENE)
     done(t0)
 
     phase(f"config 1's training step (128x128, 4 spp, depth 2): "
           f"{TRAIN_STEPS} steps of entry.train_step")
     t0 = time.perf_counter()
-    k1b_launches = train_steps(entry, noise3d, noise1d, wst, load_scene,
-                               dev, card_line)
+    k1b_launches = train_steps(entry, counters, load_scene, dev, card_line,
+                               "config 1", SCENE, TRAIN_STEPS,
+                               (128, 128, 4, 2), ("K1", "K1b"))["K1b"]
+    done(t0)
+
+    m1d_path = M1D_SCENES["config 3"][0]
+    phase("config 3's medium-level gradient: card against FD and the CPU")
+    t0 = time.perf_counter()
+    grad_checks(md, convert, load_scene, dev, "config 3", m1d_path)
+    done(t0)
+
+    k3b_launches = None
+    for what, steps in (("config 3", TRAIN_STEPS), ("config 3b", 1)):
+        phase(f"{what}'s training step (128x128, 16 spp, depth 2): "
+              f"{steps} step(s) of entry.train_step")
+        t0 = time.perf_counter()
+        counts = train_steps(entry, counters, load_scene, dev, card_line,
+                             what, M1D_SCENES[what][0], steps,
+                             (128, 128, 16, 2), ("K3", "K3b"))
+        k3b_launches = k3b_launches or counts["K3b"]
+        check_k3_points(noise1d, f"{what}'s training steps")
+        done(t0)
+
+    phase("config 3's gradient through the CLI: python -m "
+          "tungsten_tpu_torch.entry --scene scenes/gpis-mirror-1d.json "
+          "--steps 1")
+    t0 = time.perf_counter()
+    train_cli(entry, counters, m1d_path, card_line)
     done(t0)
 
     phase("timing runs (128x128)")
@@ -1462,7 +1601,14 @@ def main():
                        "noise3d_sum", lattice["K2"])
         check_k3_points(noise1d, "the profiled renders")
         check_k2_points(noise3d, "the profiled renders")
-        profile_grad(entry, noise3d, lattice, load_scene, dev, card_line)
+        profile_grad(entry, noise3d, {
+            "K1": ("noise3d_sum_s", "noise3d_sum_s_kernel"),
+            "K1b": ("noise3d_sum_s_bwd", "noise3d_sum_s_bwd_kernel")},
+            lattice, load_scene, "config 1", SCENE, dev, card_line)
+        profile_grad(entry, noise1d, {
+            "K3": ("noise1d_sum", "noise1d_sum_kernel"),
+            "K3b": ("noise1d_sum_bwd", "noise1d_sum_bwd_kernel")},
+            lattice, load_scene, "config 3", m1d_path, dev, card_line)
         done(t0)
 
     if "jax" in sys.modules or "tungsten_tpu" in sys.modules:
@@ -1480,7 +1626,10 @@ def main():
             ("K2 noise3d_sum", "noise3d.cu", "sparse_conv_pallas.py:136",
              k2_launches, k2_err, k2_times[K2_LINE_POINTS]),
             ("K3 noise1d_sum", "noise1d.cu", "sparse_conv_pallas.py:321",
-             m1d["config 3"], k3_err, k3_times[K3_LINE_POINTS])):
+             m1d["config 3"], k3_err, k3_times[K3_LINE_POINTS]),
+            ("K3b noise1d_sum_bwd", "noise1d.cu",
+             "sparse_conv_pallas.py:340 _noise1d_sum_bwd", k3b_launches,
+             k3b_err, k3b_times[K3B_LINE_POINTS])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tungsten_tpu_torch/csrc/{src}",

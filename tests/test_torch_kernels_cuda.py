@@ -1,7 +1,7 @@
-"""Kernels K1, K1b, K2, K3, K5 and K4 on the card, against their plain
-PyTorch twins, the config-1, config-4a, config-3 and hero renders on the
-card against the same renders on the CPU, and config 1's training step on
-the card against the same step on the CPU.
+"""Kernels K1, K1b, K2, K3, K3b, K5 and K4 on the card, against their
+plain PyTorch twins, the config-1, config-4a, config-3 and hero renders on
+the card against the same renders on the CPU, and the training steps of
+configs 1 and 3 on the card against the same steps on the CPU.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they are
 marked `cuda` and skip without one.  They import no JAX, so they run on a
@@ -15,7 +15,9 @@ in (kr, m00, m11, m22) within rtol 1e-5, atol 1e-4 (the kr partial is a
 difference of sums of terms up to ~1e2 each, so the CPU's exp, an ulp
 from the card's expf, shows at ~1e-5 of them; measured 6.9e-5 at most on
 an H100), and their sums over points within 1e-4; K3 vs twin atol 1e-5
-(at most 9 such terms).  K5/K4 vs twin, one whole search of 4096 rays of
+(at most 9 such terms); K3b vs its twin on the CPU with K1b's limits
+(its partials in kr and inv_r are sums of at most 9 terms, the second
+times a coordinate up to 6).  K5/K4 vs twin, one whole search of 4096 rays of
 config 4a at n = 1024 (the shared-memory tile) and n = 1100 (beyond it):
 hit, sign0 or the step count differ on at most 0.1% of rays (the warp
 sums add in another order than the twin's, so a value within rounding of
@@ -24,7 +26,7 @@ rays within 1e-5 * (1 + |twin|).  GPU vs CPU render
 at 8x8, 1 spp: at least 97% of pixels within 1e-3 * (1 + |cpu|) and means
 within 1% (the elementwise math around the kernels may round differently
 on the two devices, and an ulp can flip one ray's crossing).  The 16x16,
-1-spp training step: loss, new parameters and gradient within 1e-3
+1-spp training steps: loss, new parameters and gradient within 1e-3
 relative of the CPU's.
 """
 import os
@@ -41,6 +43,7 @@ from tungsten_tpu_torch.scene.parse import load_scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = os.path.join(ROOT, "scenes", "gpis-sphere-box.json")
+M1D_PLAIN_SCENE = os.path.join(ROOT, "scenes", "gpis-mirror-1d.json")
 WS_SCENE = os.path.join(ROOT, "scenes", "gpis-weight-space.json")
 M1D_SCENE = os.path.join(ROOT, "scenes", "gpis-mirror-1d-corrxy.json")
 HERO_SCENE = os.path.join(ROOT, "scenes", "gpis-hero.json")
@@ -104,14 +107,55 @@ def test_k1b_kernel_matches_twin_on_the_card(cuda, K):
 
 @pytest.mark.cuda
 def test_train_step_on_the_card_goes_through_k1b_and_matches_cpu(cuda):
+    _train_step_on_the_card_matches_cpu(
+        cuda, SCENE, lambda: noise3d.LAUNCHES > 0 and noise3d.K1B_LAUNCHES > 0)
+    assert noise1d.LAUNCHES == 0 and noise1d.K3B_LAUNCHES == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_k3b_kernel_matches_twin_on_the_card(cuda, K):
+    r = np.random.default_rng(29)
+    n = (1 << 16) + 3  # a ragged tail
+    pz = torch.from_numpy(r.uniform(-6.0, 6.0, n).astype(np.float32))
+    seed = torch.from_numpy(r.integers(0, 2 ** 32, n, dtype=np.uint64)
+                            .astype(np.int64))
+    g = torch.from_numpy(r.normal(size=n).astype(np.float32))
+    before = noise1d.K3B_LAUNCHES
+    dpz, part = noise1d.noise1d_sum_bwd(pz.to(cuda), seed.to(cuda), 3.0, K,
+                                        g.to(cuda))
+    torch.cuda.synchronize()
+    assert noise1d.K3B_LAUNCHES == before + 1
+    dpz_t, part_t = noise1d.noise1d_sum_bwd_ref(pz, seed, 3.0, K, g)
+    np.testing.assert_allclose(dpz.cpu().numpy(), dpz_t.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(part.cpu().numpy(), part_t.numpy(),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(
+        part.cpu().double().sum(0).numpy(), part_t.double().sum(0).numpy(),
+        rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_goes_through_k3b_and_matches_cpu(cuda):
+    _train_step_on_the_card_matches_cpu(
+        cuda, M1D_PLAIN_SCENE,
+        lambda: noise1d.LAUNCHES > 0 and noise1d.K3B_LAUNCHES > 0)
+    assert noise3d.LAUNCHES == 0 and noise3d.K1B_LAUNCHES == 0
+
+
+def _train_step_on_the_card_matches_cpu(cuda, path, launched):
+    """A 16x16, 1-spp training step on the card against the same step on
+    the CPU; `launched()` says whether it went through the kernels."""
     from tungsten_tpu_torch import entry
-    scene, _ = load_scene(SCENE, res_override=(16, 16), device="cpu")
+    scene, _ = load_scene(path, res_override=(16, 16), device="cpu")
     target = torch.zeros(16, 16, 3)
     ref = entry.train_step(scene, target, torch.arange(1))
     noise3d.LAUNCHES = noise3d.K1B_LAUNCHES = 0
+    noise1d.LAUNCHES = noise1d.K3B_LAUNCHES = 0
     got = entry.train_step(trender.to_device(scene, cuda), target.to(cuda),
                            torch.arange(1, device=cuda))
-    assert noise3d.LAUNCHES > 0 and noise3d.K1B_LAUNCHES > 0
+    assert launched()
     for a, b in ((got[0], ref[0]), (got[1], ref[1]), (got[2], ref[2]),
                  *zip(got[3], ref[3])):
         assert bool(torch.isfinite(a))

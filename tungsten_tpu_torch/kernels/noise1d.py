@@ -1,17 +1,27 @@
 """K3: the 3-cell x K-impulse 1D sparse-convolution noise sum along the
-iso-ray axis (the SE splat exp(-0.5 (kr d)^2)).
+iso-ray axis (the SE splat exp(-0.5 (kr d)^2)), and K3b: its backward.
 
 `noise1d_sum` is the wrapper of the CUDA kernel in csrc/noise1d.cu, the
-counterpart of tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_1d.
-A CUDA tensor launches the kernel; a CPU tensor takes the plain twin
-`noise1d_sum_ref`, which computes the same sum with the same operations in
-the same order in PyTorch.  The cell coordinate is pz * inv_r with inv_r
-the float32 reciprocal of kr, as the TPU kernel computes it.
+counterpart of tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_1d;
+`noise1d_sum_bwd` (K3b) wraps the kernel that takes the place of
+::_noise1d_sum_bwd (the JAX package's XLA re-trace of the sum under
+jax.vjp): the partials of K3's sum in pz, kr and inv_r.  A CUDA tensor
+launches the kernel; a CPU tensor takes the plain twin (`noise1d_sum_ref`,
+`noise1d_sum_bwd_ref`), which computes the same sums with the same
+operations in the same order in PyTorch.  The cell coordinate is
+pz * inv_r with inv_r the float32 reciprocal of kr, as the TPU kernel
+computes it.
 
-The kernel is built at first use with nvcc into `tungsten_tpu_torch/_build/`
-(see kernels/nvcc.py).  `LAUNCHES` counts kernel launches and `MOST_POINTS`
-records the most points one launch took, so a run can show that its main
-path went through the kernel and within which sizes.
+`noise1d_sum_diff` is K3 under autograd: differentiable in pz and, when kr
+is a tensor, in kr (through kr and inv_r = 1 / kr, as JAX's
+`noise1d_sum`); the backward is K3b on CUDA tensors and its twin on CPU
+tensors.
+
+The kernels are built at first use with nvcc into
+`tungsten_tpu_torch/_build/` (see kernels/nvcc.py).  `LAUNCHES` (K3) and
+`K3B_LAUNCHES` count kernel launches and `MOST_POINTS` records the most
+points one K3 launch took, so a run can show that its main path went
+through the kernels and within which sizes.
 """
 from __future__ import annotations
 
@@ -27,8 +37,10 @@ from .nvcc import compile_library
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "noise1d.cu"
 
 LAUNCHES = 0
+K3B_LAUNCHES = 0
 MOST_POINTS = 0
 _FN = None
+_FN3B = None
 
 _OFFSETS = (-1, 0, 1)  # cells in the kernel's loop order
 _TWIN_CHUNK = 1 << 16
@@ -40,15 +52,21 @@ def build():
 
     Returns nvcc's output (register and spill report), or "" when the
     library was already built."""
-    global _FN
+    global _FN, _FN3B
     lib, log = compile_library(SOURCE)
     if _FN is None:
-        fn = ctypes.CDLL(str(lib)).noise1d_sum
+        dll = ctypes.CDLL(str(lib))
+        fn = dll.noise1d_sum
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                        + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
+        fn3b = dll.noise1d_sum_bwd
+        fn3b.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                         + [ctypes.c_float] * 2
+                         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn3b.restype = ctypes.c_int
+        _FN, _FN3B = fn, fn3b
     return log
 
 
@@ -59,7 +77,7 @@ def reciprocal(kr):
     return float(kr32), float(np.float32(1.0) / kr32)
 
 
-def _check(pz, seed):
+def _check(pz, seed, g=None):
     if pz.dtype != torch.float32 or pz.dim() != 1:
         raise ValueError(f"pz must be float32 [N], got {pz.dtype} "
                          f"{tuple(pz.shape)}")
@@ -69,14 +87,22 @@ def _check(pz, seed):
                          f"{seed.dtype} {tuple(seed.shape)}")
     if seed.device != pz.device:
         raise ValueError("pz and seed must be on one device")
-    if pz.requires_grad:
-        raise NotImplementedError("K3 has no backward yet")
+    if g is not None and (g.dtype != torch.float32
+                          or tuple(g.shape) != tuple(pz.shape)
+                          or g.device != pz.device):
+        raise ValueError(f"g must be float32 [{pz.shape[0]}] on {pz.device}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if torch.is_grad_enabled() and pz.requires_grad:
+        raise NotImplementedError(
+            "K3's raw launch records no graph: noise1d_sum_diff is K3 under "
+            "autograd")
 
 
 def noise1d_sum(pz, seed, kr, impulse_count):
     """Raw 1D lattice sum at iso-ray coordinates pz [N] with per-point
     seeds [N] (uint32 words held in int64 or int32); kr: the cell radius
-    (a Python float).  Returns [N] float32."""
+    (a Python float).  Returns [N] float32 and records no graph (see
+    `noise1d_sum_diff`)."""
     global LAUNCHES, MOST_POINTS
     if pz.device.type == "cpu":
         return noise1d_sum_ref(pz, seed, kr, impulse_count)
@@ -103,6 +129,77 @@ def noise1d_sum(pz, seed, kr, impulse_count):
     return out
 
 
+def noise1d_sum_bwd(pz, seed, kr, impulse_count, g):
+    """K3b: the partials of K3's sum at iso-ray coordinates pz [N] with
+    seeds [N], each scaled by the point's cotangent g [N] (float32); kr: the
+    cell radius (a Python float).  Returns (dpz [N], the per-point partials
+    [N, 2] in (kr, inv_r)); the partials in the parameters are their sums
+    over points."""
+    global K3B_LAUNCHES
+    if pz.device.type == "cpu":
+        return noise1d_sum_bwd_ref(pz, seed, kr, impulse_count, g)
+    _check(pz, seed, g)
+    if pz.device.type != "cuda":
+        raise ValueError(f"K3b runs on cuda or cpu tensors, not {pz.device}")
+    if not (pz.is_contiguous() and g.is_contiguous()):
+        raise ValueError("pz and g must be contiguous")
+    n = pz.shape[0]
+    if n >= 2 ** 30:
+        raise ValueError(f"K3b takes fewer than {2 ** 30} points")
+    if _FN3B is None:
+        build()
+    kr32, inv_r = reciprocal(kr)
+    seed32 = seed.to(torch.int32).contiguous()
+    dpz = torch.empty(n, dtype=torch.float32, device=pz.device)
+    part = torch.empty(n, 2, dtype=torch.float32, device=pz.device)
+    err = _FN3B(pz.data_ptr(), seed32.data_ptr(), g.data_ptr(),
+                dpz.data_ptr(), part.data_ptr(), n, kr32, inv_r,
+                int(impulse_count), pz.device.index,
+                torch.cuda.current_stream(pz.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K3b launch failed: CUDA error {err}")
+    K3B_LAUNCHES += 1
+    return dpz, part
+
+
+class _LatticeSum1D(torch.autograd.Function):
+    """K3 forward, K3b (or its twin on CPU tensors) backward."""
+
+    @staticmethod
+    def forward(ctx, pz, kr_t, seed, kr, impulse_count):
+        ctx.save_for_backward(pz, seed)
+        ctx.kr, ctx.impulse_count = kr, impulse_count
+        return noise1d_sum(pz, seed, kr, impulse_count)
+
+    @staticmethod
+    def backward(ctx, g):
+        pz, seed = ctx.saved_tensors
+        dpz, part = noise1d_sum_bwd(pz, seed, ctx.kr, ctx.impulse_count,
+                                    g.contiguous())
+        dkr = None
+        if ctx.needs_input_grad[1]:
+            # the sums over points, in float64 so their order hardly
+            # matters; inv_r = 1 / kr adds its partial times -1 / kr^2
+            d = part.sum(dim=0, dtype=torch.float64)
+            inv_r = reciprocal(ctx.kr)[1]
+            dkr = (d[0] - d[1] * (inv_r * inv_r)).to(torch.float32)
+        return dpz, dkr, None, None, None
+
+
+def noise1d_sum_diff(pz, seed, kr, impulse_count):
+    """K3's sum at iso-ray coordinates pz [N] with seeds [N], differentiable
+    in pz and in the cell radius kr: a Python float, or a scalar tensor
+    (read on the host once per call) that may require grad.  When nothing
+    requires grad (or grad mode is off) this is K3's raw launch and records
+    no graph."""
+    kr_t = kr if isinstance(kr, torch.Tensor) else None
+    kr_f = float(kr.detach()) if kr_t is not None else float(kr)
+    if torch.is_grad_enabled() and (
+            pz.requires_grad or (kr_t is not None and kr_t.requires_grad)):
+        return _LatticeSum1D.apply(pz, kr_t, seed, kr_f, impulse_count)
+    return noise1d_sum(pz, seed, kr_f, impulse_count)
+
+
 def noise1d_sum_ref(pz, seed, kr, impulse_count):
     """Plain PyTorch twin of K3 (and of the JAX package's
     `_lattice_sum_1d`).
@@ -119,7 +216,26 @@ def noise1d_sum_ref(pz, seed, kr, impulse_count):
     return out
 
 
-def _twin_chunk(pz, seed, kr, K):
+def noise1d_sum_bwd_ref(pz, seed, kr, impulse_count, g):
+    """Plain PyTorch twin of K3b: the same partials in closed form (not
+    autograd through the forward twin), chunked, each in-reach term and
+    each of the two sums per point computed with the kernel's operations in
+    its order."""
+    _check(pz, seed, g)
+    n = pz.shape[0]
+    dpz = torch.empty(n, dtype=torch.float32, device=pz.device)
+    part = torch.empty(n, 2, dtype=torch.float32, device=pz.device)
+    for s in range(0, n, _TWIN_CHUNK):
+        c = slice(s, s + _TWIN_CHUNK)
+        dpz[c], part[c] = _twin_bwd_chunk(pz[c], rng.u32(seed[c]), kr,
+                                          impulse_count, g[c])
+    return dpz, part
+
+
+def _twin_offsets(pz, seed, kr, K):
+    """The 3 x K impulses of one chunk: (kr and inv_r as float32 scalar
+    tensors, d = the point's offset from each impulse in cell units
+    [N, 3 K] in the kernel's (cell, k) order, their +-1 weights [N, 3 K])."""
     dev = pz.device
     kr32, inv_r = (torch.tensor(v, dtype=torch.float32, device=dev)
                    for v in reciprocal(kr))
@@ -134,10 +250,32 @@ def _twin_chunk(pz, seed, kr, K):
     ti = rng.uniform(h[:, :, None], ctr)  # [N, 3, K]
     w = torch.where(rng.uniform(h[:, :, None], ctr + 1) < 0.5, -1.0, 1.0)
     d = (fr[:, None] - offs.to(torch.float32))[:, :, None] - ti
+    return kr32, inv_r, d.reshape(len(pz), -1), w.reshape(len(pz), -1)
+
+
+def _twin_chunk(pz, seed, kr, K):
+    kr32, _, d, w = _twin_offsets(pz, seed, kr, K)
     dt = kr32 * d
-    terms = torch.where(d * d < 1.0, w * torch.exp(-0.5 * dt * dt),
-                        0.0).reshape(len(pz), -1)
-    total = torch.zeros(len(pz), dtype=torch.float32, device=dev)
+    terms = torch.where(d * d < 1.0, w * torch.exp(-0.5 * dt * dt), 0.0)
+    total = torch.zeros(len(pz), dtype=torch.float32, device=pz.device)
     for j in range(terms.shape[1]):
         total = total + terms[:, j]
     return total
+
+
+def _twin_bwd_chunk(pz, seed, kr, K, ct):
+    """K3b over one chunk: (dpz [N], partials [N, 2]); ct: the cotangents
+    [N]."""
+    kr32, inv_r, d, w = _twin_offsets(pz, seed, kr, K)
+    dt = kr32 * d
+    c = torch.where(d * d < 1.0, w * torch.exp(-0.5 * dt * dt) * -dt, 0.0)
+    # [2, N, 3 K]: the terms of S and T, summed one by one in the kernel's
+    # (cell, k) order
+    terms = torch.stack([c, c * d])
+    acc = torch.zeros(2, len(pz), dtype=torch.float32, device=pz.device)
+    for j in range(terms.shape[2]):
+        acc = acc + terms[:, :, j]
+    s, t = acc
+    dpz = ct * s * kr32 * inv_r
+    part = torch.stack([ct * t, ct * s * kr32 * pz], dim=-1)
+    return dpz, part

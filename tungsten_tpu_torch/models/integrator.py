@@ -129,6 +129,17 @@ def shadow_walk(scene, ro, rd, dist, light_prim, med_idx, med_state, pss,
     return thr
 
 
+def _seg_in(in_m, t_seg):
+    """The segment lengths of the vertices in a medium, 0 elsewhere.
+
+    Elsewhere t_seg holds the surface distance or INF, where correlationXY's
+    factor exp(-t^2 / 4) (0.5 - t^2 / 4) is 0 * inf = NaN; that lane's pdf
+    is masked out, but its backward would pass 0 * NaN into the gradient
+    (the JAX package's d(image)/d(sigma, l) of config 3b is NaN so).  The
+    masked lanes' values change, no selected one does."""
+    return torch.where(in_m, t_seg, 0.0)
+
+
 def _next_bounce(pss):
     """pss [R, 4] with the bounce word advanced by one."""
     return torch.cat([pss[:, :3], pss[:, 3:] + 1], dim=1)
@@ -189,7 +200,7 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
         if ph.phase_is_specular(medium, scene.bsdfs):
             half_n = safe_normalize(-rd + d1)
             npdf = sc.nee_pdf(medium.cfg, medium.gp, med_state.coeff1, rd,
-                              half_n, p_vtx, t_seg, pss_next,
+                              half_n, p_vtx, _seg_in(in_m, t_seg), pss_next,
                               scene.scene_seed)
             f_m = scene.bsdfs.albedo[medium.phase_bsdf] * npdf[:, None]
             pdf_m = npdf
@@ -225,8 +236,9 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
         v_m = psamp["valid"]
         if ph.phase_is_specular(medium, scene.bsdfs):
             spdf = sc.nee_pdf(medium.cfg, medium.gp, med_state.coeff1, rd,
-                              safe_normalize(-rd + psamp["w"]), p_vtx, t_seg,
-                              pss_next, scene.scene_seed)
+                              safe_normalize(-rd + psamp["w"]), p_vtx,
+                              _seg_in(in_m, t_seg), pss_next,
+                              scene.scene_seed)
             pdf2 = torch.where(in_m, spdf, pdf2)
             # UNI: the main walk collects direct hits; NEE: light sampling
             # alone

@@ -84,7 +84,9 @@ def make_value_at_1d(cfg, gp, coeff1, ro, rd, pss, scene_seed):
     The 1D noise lives on a 3-cell lattice along the iso-ray axis, whose
     coordinate pz0 + t * dpz is affine in t, so a step is K3 on [R]
     coordinates plus the renewal conditioning splat around each ray's
-    conditioning origin (coeff1, [R] Coeffs)."""
+    conditioning origin (coeff1, [R] Coeffs).  Differentiable in t, the
+    rays, the covariance's parameters (through pz0, dpz and the amplitude)
+    and the conditioning coefficients: K3's backward is K3b."""
     cov = gp.cov
     # K3's word type, converted once per batch rather than once per step
     seed0 = sc.compute_seed(cfg, pss, scene_seed).to(torch.int32)
@@ -104,7 +106,7 @@ def make_value_at_1d(cfg, gp, coeff1, ro, rd, pss, scene_seed):
     def value_at(t):
         pw = ro + t[:, None] * rd
         pz = pz0 + t * dpz
-        val = noise1d.noise1d_sum(pz, seed0, kr, K) * inv_norm
+        val = noise1d.noise1d_sum_diff(pz, seed0, kr, K) * inv_norm
         if use_cond:
             dtc = pz - oz
             cv, _ = cov.cov1_val_grad(dtc)
