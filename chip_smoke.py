@@ -2,11 +2,12 @@
 
 Builds the port's CUDA kernels from tungsten_tpu_torch/csrc/ (one nvcc per
 source, all started together) and holds each against its plain PyTorch
-twin on the card: K1, its backward K1b and K2 (noise3d.cu), K3 and its
-backward K3b (noise1d.cu) and K5/K4 (ws_trace.cu, one whole weight-space
-search per launch).  Each kernel's bound is the largest of its bytes over
-HBM's rate and its instructions per pipe class over that class's rate (K1,
-K1b, K2, K3 and K3b: counted from the built kernels' SASS; K5/K4:
+twin on the card: K1, K2 and their backwards K1b and K2b (noise3d.cu), K3
+and its backward K3b (noise1d.cu) and K5/K4 (ws_trace.cu, one whole
+weight-space search per launch).  Each kernel's bound is the largest of its
+bytes over HBM's rate and its instructions per pipe class over that class's
+rate (K1, K1b, K2, K2b, K3 and K3b: counted from the built kernels' SASS;
+K5/K4:
 operations read off the source, all counted as issued); a measured time
 below its bound fails the run.  Then it drives the port's main paths through
 tungsten_tpu_torch.render and tungsten_tpu_torch.entry, each with the
@@ -31,7 +32,13 @@ launch counts set to 0 just before and read just after:
   16 spp, depth 2 (K3 forward, K3b backward), each with its loss,
   gradient, wall, launches, host syncs and peak memory, and one step
   through the CLI (`python -m tungsten_tpu_torch.entry --scene
-  scenes/gpis-mirror-1d.json --steps 1`).
+  scenes/gpis-mirror-1d.json --steps 1`);
+- the hero's hyperparameter gradient (in the base covariance's sigma and
+  l): sample_distance's gradient of a signed sum of t on 32 rays against
+  central FD and the CPU, 3 training steps at 128x128, 16 spp, depth 2
+  (K2 forward, K2b backward), each with its loss, gradient, wall,
+  launches, host syncs and peak memory, and one step through the CLI at
+  the hero's own 1920x1080, 1 spp, in 8 row bands.
 It checks each image, shows that every weight-space search was one launch
 with no host sync inside, prints config 4a's host syncs, realization
 synthesis and peak memory beside the earlier design's recorded numbers,
@@ -50,7 +57,7 @@ torch.profiler, whose op tables it writes to OUT_DIR, with each kernel's
 bound over that render; K5/K4 timed whole and in parts; and config 4a's
 host syncs, realization synthesis and peak memory through the plain
 twins, which keep the earlier design's [R, n] structure; and one
-training step each of configs 1 and 3 under torch.profiler, with the
+training step each of configs 1, 3 and 5 under torch.profiler, with the
 bounds of their lattice kernel and its backward over it.
 """
 import argparse
@@ -119,13 +126,24 @@ K1B_DP_RTOL, K1B_SUM_RTOL = 1e-5, 1e-4
 # of the partials in (kr, inv_r) (in float64) within K3B_SUM_RTOL relative.
 K3B_LINE_POINTS = 262144
 K3B_DP_RTOL, K3B_SUM_RTOL = 1e-5, 1e-4
+# K2b against its twin at K2_POINTS (K = 1 and 3); the kernels line gives the
+# numbers at the hero step's [2R] launch (524,288 points: 128x128 at 16
+# spp).  dp and the per-point partials in kr and qm within K2B_RTOL * (1 +
+# |x|), the m partials' sums over points (in float64) within K2B_SUM_RTOL.
+K2B_LINE_POINTS = 524288
+K2B_RTOL, K2B_SUM_RTOL = 1e-5, 1e-4
 # The medium-level gradient against central FD, with the limits of the JAX
 # package's tests/test_grad_e2e.py::test_medium_level_grad_matches_fd and
 # ::test_medium_level_grad_matches_fd_1d, and against the port on the CPU.
 # Per scene, the rays of that test: (count, origin, half-angle of the fan,
 # y of the direction, near, far, FD step).
+# The hero's (tests/test_torch_grad_hero.py) weighs each ray's t by the sign
+# of its d t / d sigma as the JAX package gave it (MEDIUM_WEIGHTS), so that
+# FD resolves the sigma partial.
 MEDIUM_RAYS = {"config 1": (32, (0.0, 1.0, 3.8), 0.12, -0.02, 2.0, 4.5, 4e-3),
-               "config 3": (48, (0.0, 0.9, 3.0), 0.15, -0.01, 1.2, 4.5, 2e-3)}
+               "config 3": (48, (0.0, 0.9, 3.0), 0.15, -0.01, 1.2, 4.5, 2e-3),
+               "config 5": (32, (0.0, 1.0, 3.8), 0.10, -0.03, 2.0, 4.5, 5e-4)}
+MEDIUM_WEIGHTS = {"config 5": "--+---+-++---+------+++++++--++-"}
 MEDIUM_FD_RTOL, MEDIUM_FD_ATOL = 0.15, 0.5
 MEDIUM_CPU_RTOL = 1e-3
 TRAIN_STEPS = 3
@@ -201,8 +219,8 @@ def ws_work(name, n, rays, rays_eval, steps, refined):
 
 def lattice_pipes(sass, noise3d, noise1d):
     """{kernel: (bytes, {class: instructions}) per point} of K1, K1b, K2,
-    K3 and K3b at K = 3 impulses per cell (every scene's), from the SASS of
-    the libraries just built (K3's and K3b's K = 3 kernels)."""
+    K2b, K3 and K3b at K = 3 impulses per cell (every scene's), from the
+    SASS of the libraries just built (K3's and K3b's K = 3 kernels)."""
     from tungsten_tpu_torch.kernels.nvcc import compile_library, sass_listing
     l3 = sass_listing(compile_library(noise3d.SOURCE)[0])
     l1 = sass_listing(compile_library(noise1d.SOURCE)[0])
@@ -215,6 +233,9 @@ def lattice_pipes(sass, noise3d, noise1d):
                                         27 * K, LONG_3D * K, cells=27)),
         "K2": (28, sass.lattice_counts(l3, "noise3d_sum_kernel", 27 * K,
                                        LONG_3D * K, cells=27)),
+        # p, seed, kr, qm and the cotangent in; dp and 5 partials out
+        "K2b": (60, sass.lattice_counts(l3, "noise3d_sum_bwd_kernel",
+                                        27 * K, LONG_3D * K, cells=27)),
         "K3": (12, sass.lattice_counts(l1, "noise1d_sum_kernelILi3", 1,
                                        LONG_1D * K)),
         # pz, seed and the cotangent in; dpz and 2 partials out
@@ -650,13 +671,16 @@ def k2_checks(noise3d, base, work, dev, card_line):
 
 
 def check_k2_points(noise3d, what):
-    """The render's largest K2 launch lies within the points K2 was
+    """The largest K2 and K2b launches lie within the points they were
     checked on."""
-    print(f"{what}: K2 launched on at most {noise3d.K2_MOST_POINTS} points "
-          f"(checked against its twin up to {max(K2_POINTS)})", flush=True)
-    if noise3d.K2_MOST_POINTS > max(K2_POINTS):
-        raise RuntimeError(f"{what} launched K2 on {noise3d.K2_MOST_POINTS} "
-                           "points, more than the twin check covers")
+    most = {"K2": noise3d.K2_MOST_POINTS, "K2b": noise3d.K2B_MOST_POINTS}
+    print(f"{what}: " + ", ".join(f"{k} launched on at most {v} points"
+                                  for k, v in most.items())
+          + f" (checked against their twins up to {max(K2_POINTS)})",
+          flush=True)
+    if max(most.values()) > max(K2_POINTS):
+        raise RuntimeError(f"{what} launched K2 or K2b on {most} points, "
+                           "more than the twin check covers")
 
 
 def profile_table(prof, name):
@@ -938,14 +962,15 @@ def k1b_inputs(n, dev, seed=5):
 
 
 def bwd_checks(name, launch, twin, kernel, sizes, work, part_names, rtols,
-               card_line):
+               card_line, per_point=0):
     """A backward kernel (`launch(n)` -> (d [n, ...], per-point partials
-    [n, k])) against its twin (`twin(n)`) at each of `sizes`: d within
-    rtols[0] * (1 + |x|) per point, the partials' sums over points (in
-    float64) within rtols[1] relative; each size timed beside its bound by
-    the kernel's device time (a CUDA-event window around a launch this
-    short holds mostly the wrapper's host work).  Returns (max |kernel -
-    twin| of d, {n: (device ms, twin ms, bound ms, by, class)})."""
+    [n, k])) against its twin (`twin(n)`) at each of `sizes`: d and the
+    first `per_point` partials within rtols[0] * (1 + |x|) per point, the
+    other partials' sums over points (in float64) within rtols[1]
+    relative; each size timed beside its bound by the kernel's device time
+    (a CUDA-event window around a launch this short holds mostly the
+    wrapper's host work).  Returns (max |kernel - twin| of d and the
+    per-point partials, {n: (device ms, twin ms, bound ms, by, class)})."""
     err, times = 0.0, {}
     for n in sizes:
         d, part = launch(n)
@@ -953,14 +978,21 @@ def bwd_checks(name, launch, twin, kernel, sizes, work, part_names, rtols,
         torch.cuda.synchronize()
         if not bool(torch.isfinite(d).all() and torch.isfinite(part).all()):
             raise RuntimeError(f"{name} returned non-finite values")
+        d = torch.cat([d.reshape(n, -1), part[:, :per_point]], dim=1)
+        d_t = torch.cat([d_t.reshape(n, -1), part_t[:, :per_point]], dim=1)
         rel = float(((d - d_t).abs() / (1.0 + d_t.abs())).max())
-        s = part.sum(dim=0, dtype=torch.float64)
-        s_t = part_t.sum(dim=0, dtype=torch.float64)
+        s = part[:, per_point:].sum(dim=0, dtype=torch.float64)
+        s_t = part_t[:, per_point:].sum(dim=0, dtype=torch.float64)
         srel = float(((s - s_t).abs() / s_t.abs().clamp(min=1e-30)).max())
         err = max(err, float((d - d_t).abs().max()))
         if rel > rtols[0] or srel > rtols[1]:
             raise RuntimeError(f"{name} disagrees with its twin at N={n}: "
                                f"{rel:.3e} of 1 + |x|, sums {srel:.3e}")
+        if kernel is None:
+            print(f"{name} N={n}: within {rel:.2e} * (1 + |x|) "
+                  f"({rtols[0]}), sums of the partials in {part_names} "
+                  f"within {srel:.2e} ({rtols[1]})", flush=True)
+            continue
         t_w = median_ms(lambda: launch(n))
         t_k = kernel_device_ms(lambda: launch(n), kernel)
         t_p = median_ms(lambda: twin(n), reps=5)
@@ -1016,12 +1048,38 @@ def k3b_checks(noise1d, work, dev, card_line):
         (K3B_DP_RTOL, K3B_SUM_RTOL), card_line)
 
 
-def medium_grad(md, convert, scene, dev, spec):
-    """d sum(t) / d(sigma, l) of a scene's sample_distance on the rays of
-    the JAX package's medium-level gradient test for it (`spec`, an entry
-    of MEDIUM_RAYS), over the lanes that hit at every FD evaluation, and
-    its central FD: returns (dsigma, dl, FD dsigma, FD dl, stable lanes)."""
+def k2b_checks(noise3d, base, work, dev, card_line):
+    """K2b against its twin at K2_POINTS with the points, seeds and levels
+    of k2_checks (each size a prefix), the hero's splat form and a random
+    cotangent: K = 1 at each size untimed, then K = 3 timed
+    (bwd_checks)."""
+    m3 = base.splat_form().tolist()
+    p, seed, kr, qm = k2_inputs(base, max(K2_POINTS), dev)
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=max(K2_POINTS)).astype(np.float32)).to(dev)
+
+    def args(n, K=3):
+        return p[:n], seed[:n], kr[:n], qm[:n], m3, K, g[:n]
+    bwd_checks("K2b K=1", lambda n: noise3d.noise3d_sum_bwd(*args(n, 1)),
+               lambda n: noise3d.noise3d_sum_bwd_ref(*args(n, 1)), None,
+               K2_POINTS, None, "(m00, m11, m22)", (K2B_RTOL, K2B_SUM_RTOL),
+               card_line, per_point=2)
+    return bwd_checks(
+        "K2b", lambda n: noise3d.noise3d_sum_bwd(*args(n)),
+        lambda n: noise3d.noise3d_sum_bwd_ref(*args(n)),
+        "noise3d_sum_bwd_kernel", K2_POINTS, work, "(m00, m11, m22)",
+        (K2B_RTOL, K2B_SUM_RTOL), card_line, per_point=2)
+
+
+def medium_grad(md, convert, entry, scene, dev, spec, weights=None):
+    """d sum(w t) / d(sigma, l) of a scene's sample_distance on the rays of
+    the medium-level gradient test for it (`spec`, an entry of
+    MEDIUM_RAYS; w = +-1 per ray from `weights`, "+" and "-", or 1), over
+    the lanes that hit at every FD evaluation, and its central FD: returns
+    (dsigma, dl, FD dsigma, FD dl, stable lanes)."""
     R, origin, half, dy, near, far, eps = spec
+    w_ray = torch.tensor([-1.0 if c == "-" else 1.0
+                          for c in (weights or "+" * R)], device=dev)
     ths = np.linspace(-half, half, R, dtype=np.float32)
     ro = np.tile(np.array([origin], np.float32), (R, 1))
     rd = np.stack([np.sin(ths), np.zeros(R, np.float32) + dy,
@@ -1041,8 +1099,7 @@ def medium_grad(md, convert, scene, dev, spec):
                                     md.MediumState.make(R, dev), *rest)
         return res
 
-    sigma0, l0 = (float(x) for x in (scene.media[0].gp.cov.sigma,
-                                     scene.media[0].gp.cov.l))
+    sigma0, l0 = (float(x) for x in entry.params(scene))
 
     def val(x):
         return torch.tensor(x, dtype=torch.float32, device=dev)
@@ -1051,30 +1108,32 @@ def medium_grad(md, convert, scene, dev, spec):
         stable = torch.ones(R, dtype=torch.bool, device=dev)
         for ds, dl in ((0, 0), (eps, 0), (-eps, 0), (0, eps), (0, -eps)):
             stable &= ~crossing(val(sigma0 + ds), val(l0 + dl))["exited"]
+        w = torch.where(stable, w_ray, 0.0)
 
         def f(s, l):
-            return float(torch.where(stable, crossing(val(s), val(l))["t"],
-                                     0.0).sum())
+            return float((w * crossing(val(s), val(l))["t"]).sum())
         fd_s = (f(sigma0 + eps, l0) - f(sigma0 - eps, l0)) / (2 * eps)
         fd_l = (f(sigma0, l0 + eps) - f(sigma0, l0 - eps)) / (2 * eps)
     sigma = val(sigma0).requires_grad_()
     l = val(l0).requires_grad_()
-    loss = torch.where(stable, crossing(sigma, l)["t"], 0.0).sum()
+    loss = (w * crossing(sigma, l)["t"]).sum()
     gs, gl = torch.autograd.grad(loss, (sigma, l))
     return float(gs), float(gl), fd_s, fd_l, stable.cpu()
 
 
-def grad_checks(md, convert, load_scene, dev, what, path):
+def grad_checks(md, convert, entry, load_scene, dev, what, path):
     """A scene's medium-level gradient on the card against central FD and
     against the port on the CPU."""
-    spec = MEDIUM_RAYS[what]
+    spec, weights = MEDIUM_RAYS[what], MEDIUM_WEIGHTS.get(what)
     R, eps = spec[0], spec[-1]
     scene, _ = load_scene(path, device=dev)
-    gs, gl, fd_s, fd_l, stable = medium_grad(md, convert, scene, dev, spec)
+    gs, gl, fd_s, fd_l, stable = medium_grad(md, convert, entry, scene, dev,
+                                             spec, weights)
     cpu_scene, _ = load_scene(path, device="cpu")
-    c_gs, c_gl, _, _, c_stable = medium_grad(md, convert, cpu_scene, "cpu",
-                                             spec)
-    print(f"{what} medium-level d sum(t) / d(sigma, l) on "
+    c_gs, c_gl, _, _, c_stable = medium_grad(md, convert, entry, cpu_scene,
+                                             "cpu", spec, weights)
+    loss = "sum(w t)" if weights else "sum(t)"
+    print(f"{what} medium-level d {loss} / d(sigma, l) on "
           f"{int(stable.sum())} of {R} rays: card ({gs:.5f}, {gl:.5f}), "
           f"central FD at eps {eps} ({fd_s:.5f}, {fd_l:.5f}), CPU "
           f"({c_gs:.5f}, {c_gl:.5f})", flush=True)
@@ -1098,7 +1157,8 @@ def grad_checks(md, convert, load_scene, dev, what, path):
 def launch_counters(noise3d, noise1d, wst):
     """{kernel: (module, name of its launch counter)} of every kernel."""
     return {"K1": (noise3d, "LAUNCHES"), "K1b": (noise3d, "K1B_LAUNCHES"),
-            "K2": (noise3d, "K2_LAUNCHES"), "K3": (noise1d, "LAUNCHES"),
+            "K2": (noise3d, "K2_LAUNCHES"), "K2b": (noise3d, "K2B_LAUNCHES"),
+            "K3": (noise1d, "LAUNCHES"),
             "K3b": (noise1d, "K3B_LAUNCHES"), "K5": (wst, "MARCH_LAUNCHES"),
             "K4": (wst, "TRACE_LAUNCHES")}
 
@@ -1123,84 +1183,116 @@ def check_counts(counters, used, what):
 
 
 def train_steps(entry, counters, load_scene, dev, card_line, what, path,
-                steps, shape, used):
+                steps, shape, used, res=None, spp=None):
     """`steps` steps of entry.train_step on a scene at its own resolution,
-    spp and depth (`shape`: (H, W, spp, max_bounces), checked) in one ray
-    batch, against a zero target, with the launch counts set to 0 just
-    before and read just after; each step must have a finite loss and a
-    nonzero dsigma and dl, and go through the kernels `used` (a forward
-    and its backward) alone.  Returns the launch counts."""
+    spp and depth (or at `res` and `spp`; `shape`: (H, W, spp,
+    max_bounces), checked) in one ray batch, against a zero target, with
+    the launch counts set to 0 just before and read just after; each step
+    must have a finite loss and a finite, nonzero dsigma and dl, and go
+    through the kernels `used` (a forward and its backward) alone, the
+    backward at least once per sample_distance that records a graph.
+    Returns the launch counts."""
     from tungsten_tpu_torch import convert
-    scene, rdoc = load_scene(path, device=dev)
-    spp = int(rdoc["spp"])
+    from tungsten_tpu_torch.models import media as md
+    scene, rdoc = load_scene(path, res_override=res, device=dev)
+    spp = spp or int(rdoc["spp"])
     H, W = scene.camera.res_y, scene.camera.res_x
     if (H, W, spp, scene.max_bounces) != shape:
         raise RuntimeError(f"{what} is no longer {shape[1]}x{shape[0]}, "
                            f"{shape[2]} spp, depth {shape[3]}")
     spp_idx = torch.arange(spp, device=dev)
     target = torch.zeros(H, W, 3, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    graphs = [0]
+    sample_distance = md.sample_distance
+
+    def counted(med, *args):
+        graphs[0] += torch.is_grad_enabled() and md.requires_grad(med)
+        return sample_distance(med, *args)
+
+    peaks = []
+    md.sample_distance = counted
     zero_counts(counters)
-    for step in range(steps):
-        out = []
-        before = read_counts(counters)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        syncs = host_syncs(lambda: out.append(entry.train_step(
-            scene, target, spp_idx)))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        after = read_counts(counters)
-        sigma, l, loss, (gs, gl) = out[0]
-        print(f"{what} step {step}: loss {float(loss):.6f}, sigma "
-              f"{float(sigma):.6f}, l {float(l):.6f}, dsigma {float(gs):.6e}"
-              f", dl {float(gl):.6e}; {wall:.3f} s, "
-              + ", ".join(f"{k} launches {after[k] - before[k]}"
-                          for k in used)
-              + f", host syncs {syncs} ({card_line})", flush=True)
-        if not bool(torch.isfinite(loss)):
-            raise RuntimeError(f"{what} step {step}: the loss is not finite")
-        if not all(np.isfinite(float(g)) and float(g) != 0.0
-                   for g in (gs, gl)):
-            raise RuntimeError(f"{what} step {step}: dsigma {float(gs)}, dl "
-                               f"{float(gl)}: the gradient chain is severed "
-                               "or not finite")
-        scene = convert.set_params(scene, sigma, l)
+    try:
+        for step in range(steps):
+            out = []
+            before, graphs[0] = read_counts(counters), 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            syncs = host_syncs(lambda: out.append(entry.train_step(
+                scene, target, spp_idx)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            after = read_counts(counters)
+            sigma, l, loss, (gs, gl) = out[0]
+            others = sum(after[k] - before[k] for k in after if k not in used)
+            print(f"{what} step {step}: loss {float(loss):.6f}, sigma "
+                  f"{float(sigma):.6f}, l {float(l):.6f}, dsigma "
+                  f"{float(gs):.6e}, dl {float(gl):.6e}; {wall:.3f} s, "
+                  + ", ".join(f"{k} launches {after[k] - before[k]}"
+                              for k in used)
+                  + f", other kernels' launches {others}, sample_distance "
+                  f"with a graph {graphs[0]}, host syncs {syncs}, peak "
+                  f"device memory {peaks[-1]:.2f} GiB ({card_line})",
+                  flush=True)
+            if not bool(torch.isfinite(loss)):
+                raise RuntimeError(f"{what} step {step}: the loss is not "
+                                   "finite")
+            if not all(np.isfinite(float(g)) and float(g) != 0.0
+                       for g in (gs, gl)):
+                raise RuntimeError(f"{what} step {step}: dsigma {float(gs)}, "
+                                   f"dl {float(gl)}: the gradient chain is "
+                                   "severed or not finite")
+            bwd = used[-1]
+            if not 0 < graphs[0] <= after[bwd] - before[bwd]:
+                raise RuntimeError(f"{what} step {step}: {bwd} launched "
+                                   f"{after[bwd] - before[bwd]} times for "
+                                   f"{graphs[0]} sample_distance calls with "
+                                   "a graph")
+            scene = convert.set_params(scene, sigma, l)
+    finally:
+        md.sample_distance = sample_distance
     counts = read_counts(counters)
     print(f"{what}, {steps} steps: "
           + ", ".join(f"{k} launches {v}" for k, v in counts.items())
-          + f"; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-          f"({card_line})", flush=True)
+          + f"; peak device memory {max(peaks):.2f} GiB ({card_line})",
+          flush=True)
     return check_counts(counters, used, f"{what}'s training steps")
 
 
-def train_cli(entry, counters, path, card_line):
+def train_cli(entry, counters, args, used, card_line):
     """One step through the gradient CLI, `python -m
-    tungsten_tpu_torch.entry --scene <path> --steps 1`, run in this process
-    (it fails by itself on a non-finite loss or a severed gradient), with
-    the launch counts set to 0 just before and read just after."""
+    tungsten_tpu_torch.entry <args> --steps 1`, run in this process (it
+    fails by itself on a non-finite loss or a severed gradient), with the
+    launch counts set to 0 just before and read just after; it must go
+    through the kernels `used` alone."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     zero_counts(counters)
-    wall = timed(lambda: entry.main(["--scene", path, "--steps", "1",
-                                     "--device", "cuda"]))
-    counts = check_counts(counters, ("K3", "K3b"), "the gradient CLI")
-    print(f"the CLI's step with scene load: {wall:.2f} s, K3 launches "
-          f"{counts['K3']}, K3b launches {counts['K3b']} ({card_line})",
-          flush=True)
+    wall = timed(lambda: entry.main([*args, "--steps", "1", "--device",
+                                     "cuda"]))
+    counts = check_counts(counters, used, "the gradient CLI")
+    print(f"the CLI's step with scene load: {wall:.2f} s, "
+          + ", ".join(f"{k} launches {counts[k]}" for k in used)
+          + f", peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({card_line})", flush=True)
+    return counts
 
 
 def profile_grad(entry, mod, fns, lattice, load_scene, what, path, dev,
-                 card_line):
-    """One training step of a scene at its own resolution and spp under
-    torch.profiler: wall, device time and busy share, and the device time
-    of its lattice kernel and that kernel's backward against their bounds
-    over the points the step gave them (op table in OUT_DIR).  fns:
-    {kernel: (wrapper in mod, CUDA kernel name)}."""
+                 card_line, res=None, spp=None):
+    """One training step of a scene at its own resolution and spp (or at
+    `res` and `spp`) under torch.profiler: wall, device time and busy
+    share, and the device time of its lattice kernel and that kernel's
+    backward against their bounds over the points the step gave them (op
+    table in OUT_DIR).  fns: {kernel: (wrapper in mod, CUDA kernel
+    name)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    scene, rdoc = load_scene(path, device=dev)
-    spp = int(rdoc["spp"])
+    scene, rdoc = load_scene(path, res_override=res, device=dev)
+    spp = spp or int(rdoc["spp"])
     H, W = scene.camera.res_y, scene.camera.res_x
     spp_idx = torch.arange(spp, device=dev)
     target = torch.zeros(H, W, 3, device=dev)
@@ -1368,6 +1460,12 @@ def main():
                                  card_line)
     done(t0)
 
+    phase("K2b (K2's backward) against its plain twin (the hero's levels)")
+    t0 = time.perf_counter()
+    k2b_err, k2b_times = k2b_checks(noise3d, hero_base, lattice["K2b"], dev,
+                                    card_line)
+    done(t0)
+
     phase("K3 against its plain twin")
     t0 = time.perf_counter()
     k3_err, k3_times = k3_checks(noise1d, lattice["K3"], dev, card_line)
@@ -1478,6 +1576,7 @@ def main():
               "through the CLI")
         t0 = time.perf_counter()
         noise3d.LAUNCHES = noise3d.K2_LAUNCHES = noise3d.K2_MOST_POINTS = 0
+        noise3d.K2B_LAUNCHES = noise3d.K2B_MOST_POINTS = 0
         noise1d.LAUNCHES = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
         img, wall, peak = render_cli(trender, HERO_SCENE, 1, tmp, "hero")
         k2_launches = noise3d.K2_LAUNCHES
@@ -1488,7 +1587,8 @@ def main():
               f"({1920 * 1080 / wall / 1e3:.2f} Ksamples/s), peak device "
               f"memory {peak / 2 ** 30:.2f} GiB ({card_line})", flush=True)
         if (k2_launches <= 0 or noise3d.LAUNCHES or noise1d.LAUNCHES
-                or wst.MARCH_LAUNCHES or wst.TRACE_LAUNCHES):
+                or noise3d.K2B_LAUNCHES or wst.MARCH_LAUNCHES
+                or wst.TRACE_LAUNCHES):
             raise RuntimeError("the hero render did not go through K2 alone")
         check_k2_points(noise3d, "the hero")
         done(t0)
@@ -1496,7 +1596,7 @@ def main():
     counters = launch_counters(noise3d, noise1d, wst)
     phase("config 1's medium-level gradient: card against FD and the CPU")
     t0 = time.perf_counter()
-    grad_checks(md, convert, load_scene, dev, "config 1", SCENE)
+    grad_checks(md, convert, entry, load_scene, dev, "config 1", SCENE)
     done(t0)
 
     phase(f"config 1's training step (128x128, 4 spp, depth 2): "
@@ -1510,7 +1610,7 @@ def main():
     m1d_path = M1D_SCENES["config 3"][0]
     phase("config 3's medium-level gradient: card against FD and the CPU")
     t0 = time.perf_counter()
-    grad_checks(md, convert, load_scene, dev, "config 3", m1d_path)
+    grad_checks(md, convert, entry, load_scene, dev, "config 3", m1d_path)
     done(t0)
 
     k3b_launches = None
@@ -1529,7 +1629,35 @@ def main():
           "tungsten_tpu_torch.entry --scene scenes/gpis-mirror-1d.json "
           "--steps 1")
     t0 = time.perf_counter()
-    train_cli(entry, counters, m1d_path, card_line)
+    train_cli(entry, counters, ["--scene", m1d_path], ("K3", "K3b"),
+              card_line)
+    done(t0)
+
+    phase("config 5's (the hero's) medium-level gradient: card against FD "
+          "and the CPU")
+    t0 = time.perf_counter()
+    grad_checks(md, convert, entry, load_scene, dev, "config 5", HERO_SCENE)
+    done(t0)
+
+    phase(f"config 5's training step (128x128, 16 spp, depth 2): "
+          f"{TRAIN_STEPS} steps of entry.train_step")
+    t0 = time.perf_counter()
+    noise3d.K2_MOST_POINTS = noise3d.K2B_MOST_POINTS = 0
+    k2b_launches = train_steps(entry, counters, load_scene, dev, card_line,
+                               "config 5", HERO_SCENE, TRAIN_STEPS,
+                               (128, 128, 16, 2), ("K2", "K2b"),
+                               res=(128, 128), spp=16)["K2b"]
+    check_k2_points(noise3d, "the hero's training steps")
+    done(t0)
+
+    rows = trender.MAX_RAYS // 1920
+    phase(f"config 5's gradient through the CLI at 1920x1080, 1 spp (bands "
+          f"of {rows} rows): python -m tungsten_tpu_torch.entry --scene "
+          "scenes/gpis-hero.json --spp 1 --steps 1")
+    t0 = time.perf_counter()
+    train_cli(entry, counters, ["--scene", HERO_SCENE, "--spp", "1"],
+              ("K2", "K2b"), card_line)
+    check_k2_points(noise3d, "the hero's CLI step")
     done(t0)
 
     phase("timing runs (128x128)")
@@ -1609,6 +1737,11 @@ def main():
             "K3": ("noise1d_sum", "noise1d_sum_kernel"),
             "K3b": ("noise1d_sum_bwd", "noise1d_sum_bwd_kernel")},
             lattice, load_scene, "config 3", m1d_path, dev, card_line)
+        profile_grad(entry, noise3d, {
+            "K2": ("noise3d_sum", "noise3d_sum_kernel"),
+            "K2b": ("noise3d_sum_bwd", "noise3d_sum_bwd_kernel")},
+            lattice, load_scene, "config 5", HERO_SCENE, dev, card_line,
+            res=(128, 128), spp=16)
         done(t0)
 
     if "jax" in sys.modules or "tungsten_tpu" in sys.modules:
@@ -1625,6 +1758,9 @@ def main():
              k1b_err, k1b_times[K1B_LINE_POINTS]),
             ("K2 noise3d_sum", "noise3d.cu", "sparse_conv_pallas.py:136",
              k2_launches, k2_err, k2_times[K2_LINE_POINTS]),
+            ("K2b noise3d_sum_bwd", "noise3d.cu",
+             "sparse_conv_pallas.py:179 _noise3d_sum_bwd", k2b_launches,
+             k2b_err, k2b_times[K2B_LINE_POINTS]),
             ("K3 noise1d_sum", "noise1d.cu", "sparse_conv_pallas.py:321",
              m1d["config 3"], k3_err, k3_times[K3_LINE_POINTS]),
             ("K3b noise1d_sum_bwd", "noise1d.cu",

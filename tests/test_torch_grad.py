@@ -280,7 +280,7 @@ def test_grad_render_has_the_plain_value_and_train_step(jax_image_grads):
 def test_unported_backwards_refuse_by_name():
     p = torch.zeros(4, 3, requires_grad=True)
     seed = torch.zeros(4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(NotImplementedError, match="noise3d_sum_diff"):
         noise3d.noise3d_sum(p, seed, torch.ones(4), torch.ones(4),
                             [1.0] * 3 + [0.0] * 3, 3)
     with pytest.raises(NotImplementedError, match="noise1d_sum_diff"):

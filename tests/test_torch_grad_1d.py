@@ -70,7 +70,7 @@ from tungsten_tpu_torch.scene.parse import load_scene as tload_scene
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = {False: os.path.join(ROOT, "scenes", "gpis-mirror-1d.json"),
           True: os.path.join(ROOT, "scenes", "gpis-mirror-1d-corrxy.json")}
-HERO = os.path.join(ROOT, "scenes", "gpis-hero.json")
+WS = os.path.join(ROOT, "scenes", "gpis-weight-space.json")
 # a fixed direction the second normal is projected on
 PROJ = np.array([0.3, -0.5, 0.8], np.float32)
 
@@ -482,9 +482,12 @@ def test_cli_takes_the_mirror_scene(capsys):
 
 
 def test_unported_gradient_refuses_by_name():
-    hero, _ = tload_scene(HERO, res_override=(2, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="nonstationary"):
-        entry.fwd_bwd(hero, 0)
-    with pytest.raises(NotImplementedError, match="nonstationary"):
-        entry.main(["--scene", HERO, "--device", "cpu", "--res", "2x2",
+    """The weight-space medium's gradient is not ported (the hero's is,
+    tests/test_torch_grad_hero.py): the gradient entry points refuse it by
+    name."""
+    ws, _ = tload_scene(WS, res_override=(2, 2), device="cpu")
+    with pytest.raises(NotImplementedError, match="weight-space"):
+        entry.fwd_bwd(ws, 0)
+    with pytest.raises(NotImplementedError, match="weight-space"):
+        entry.main(["--scene", WS, "--device", "cpu", "--res", "2x2",
                     "--steps", "1"])

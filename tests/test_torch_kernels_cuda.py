@@ -1,7 +1,7 @@
-"""Kernels K1, K1b, K2, K3, K3b, K5 and K4 on the card, against their
+"""Kernels K1, K1b, K2, K2b, K3, K3b, K5 and K4 on the card, against their
 plain PyTorch twins, the config-1, config-4a, config-3 and hero renders on
 the card against the same renders on the CPU, and the training steps of
-configs 1 and 3 on the card against the same steps on the CPU.
+configs 1, 3 and 5 on the card against the same steps on the CPU.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they are
 marked `cuda` and skip without one.  They import no JAX, so they run on a
@@ -14,7 +14,12 @@ the CPU: dp within rtol and atol 1e-5 per point, the per-point partials
 in (kr, m00, m11, m22) within rtol 1e-5, atol 1e-4 (the kr partial is a
 difference of sums of terms up to ~1e2 each, so the CPU's exp, an ulp
 from the card's expf, shows at ~1e-5 of them; measured 6.9e-5 at most on
-an H100), and their sums over points within 1e-4; K3 vs twin atol 1e-5
+an H100), and their sums over points within 1e-4; K2b vs its twin run
+on the card, whose torch.exp is the kernel's expf: dp and the per-point
+partials in (kr, qm, m00, m11, m22) within 1e-5 * (1 + |x|), their sums
+over points within 1e-4 (against the CPU's twin one ulp of exp moves the kr
+partial by up to ~2e-4: at the finest level it is a difference of terms
+up to ~1e3); K3 vs twin atol 1e-5
 (at most 9 such terms); K3b vs its twin on the CPU with K1b's limits
 (its partials in kr and inv_r are sums of at most 9 terms, the second
 times a coordinate up to 6).  K5/K4 vs twin, one whole search of 4096 rays of
@@ -152,6 +157,7 @@ def _train_step_on_the_card_matches_cpu(cuda, path, launched):
     target = torch.zeros(16, 16, 3)
     ref = entry.train_step(scene, target, torch.arange(1))
     noise3d.LAUNCHES = noise3d.K1B_LAUNCHES = 0
+    noise3d.K2_LAUNCHES = noise3d.K2B_LAUNCHES = 0
     noise1d.LAUNCHES = noise1d.K3B_LAUNCHES = 0
     got = entry.train_step(trender.to_device(scene, cuda), target.to(cuda),
                            torch.arange(1, device=cuda))
@@ -187,6 +193,47 @@ def test_k2_kernel_matches_twin_on_the_card(cuda, K):
     want = noise3d.noise3d_sum_ref(p, seed, kr, qm, m6, K)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_k2b_kernel_matches_twin_on_the_card(cuda, K):
+    scene, _ = load_scene(HERO_SCENE, device="cpu")
+    base = scene.media[0].gp.cov.base
+    m3 = base.splat_form().tolist()
+    r = np.random.default_rng(31)
+    n = (1 << 16) + 5  # a ragged tail
+    p = torch.from_numpy(r.uniform(-1.0, 2.0, (n, 3)).astype(np.float32))
+    lvl = r.integers(-1, 3, n)
+    s = np.float32(2.5) ** lvl.astype(np.float32)
+    seed = torch.from_numpy((r.integers(0, 2 ** 32, n, dtype=np.uint64)
+                             .astype(np.int64) + lvl) % 2 ** 32)
+    kr = torch.from_numpy(np.float32(float(base.splat_radius())) * s)
+    qm = torch.from_numpy(np.float32(1.0) / (s * s))
+    g = torch.from_numpy(r.normal(size=n).astype(np.float32))
+    before = noise3d.K2B_LAUNCHES
+    dp, part = noise3d.noise3d_sum_bwd(p.to(cuda), seed.to(cuda),
+                                       kr.to(cuda), qm.to(cuda), m3, K,
+                                       g.to(cuda))
+    torch.cuda.synchronize()
+    assert noise3d.K2B_LAUNCHES == before + 1
+    dp_t, part_t = noise3d.noise3d_sum_bwd_ref(
+        p.to(cuda), seed.to(cuda), kr.to(cuda), qm.to(cuda), m3, K,
+        g.to(cuda))
+    for got, want in ((dp, dp_t), (part, part_t)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        part.cpu().double().sum(0).numpy(),
+        part_t.cpu().double().sum(0).numpy(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hero_train_step_on_the_card_goes_through_k2b_and_matches_cpu(cuda):
+    _train_step_on_the_card_matches_cpu(
+        cuda, HERO_SCENE,
+        lambda: noise3d.K2_LAUNCHES > 0 and noise3d.K2B_LAUNCHES > 0)
+    assert noise3d.LAUNCHES == 0 and noise3d.K1B_LAUNCHES == 0
 
 
 @pytest.mark.cuda

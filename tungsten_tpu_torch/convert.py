@@ -195,8 +195,15 @@ def scene_from_numpy(tree, device="cuda"):
 def set_params(scene, sigma, l):
     """The scene with medium 0's covariance amplitude sigma and length
     scale l replaced (scalar tensors, e.g. leaves that require grad): the
-    counterpart of the JAX package's `set_params` in gradcheck.py."""
+    counterpart of the JAX package's `set_params` in gradcheck.py.  A
+    procedural nonstationary covariance (config 5) takes them on its
+    stationary base, whose fields scale them."""
     med = scene.media[0]
-    cov = dataclasses.replace(med.gp.cov, sigma=sigma, l=l)
+    cov = med.gp.cov
+    if cov.is_stationary:
+        cov = dataclasses.replace(cov, sigma=sigma, l=l)
+    else:
+        cov = dataclasses.replace(cov, base=dataclasses.replace(
+            cov.base, sigma=sigma, l=l))
     med = dataclasses.replace(med, gp=dataclasses.replace(med.gp, cov=cov))
     return dataclasses.replace(scene, media=(med,) + tuple(scene.media[1:]))

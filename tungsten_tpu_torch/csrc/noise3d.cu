@@ -1,4 +1,5 @@
-// K1 and K2: the raw 3D sparse-convolution noise sum; K1b: K1's backward.
+// K1 and K2: the raw 3D sparse-convolution noise sum; K1b and K2b: their
+// backwards.
 //
 // K1 (noise3d_sum_s_kernel) replaces
 // tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_scalar (launched by
@@ -14,7 +15,9 @@
 // (noise3d_sum_s_bwd_kernel) replaces ::_noise3d_sum_s_bwd, which the JAX
 // package runs as an XLA re-trace (jax.vjp) of the same lattice sum: the
 // partials of K1's sum in p, kr and the diagonal of m6, for a diagonal
-// splat form.
+// splat form.  K2b (noise3d_sum_bwd_kernel) replaces ::_noise3d_sum_bwd, the
+// same re-trace for K2: the partials in p, the per-point kr and qm and the
+// diagonal of m6.
 //
 // What bounds them: integer ALU.  A point costs 27 xxhash32_4 cell keys and
 // 27 * 4K xxhash32_2 variates -- about 330 hashes, thousands of 32-bit
@@ -22,7 +25,8 @@
 // out) and 28 for K2 (its kr and qm).  K2 adds a per-point reciprocal and
 // 27 * K multiplies by qm.  K1b hashes as K1 does and adds 12 float
 // operations per impulse within reach, against 48 bytes (p, seed and the
-// cotangent in; 3 + 4 partials out).  The lever for later is data reuse:
+// cotangent in; 3 + 4 partials out); K2b likewise against 60 (kr and qm
+// in too, 3 + 5 partials out).  The lever for later is data reuse:
 // neighbouring points share most of their 27 cells and all of those cells'
 // impulses, so a block could hash each cell once into shared memory instead
 // of once per point.
@@ -34,11 +38,11 @@
 // gx = px * inv_r, the cell index is (uint32)(int32)floor(g), keys are
 // hashed in (z, y, x, seed) order, variates are (h >> 8) * 2^-24, K2 scales
 // the finished quadratic form (q = qm * quad), and the sum runs dx, dy, dz,
-// k.  K1b accumulates its nine sums per point in registers in the same
-// order, with its loops kept rolled so that its SASS has K1's loop shape,
-// and leaves the sum over points to the caller (no atomics).  Built without
-// fast math and with -fmad=false, so float rounding follows the plain
-// PyTorch twins (kernels/noise3d.py) operation for operation.
+// k.  K1b and K2b accumulate their nine sums per point in registers in the
+// same order, with their loops kept rolled so that their SASS has K1's loop
+// shape, and leave the sum over points to the caller (no atomics).  Built
+// without fast math and with -fmad=false, so float rounding follows the
+// plain PyTorch twins (kernels/noise3d.py) operation for operation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -268,6 +272,115 @@ noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
   part[4 * i + 3] = -ct * qz2;
 }
 
+// K2b: the backward of K2, K1b's walk with a per-point radius kr and
+// quadratic-form scale qm (q = qm * quad, as K2 has it).  With c2_i =
+// -2 qm m_ii and S, T, Q as in K1b, the partials scaled by the cotangent g
+// are
+//   d/dp_i   = g c2_i S_i kr / kr,
+//   d/dkr    = g sum_i c2_i (T_i - S_i p_i / kr),
+//   d/dqm    = -g sum_i m_ii Q_i,
+//   d/dm_ii  = -g qm Q_i,
+// written as dp [N, 3] and the per-point partials [N, 5] of (kr, qm, m00,
+// m11, m22).  dkr and dqm stay per point (the JAX package's are per lane);
+// the caller sums the three m partials over points.
+__global__ void __launch_bounds__(256)
+noise3d_sum_bwd_kernel(const float* __restrict__ p,
+                       const uint32_t* __restrict__ seed,
+                       const float* __restrict__ kr_in,
+                       const float* __restrict__ qm_in,
+                       const float* __restrict__ g, float* __restrict__ dp,
+                       float* __restrict__ part, int n, float m00, float m11,
+                       float m22, int impulse_count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float px = p[3 * i + 0];
+  const float py = p[3 * i + 1];
+  const float pz = p[3 * i + 2];
+  const uint32_t sd = seed[i];
+  const float kr = kr_in[i];
+  const float qm = qm_in[i];
+  const float inv_r = 1.0f / kr;
+  const float gx = px * inv_r;
+  const float gy = py * inv_r;
+  const float gz = pz * inv_r;
+  const float bx = floorf(gx);
+  const float by = floorf(gy);
+  const float bz = floorf(gz);
+  const float fx = gx - bx;
+  const float fy = gy - by;
+  const float fz = gz - bz;
+  const uint32_t ix = (uint32_t)(int32_t)bx;
+  const uint32_t iy = (uint32_t)(int32_t)by;
+  const uint32_t iz = (uint32_t)(int32_t)bz;
+
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+  float tx = 0.0f, ty = 0.0f, tz = 0.0f;
+  float qx2 = 0.0f, qy2 = 0.0f, qz2 = 0.0f;
+#pragma unroll 1
+  for (int dx = -1; dx <= 1; ++dx) {
+#pragma unroll 1
+    for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll 1
+      for (int dz = -1; dz <= 1; ++dz) {
+        const uint32_t cx = ix + (uint32_t)dx;
+        const uint32_t cy = iy + (uint32_t)dy;
+        const uint32_t cz = iz + (uint32_t)dz;
+        const uint32_t h = xxhash32_4(cz, cy, cx, sd) + 1u;
+        const float qx = fx - (float)dx;
+        const float qy = fy - (float)dy;
+        const float qz = fz - (float)dz;
+#pragma unroll 1
+        for (int k = 0; k < impulse_count; ++k) {
+          const uint32_t c = 4u * (uint32_t)k;
+          const float ux = u01(xxhash32_2(h, c));
+          const float uy = u01(xxhash32_2(h, c + 1u));
+          const float uz = u01(xxhash32_2(h, c + 2u));
+          const float ddx = qx - ux;
+          const float ddy = qy - uy;
+          const float ddz = qz - uz;
+          const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
+          if (r2 < 1.0f) {
+            const float uw = u01(xxhash32_2(h, c + 3u));
+            const float abx = kr * ddx;
+            const float aby = kr * ddy;
+            const float abz = kr * ddz;
+            const float q = qm * (m00 * abx * abx + m11 * aby * aby
+                                  + m22 * abz * abz);
+            const float w = uw < 0.5f ? -1.0f : 1.0f;
+            const float e = w * expf(-q);
+            const float ex = e * abx;
+            const float ey = e * aby;
+            const float ez = e * abz;
+            sx = sx + ex;
+            sy = sy + ey;
+            sz = sz + ez;
+            tx = tx + ex * ddx;
+            ty = ty + ey * ddy;
+            tz = tz + ez * ddz;
+            qx2 = qx2 + ex * abx;
+            qy2 = qy2 + ey * aby;
+            qz2 = qz2 + ez * abz;
+          }
+        }
+      }
+    }
+  }
+  const float ct = g[i];
+  const float c2x = -2.0f * qm * m00;
+  const float c2y = -2.0f * qm * m11;
+  const float c2z = -2.0f * qm * m22;
+  dp[3 * i + 0] = ct * (c2x * sx) * kr * inv_r;
+  dp[3 * i + 1] = ct * (c2y * sy) * kr * inv_r;
+  dp[3 * i + 2] = ct * (c2z * sz) * kr * inv_r;
+  part[5 * i + 0] = ct * (c2x * (tx - sx * gx) + c2y * (ty - sy * gy)
+                          + c2z * (tz - sz * gz));
+  part[5 * i + 1] = -ct * (m00 * qx2 + m11 * qy2 + m22 * qz2);
+  const float cq = -ct * qm;
+  part[5 * i + 2] = cq * qx2;
+  part[5 * i + 3] = cq * qy2;
+  part[5 * i + 4] = cq * qz2;
+}
+
 }  // namespace
 
 // The launchers run their kernel on `stream` of `device`, then make the
@@ -337,6 +450,30 @@ extern "C" int noise3d_sum(const void* p, const void* seed, const void* kr,
         (const float*)p, (const uint32_t*)seed, (const float*)kr,
         (const float*)qm, (float*)out, n, m00, m11, m22, m01, m02, m12,
         impulse_count);
+  }
+  err = cudaGetLastError();
+  const cudaError_t restore = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restore);
+}
+
+// K2b.
+extern "C" int noise3d_sum_bwd(const void* p, const void* seed,
+                               const void* kr, const void* qm, const void* g,
+                               void* dp, void* part, int n, float m00,
+                               float m11, float m22, int impulse_count,
+                               int device, void* stream) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0) {
+    const int threads = 256;
+    const int blocks = (n + threads - 1) / threads;
+    noise3d_sum_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)p, (const uint32_t*)seed, (const float*)kr,
+        (const float*)qm, (const float*)g, (float*)dp, (float*)part, n, m00,
+        m11, m22, impulse_count);
   }
   err = cudaGetLastError();
   const cudaError_t restore = cudaSetDevice(prev);

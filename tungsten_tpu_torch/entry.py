@@ -1,7 +1,7 @@
-"""The hyperparameter gradient of BASELINE config 1 and of configs 3 and 3b,
-the port's counterpart of the JAX package's `__graft_entry__.py`:
+"""The hyperparameter gradient of BASELINE configs 1, 3, 3b and 5 (the
+hero), the port's counterpart of the JAX package's `__graft_entry__.py`:
 `python -m tungsten_tpu_torch.entry --device cuda --steps 3
-[--scene scenes/gpis-mirror-1d.json]`.
+[--scene scenes/gpis-hero.json] [--spp 1]`.
 
 `fwd_bwd(scene, spp_idx)` renders one pass and returns the image with
 d sum(image) / d(sigma, l) of medium 0's covariance, as `entry()` does
@@ -9,20 +9,22 @@ there; `train_step(scene, target, spp_idx, lr)` is one step of
 `dryrun_multichip`'s inverse rendering on one device: the L2 loss of the
 pass against `target` (a mean where step_shard sums; see train_step), its
 gradient in (sigma, l), and one SGD step on them (no all-reduce: one
-device).
+device).  (sigma, l) are those of medium 0's covariance, of its stationary
+base for the hero's procedural nonstationary covariance.
 The render keeps its graph only from the parameters on, by the
 detached-sampling estimator (models/integrator.py); on CUDA tensors the
-lattice sum's backward is kernel K1b (config 1's 3D sum) or K3b (the 1D sum
-of configs 3 and 3b).  A scene whose gradient is not ported (the hero's
-procedural nonstationary covariance, a weight-space medium) refuses by
-name.
+lattice sum's backward is kernel K1b (config 1's 3D sum), K2b (the hero's
+two multi-resolution levels) or K3b (the 1D sum of configs 3 and 3b).  A
+weight-space medium, whose gradient is not ported, refuses by name.
 
 The CLI loads `--scene` (config 1, `scenes/gpis-sphere-box.json`, by
-default) at its own resolution (or `--res WxH`), spp and depth (config 1:
-128x128, 4 spp; configs 3 and 3b: 128x128, 16 spp; max_bounces 2 in all
-three), renders all samples of a step in one ray batch and takes `--steps`
-steps against a zero target, printing each step's loss, parameters and
-gradient.
+default) at its own resolution (or `--res WxH`), spp (or `--spp`) and
+depth (config 1: 128x128, 4 spp; configs 3 and 3b: 128x128, 16 spp; the
+hero: 1920x1080, 32 spp; max_bounces 2 in all) and takes `--steps` steps
+against a zero target, printing each step's loss, parameters and
+gradient.  A frame of at most `render.MAX_RAYS` pixels renders all samples
+of a step in one ray batch; a larger one (the hero's) in render.render's
+row bands (see train_step).
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import time
 
 import torch
 
-from . import convert
+from . import convert, render
 from .models.integrator import render_pass
 from .scene.parse import check_device, load_scene
 
@@ -42,12 +44,11 @@ SCENE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def params(scene):
-    """(sigma, l) of medium 0's covariance."""
+    """(sigma, l) of medium 0's covariance (of its stationary base when it
+    is procedural nonstationary)."""
     cov = scene.media[0].gp.cov
     if not cov.is_stationary:
-        raise NotImplementedError(
-            "the gradient of a procedural nonstationary covariance (config "
-            "5) is not ported yet: K2 has no backward")
+        cov = cov.base
     return cov.sigma, cov.l
 
 
@@ -76,12 +77,34 @@ def train_step(scene, target, spp_idx, lr=1e-3):
     at 1 spp.  At 1 spp, loss and gradient here are step_shard's divided by
     3 * H * W (tests/test_torch_grad.py holds them so).  The mean keeps the
     step of lr = 1e-3 small at any resolution: at 128x128 the sum's first
-    step would move sigma by hundreds of times its value."""
+    step would move sigma by hundreds of times its value.
+
+    A frame of more than `render.MAX_RAYS` pixels renders in
+    render.render's bands of MAX_RAYS // W rows, one sample at a time; each
+    band's part of the loss is backpropagated on its own and the bands'
+    gradients are summed before the step, as dryrun_multichip sums its row
+    shards.  The loss and gradient are the single batch's, and the peak
+    memory is one band's graph."""
     sigma, l = _leaves(scene)
-    spp = torch.as_tensor(spp_idx).reshape(-1).numel()
-    img = render_pass(convert.set_params(scene, sigma, l), spp_idx) / spp
-    loss = ((img - target) ** 2).mean()
-    gs, gl = torch.autograd.grad(loss, (sigma, l))
+    samples = torch.as_tensor(spp_idx).reshape(-1)
+    spp = samples.numel()
+    pscene = convert.set_params(scene, sigma, l)
+    H, W = scene.camera.res_y, scene.camera.res_x
+    if H * W <= render.MAX_RAYS:
+        img = render_pass(pscene, spp_idx) / spp
+        loss = ((img - target) ** 2).mean()
+        gs, gl = torch.autograd.grad(loss, (sigma, l))
+    else:
+        rows = max(1, render.MAX_RAYS // W)
+        loss = gs = gl = 0.0
+        for r0 in range(0, H, rows):
+            r1 = min(r0 + rows, H)
+            band = 0.0
+            for s in samples.tolist():
+                band = band + render_pass(pscene, s, (r0, r1))
+            part = ((band / spp - target[r0:r1]) ** 2).sum() / target.numel()
+            d_s, d_l = torch.autograd.grad(part, (sigma, l))
+            loss, gs, gl = loss + part.detach(), gs + d_s, gl + d_l
     return (sigma.detach() - lr * gs, l.detach() - lr * gl, loss.detach(),
             (gs, gl))
 
@@ -89,7 +112,7 @@ def train_step(scene, target, spp_idx, lr=1e-3):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Inverse-rendering steps on the GP hyperparameters of "
-                    "a GPIS scene (BASELINE config 1, 3 or 3b) with "
+                    "a GPIS scene (BASELINE config 1, 3, 3b or 5) with "
                     "tungsten_tpu_torch.")
     ap.add_argument("--scene", default=SCENE,
                     help="the scene file (default: config 1's "
@@ -99,6 +122,9 @@ def main(argv=None):
     ap.add_argument("--res", default=None, metavar="WxH",
                     help="override the camera resolution (the scene's "
                          "by default)")
+    ap.add_argument("--spp", type=int, default=None,
+                    help="samples per pixel of a step (the scene's by "
+                         "default)")
     args = ap.parse_args(argv)
 
     device = check_device(args.device)
@@ -107,13 +133,17 @@ def main(argv=None):
         w, h = args.res.lower().split("x")
         res = (int(w), int(h))
     scene, rdoc = load_scene(args.scene, res_override=res, device=device)
-    spp = int(rdoc.get("spp", 4))
+    spp = args.spp or int(rdoc.get("spp", 4))
     spp_idx = torch.arange(spp, device=device)
-    target = torch.zeros(scene.camera.res_y, scene.camera.res_x, 3,
-                         device=device)
-    print(f"{os.path.basename(args.scene)}: "
-          f"{scene.camera.res_x}x{scene.camera.res_y}, {spp} spp in one "
-          f"batch of {scene.camera.res_x * scene.camera.res_y * spp} rays, "
+    H, W = scene.camera.res_y, scene.camera.res_x
+    target = torch.zeros(H, W, 3, device=device)
+    if H * W <= render.MAX_RAYS:
+        batches = f"in one batch of {W * H * spp} rays"
+    else:
+        rows = max(1, render.MAX_RAYS // W)
+        batches = (f"in {-(-H // rows)} bands of {rows} rows, one sample at "
+                   "a time")
+    print(f"{os.path.basename(args.scene)}: {W}x{H}, {spp} spp {batches}, "
           f"max_bounces {scene.max_bounces}, on {device}", flush=True)
     for step in range(args.steps):
         t0 = time.perf_counter()

@@ -1,5 +1,5 @@
 """K1 and K2: the 27-cell x K-impulse sparse-convolution noise sum, and
-K1b: K1's backward.
+K1b and K2b: their backwards.
 
 `noise3d_sum_s` (K1: scalar kr, qm folded into m6) and `noise3d_sum` (K2:
 per-point kr and qm, the multi-resolution levels of a nonstationary
@@ -8,23 +8,27 @@ tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_scalar and
 ::_noise_kernel.  `noise3d_sum_s_bwd` (K1b) wraps the kernel that takes the
 place of ::_noise3d_sum_s_bwd (the JAX package's XLA re-trace of the sum
 under jax.vjp): the partials of K1's sum in p, kr and the diagonal of a
-diagonal splat form.  A CUDA tensor launches the kernel; a CPU tensor takes
-the plain twin (`noise3d_sum_s_ref`, `noise3d_sum_ref`,
-`noise3d_sum_s_bwd_ref`), which computes the same sums with the same
-operations in the same order in PyTorch.
+diagonal splat form.  `noise3d_sum_bwd` (K2b) does the same for K2, in
+place of ::_noise3d_sum_bwd: the partials in p, the per-point kr and qm and
+the splat form's diagonal.  A CUDA tensor launches the kernel; a CPU tensor
+takes the plain twin (`noise3d_sum_s_ref`, `noise3d_sum_ref`,
+`noise3d_sum_s_bwd_ref`, `noise3d_sum_bwd_ref`), which computes the same
+sums with the same operations in the same order in PyTorch.
 
 `noise3d_sum_s_diff` is K1 under autograd: kr and the splat form's
 diagonal are tensors (read on the host once per batch, `host_params`),
-and the backward is K1b on CUDA tensors and its twin on CPU tensors.  K2
-has no backward yet and refuses inputs that require grad.
+and the backward is K1b on CUDA tensors and its twin on CPU tensors.
+`noise3d_sum_diff` is K2 under autograd in the same way, with the
+per-point kr and qm differentiable and backward K2b.  The raw launches
+record no graph and refuse inputs that require grad.
 
 The kernels are built at first use with nvcc into
 `tungsten_tpu_torch/_build/` (one shared library with a plain C interface,
 loaded with ctypes; see kernels/nvcc.py), once per content of the source,
-nvcc flags and nvcc version.  `LAUNCHES` (K1), `K1B_LAUNCHES` and
-`K2_LAUNCHES` count kernel launches, so a run can show that its main path
-went through the kernel; `K2_MOST_POINTS` records the most points one K2
-launch took.
+nvcc flags and nvcc version.  `LAUNCHES` (K1), `K1B_LAUNCHES`,
+`K2_LAUNCHES` and `K2B_LAUNCHES` count kernel launches, so a run can show
+that its main path went through the kernel; `K2_MOST_POINTS` and
+`K2B_MOST_POINTS` record the most points one K2 or K2b launch took.
 """
 from __future__ import annotations
 
@@ -42,9 +46,12 @@ LAUNCHES = 0
 K1B_LAUNCHES = 0
 K2_LAUNCHES = 0
 K2_MOST_POINTS = 0
+K2B_LAUNCHES = 0
+K2B_MOST_POINTS = 0
 _FN = None
 _FN1B = None
 _FN2 = None
+_FN2B = None
 
 # (dx, dy, dz) in the kernel's loop order
 _OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
@@ -58,7 +65,7 @@ def build():
 
     Returns nvcc's output (register and spill report), or "" when the
     library was already built."""
-    global _FN, _FN1B, _FN2
+    global _FN, _FN1B, _FN2, _FN2B
     lib, log = compile_library(SOURCE)
     if _FN is None:
         dll = ctypes.CDLL(str(lib))
@@ -77,7 +84,12 @@ def build():
                         + [ctypes.c_float] * 6
                         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn2.restype = ctypes.c_int
-        _FN, _FN1B, _FN2 = fn, fn1b, fn2
+        fn2b = dll.noise3d_sum_bwd
+        fn2b.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
+                         + [ctypes.c_float] * 3
+                         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn2b.restype = ctypes.c_int
+        _FN, _FN1B, _FN2, _FN2B = fn, fn1b, fn2, fn2b
     return log
 
 
@@ -98,11 +110,11 @@ def _check(p, seed, name="K1", kr=None, qm=None):
     if torch.is_grad_enabled() and (
             p.requires_grad or (kr is not None and (kr.requires_grad
                                                     or qm.requires_grad))):
-        if name == "K1":
-            raise NotImplementedError(
-                "K1's raw launch records no graph: noise3d_sum_s_diff is K1 "
-                "under autograd")
-        raise NotImplementedError(f"{name} has no backward yet")
+        under = {"K1": "noise3d_sum_s_diff", "K2": "noise3d_sum_diff"}
+        raise NotImplementedError(
+            f"{name}'s raw launch records no graph"
+            + (f": {under[name]} is {name} under autograd" if name in under
+               else ""))
 
 
 def noise3d_sum_s(p, seed, kr, m6q, impulse_count):
@@ -250,6 +262,84 @@ def noise3d_sum(p, seed, kr, qm, m6, impulse_count):
     return out
 
 
+def noise3d_sum_bwd(p, seed, kr, qm, m3, impulse_count, g):
+    """K2b: the partials of K2's sum at points p [N, 3] with seeds [N], cell
+    radii kr [N] and quadratic-form scales qm [N], each scaled by the
+    point's cotangent g [N] (float32).
+
+    m3 = (m00, m11, m22), the diagonal of the unit-scale splat form (its
+    off-diagonal entries are 0), are Python floats.  Returns (dp [N, 3],
+    the per-point partials [N, 5] in (kr, qm, m00, m11, m22)); the partials
+    in m are their sums over points."""
+    global K2B_LAUNCHES, K2B_MOST_POINTS
+    if p.device.type == "cpu":
+        return noise3d_sum_bwd_ref(p, seed, kr, qm, m3, impulse_count, g)
+    _check(p, seed, "K2b", kr, qm)
+    if p.device.type != "cuda":
+        raise ValueError(f"K2b runs on cuda or cpu tensors, not {p.device}")
+    n = p.shape[0]
+    if g.dtype != torch.float32 or tuple(g.shape) != (n,) or \
+            g.device != p.device:
+        raise ValueError(f"g must be float32 [{n}] on {p.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    if not all(x.is_contiguous() for x in (p, kr, qm, g)):
+        raise ValueError("p, kr, qm and g must be contiguous")
+    if n >= 2 ** 31 // 5:
+        raise ValueError(f"K2b takes fewer than {2 ** 31 // 5} points")
+    if _FN2B is None:
+        build()
+    seed32 = seed.to(torch.int32).contiguous()
+    dp = torch.empty(n, 3, dtype=torch.float32, device=p.device)
+    part = torch.empty(n, 5, dtype=torch.float32, device=p.device)
+    err = _FN2B(p.data_ptr(), seed32.data_ptr(), kr.data_ptr(),
+                qm.data_ptr(), g.data_ptr(), dp.data_ptr(), part.data_ptr(),
+                n, *(float(v) for v in m3), int(impulse_count),
+                p.device.index,
+                torch.cuda.current_stream(p.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K2b launch failed: CUDA error {err}")
+    K2B_LAUNCHES += 1
+    K2B_MOST_POINTS = max(K2B_MOST_POINTS, n)
+    return dp, part
+
+
+class _LatticeSum(torch.autograd.Function):
+    """K2 forward, K2b (or its twin on CPU tensors) backward."""
+
+    @staticmethod
+    def forward(ctx, p, kr, qm, m3, seed, host, impulse_count):
+        ctx.save_for_backward(p, kr, qm, seed)
+        ctx.host, ctx.impulse_count = host, impulse_count
+        return noise3d_sum(p, seed, kr, qm, (*host, 0.0, 0.0, 0.0),
+                           impulse_count)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, kr, qm, seed = ctx.saved_tensors
+        dp, part = noise3d_sum_bwd(p, seed, kr, qm, ctx.host,
+                                   ctx.impulse_count, g.contiguous())
+        # the m partials' sum over points, in float64 so its order hardly
+        # matters; kr and qm keep theirs per point
+        dm = part[:, 2:].sum(dim=0, dtype=torch.float64).to(torch.float32)
+        return dp, part[:, 0], part[:, 1], dm, None, None, None
+
+
+def noise3d_sum_diff(p, seed, kr, qm, m3, impulse_count, host):
+    """K2's sum at points p [N, 3] with seeds [N], differentiable in p, the
+    cell radii kr [N], the quadratic-form scales qm [N] and the diagonal m3
+    [3] of the unit-scale splat form (diagonal: its off-diagonal entries
+    are 0).
+
+    host: m3's values as Python floats, read once per batch.  When nothing
+    requires grad (or grad mode is off) this is K2's raw launch and records
+    no graph."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (p, kr, qm, m3)):
+        return _LatticeSum.apply(p, kr, qm, m3, seed, host, impulse_count)
+    return noise3d_sum(p, seed, kr, qm, (*host, 0.0, 0.0, 0.0),
+                       impulse_count)
+
+
 def noise3d_sum_s_ref(p, seed, kr, m6q, impulse_count):
     """Plain PyTorch twin of K1 (and of the JAX package's `_lattice_sum`).
 
@@ -282,8 +372,27 @@ def noise3d_sum_s_bwd_ref(p, seed, kr, m3, impulse_count, g):
     part = torch.empty(n, 4, dtype=torch.float32, device=p.device)
     for s in range(0, n, _TWIN_CHUNK):
         c = slice(s, s + _TWIN_CHUNK)
-        dp[c], part[c] = _twin_bwd_chunk(p[c], rng.u32(seed[c]), krt, m3,
-                                         impulse_count, g[c])
+        dp[c], part[c] = _twin_bwd_chunk(p[c], rng.u32(seed[c]), krt, None,
+                                         m3, impulse_count, g[c])
+    return dp, part
+
+
+def noise3d_sum_bwd_ref(p, seed, kr, qm, m3, impulse_count, g):
+    """Plain PyTorch twin of K2b: K1b's twin with a per-point radius (and
+    its reciprocal) and quadratic-form scale, whose partials stay per
+    point."""
+    _check(p, seed, "K2b", kr, qm)
+    n = p.shape[0]
+    if g.dtype != torch.float32 or tuple(g.shape) != (n,):
+        raise ValueError(f"g must be float32 [{n}], got {g.dtype} "
+                         f"{tuple(g.shape)}")
+    m3 = tuple(float(v) for v in m3)
+    dp = torch.empty(n, 3, dtype=torch.float32, device=p.device)
+    part = torch.empty(n, 5, dtype=torch.float32, device=p.device)
+    for s in range(0, n, _TWIN_CHUNK):
+        c = slice(s, s + _TWIN_CHUNK)
+        dp[c], part[c] = _twin_bwd_chunk(p[c], rng.u32(seed[c]), kr[c],
+                                         qm[c], m3, impulse_count, g[c])
     return dp, part
 
 
@@ -343,15 +452,20 @@ def _twin_chunk(p, seed, kr, qm, m6q, K):
     return total
 
 
-def _twin_bwd_chunk(p, seed, kr, m3, K, ct):
-    """K1b over one chunk: (dp [N, 3], partials [N, 4]); kr is a scalar
-    tensor, m3 three floats, ct the cotangents [N]."""
-    g, dd, uw = _twin_offsets(p, seed, kr, K)
+def _twin_bwd_chunk(p, seed, kr, qm, m3, K, ct):
+    """K1b over one chunk, (dp [N, 3], partials [N, 4]), with kr a scalar
+    tensor and qm None; K2b, (dp, partials [N, 5]), with kr and qm [N].
+    m3 is three floats, ct the cotangents [N]."""
+    krc = kr[:, None] if kr.dim() else kr
+    g, dd, uw = _twin_offsets(p, seed, krc, K)
     ddx, ddy, ddz = dd.unbind(-1)
     r2 = ddx * ddx + ddy * ddy + ddz * ddz
-    abx, aby, abz = kr * ddx, kr * ddy, kr * ddz
+    krc = krc[..., None]  # against [N, 27, K]
+    abx, aby, abz = krc * ddx, krc * ddy, krc * ddz
     m00, m11, m22 = m3
     q = m00 * abx * abx + m11 * aby * aby + m22 * abz * abz
+    if qm is not None:
+        q = qm[:, None, None] * q
     w = torch.where(uw < 0.5, -1.0, 1.0)
     e = torch.where(r2 < 1.0, w * torch.exp(-q), 0.0)
     ex, ey, ez = e * abx, e * aby, e * abz
@@ -365,11 +479,18 @@ def _twin_bwd_chunk(p, seed, kr, m3, K, ct):
     sx, sy, sz, tx, ty, tz, qx, qy, qz = acc
     inv_r = 1.0 / kr
     gx, gy, gz = g.unbind(-1)
-    c2x, c2y, c2z = -2.0 * m00, -2.0 * m11, -2.0 * m22
+    if qm is None:
+        c2x, c2y, c2z = -2.0 * m00, -2.0 * m11, -2.0 * m22
+    else:
+        c2x, c2y, c2z = (-2.0 * qm * m00, -2.0 * qm * m11,
+                         -2.0 * qm * m22)
     dp = torch.stack([ct * (c2x * sx) * kr * inv_r,
                       ct * (c2y * sy) * kr * inv_r,
                       ct * (c2z * sz) * kr * inv_r], dim=-1)
     dkr = ct * (c2x * (tx - sx * gx) + c2y * (ty - sy * gy)
                 + c2z * (tz - sz * gz))
-    part = torch.stack([dkr, -ct * qx, -ct * qy, -ct * qz], dim=-1)
-    return dp, part
+    if qm is None:
+        return dp, torch.stack([dkr, -ct * qx, -ct * qy, -ct * qz], dim=-1)
+    cq = -ct * qm
+    return dp, torch.stack([dkr, -ct * (m00 * qx + m11 * qy + m22 * qz),
+                            cq * qx, cq * qy, cq * qz], dim=-1)

@@ -27,10 +27,11 @@ Gradients (the JAX package's detached-sampling estimator): the marches
 and visibility record no graph; a sparse-conv crossing is reattached to
 the GP hyperparameters by the implicit function theorem and its normal is
 sampled at the reattached point.  The lattice sum's backward is K1b on
-the 3D stationary path and K3b on the 1D path, where the renewal+
-conditioning at a segment start keeps the graph of the value and normal
-the path carries; K2 has no backward yet, and the weight-space crossing
-has no gradient yet: each refuses by name.
+the 3D stationary path, K2b on the two multi-resolution levels of a
+nonstationary covariance (whose level blend and fields stay in the graph)
+and K3b on the 1D path, where the renewal+ conditioning at a segment start
+keeps the graph of the value and normal the path carries.  The
+weight-space crossing has no gradient yet and refuses by name.
 """
 from __future__ import annotations
 
@@ -308,9 +309,10 @@ def _reattach_crossing(value_at, t, hit, f_at_t):
     root, t - (f - f.detach()) / dfdt, whose value is t.
 
     dfdt is the derivative in t of the realization's value at the detached
-    t, with the parameters held (amplitude, normalization, mean and 1D
-    conditioning included); through the lattice sum it is K1b's d/dp . rd
-    or K3b's d/dpz times dpz/dt.  Grazing
+    t, with the parameters held (amplitude, normalization, mean, 1D
+    conditioning and the multi-resolution level blend included); through
+    the lattice sum it is K1b's or K2b's d/dp . rd or K3b's d/dpz times
+    dpz/dt.  Grazing
     crossings (|dfdt| <= 1e-3) and rays without a crossing are detached."""
     tt = t.detach().requires_grad_()
     dfdt, = torch.autograd.grad(value_at(tt)[0].sum(), tt)

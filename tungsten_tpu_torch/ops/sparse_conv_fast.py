@@ -11,6 +11,8 @@ batch, so each step is one kernel plus a few elementwise ops on [R]
 tensors.  Under the multi-resolution grid the two levels around ls(p)
 change along the ray, so each step computes them, with their radii,
 quadratic-form scales and variances, and sums both in one K2 launch.
+The 3D steps are differentiable in t, the rays and the covariance's
+parameters: K1's backward is K1b, K2's is K2b.
 """
 from __future__ import annotations
 
@@ -51,10 +53,14 @@ def _make_value_at_multi_res(cfg, gp, ro, rd, seed0):
     point the normalized lattice sums of the levels lvl and lvl + 1 around
     ls(p), each at its scale s (seed offset by its level, cell radius
     kr_unit * s, quadratic form over s^2), blended by r_lo and r_hi.  Both
-    levels go to K2 as one [2R] batch."""
+    levels go to K2 as one [2R] batch, differentiable in p (through t),
+    in l (through the cell radii and the splat form) and in the levels'
+    scales."""
     cov = gp.cov
-    # the base's unit-scale splat form (diagonal) and cell radius
-    m6 = cov.base.splat_form().tolist() + [0.0, 0.0, 0.0]
+    # the base's unit-scale splat form (diagonal: a tensor, differentiable
+    # in l, and its values, read on the host once per batch) and cell radius
+    m3 = cov.base.splat_form()
+    host = tuple(m3.detach().tolist())
     kr_unit = cov.base.splat_radius()
     dens = cfg.impulse_density
     K = cfg.impulse_count
@@ -68,8 +74,9 @@ def _make_value_at_multi_res(cfg, gp, ro, rd, seed0):
         s = torch.stack([s_lo, s_hi])  # [2, R]
         kr = kr_unit * s
         qm = 1.0 / (s * s)
-        total = noise3d.noise3d_sum(p.repeat(2, 1), seed.reshape(-1),
-                                    kr.reshape(-1), qm.reshape(-1), m6, K)
+        total = noise3d.noise3d_sum_diff(p.repeat(2, 1), seed.reshape(-1),
+                                         kr.reshape(-1), qm.reshape(-1), m3,
+                                         K, host)
         vals = total.reshape(s.shape) / torch.sqrt(cov.variance3(dens, kr, s))
         val = r_lo * vals[0] + r_hi * vals[1]
         mean, gp_id = gp.mean_and_id(p)
