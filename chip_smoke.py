@@ -4,14 +4,19 @@ Builds the port's CUDA kernels from tungsten_tpu_torch/csrc/ (one nvcc per
 source, all started together) and holds each against its plain PyTorch
 twin on the card: K1, K2 and their backwards K1b and K2b (noise3d.cu), K3
 and its backward K3b (noise1d.cu) and K5/K4 (ws_trace.cu, one whole
-weight-space search per launch).  Each kernel's bound is the largest of its
-bytes over HBM's rate and its instructions per pipe class over that class's
-rate (K1, K1b, K2, K2b, K3 and K3b: counted from the built kernels' SASS;
-K5/K4:
-operations read off the source, all counted as issued); a measured time
-below its bound fails the run.  Then it drives the port's main paths through
-tungsten_tpu_torch.render and tungsten_tpu_torch.entry, each with the
-launch counts set to 0 just before and read just after:
+weight-space search per launch).  K1b and K3b sum the parameters'
+partials over points inside the launch: their d/dp must equal the twin's
+bit for bit, their sums the twin's within 1e-4, two launches on the same
+inputs must agree bit for bit, a backward through autograd must be one
+launch, and K1b is also run with more impulses within reach of a point
+than its ring holds.  Each kernel's bound is the largest of its bytes over
+HBM's rate and its instructions per pipe class over that class's rate
+(K1, K1b, K2, K2b, K3 and K3b: counted from the built kernels' SASS, K1b's
+along its split walk; K5/K4: operations read off the source, all counted
+as issued); a measured time below its bound fails the run.  Then it
+drives the port's main paths through tungsten_tpu_torch.render and
+tungsten_tpu_torch.entry, each with the launch counts set to 0 just before
+and read just after:
 - BASELINE config 1 (scenes/gpis-sphere-box.json, sparse-conv noise, K1);
 - BASELINE config 4a (scenes/gpis-weight-space.json, weight-space RFF,
   1024 basis functions, K5's fixed-step march);
@@ -114,18 +119,29 @@ K2_LINE_POINTS = 524288
 WS_MAX_SHARE = 1e-3  # rays whose flags or decisions may differ
 # K1b against its twin up to 2^20 points; the kernels line gives the numbers
 # at the training step's launch (65,536 rays: config 1's 128x128 at 4 spp).
-# dp per point within K1B_DP_RTOL * (1 + |x|) (sums of at most 81 terms,
-# expf may differ by an ulp); the sums over points of the parameters'
-# partials (in float64) within K1B_SUM_RTOL relative.
+# dp bit-equal (K1B_DP_RTOL 0: the twin adds each point's terms in the
+# kernel's order with its operations, and runs on the card); the sums over
+# points of the parameters' partials (float64 in both, in other orders,
+# each rounded once to float32) within K1B_SUM_ULPS float32 ulps:
+# bit-equal, as two float64 sums a few float64 ulps apart round to one
+# float32 unless they straddle a rounding boundary.  At each timed size
+# the twin also sums in float32, a control of what the limit rejects: a
+# kernel that added its partials in float32 (printed; its readings in
+# PERF.md).  K1b and K3b are also checked untimed at ODD_POINTS (one
+# point, under one block, not a multiple of a block) and with MANY_K
+# impulses per cell (K1b: ~33.5 within reach of a point, more than its
+# ring holds; K3b: its runtime-K kernel).
 K1B_POINTS = (4096, 65536, 1 << 20)
+ODD_POINTS = (1, 255, 4097)
+MANY_K = 8
 K1B_LINE_POINTS = 65536
-K1B_DP_RTOL, K1B_SUM_RTOL = 1e-5, 1e-4
+K1B_DP_RTOL, K1B_SUM_ULPS = 0.0, 0
 # K3b against its twin at K3_POINTS; the kernels line gives the numbers at
-# config 3's 16-spp training batch (262,144 rays).  dpz per point within
-# K3B_DP_RTOL * (1 + |x|) (sums of at most 9 terms), the sums over points
-# of the partials in (kr, inv_r) (in float64) within K3B_SUM_RTOL relative.
+# config 3's 16-spp training batch (262,144 rays).  dpz bit-equal, d/dkr
+# summed over points (float64 in both) within K3B_SUM_ULPS float32 ulps,
+# with K1b's float32 control.
 K3B_LINE_POINTS = 262144
-K3B_DP_RTOL, K3B_SUM_RTOL = 1e-5, 1e-4
+K3B_DP_RTOL, K3B_SUM_ULPS = 0.0, 0
 # K2b against its twin at K2_POINTS (K = 1 and 3); the kernels line gives the
 # numbers at the hero step's [2R] launch (524,288 points: 128x128 at 16
 # spp).  dp and the per-point partials in kr and qm within K2B_RTOL * (1 +
@@ -158,12 +174,19 @@ TRAIN_STEPS = 3
 # with -fmad=false.
 PEAK_BYTES = 3.35e12
 SMS, CLOCK = 132, 1.98e9
+SM_ISSUE = 128  # thread-instructions issued per SM and clock
 # K1, K2 and K3: instructions per point by class, counted from the built
 # kernels' SASS (lattice_pipes).  Each impulse within reach of the point
-# (d^2 < 1) takes the long path (its last variate and expf): with impulses
+# (d^2 < 1) takes the long path (its last variate and expf; in K1b's split
+# walk, its append to the ring and its drained entry): with impulses
 # uniform in their cells, per impulse index 4 pi / 3 of the 27 cells' in
 # 3D, 2 of the 3 cells' in 1D.
 LONG_3D, LONG_1D = 4.0 * np.pi / 3.0, 2.0
+# Instructions per point of K1b's and K3b's earlier design (one branch per
+# impulse, the per-point partials summed outside), counted in the same way
+# from its SASS on an H100: printed beside the new design's times for
+# information.
+OLD_WORK = {"K1b": 7410.4, "K3b": 471.0}
 # K5 and K4: operations per basis function read off the source, each at
 # least one instruction, so they bound the issue class; the SASS issues
 # more (35.5 instructions per term of K5's march step against 24 counted,
@@ -220,7 +243,8 @@ def ws_work(name, n, rays, rays_eval, steps, refined):
 def lattice_pipes(sass, noise3d, noise1d):
     """{kernel: (bytes, {class: instructions}) per point} of K1, K1b, K2,
     K2b, K3 and K3b at K = 3 impulses per cell (every scene's), from the
-    SASS of the libraries just built (K3's and K3b's K = 3 kernels)."""
+    SASS of the libraries just built (K1b's, K3's and K3b's K = 3
+    kernels)."""
     from tungsten_tpu_torch.kernels.nvcc import compile_library, sass_listing
     l3 = sass_listing(compile_library(noise3d.SOURCE)[0])
     l1 = sass_listing(compile_library(noise1d.SOURCE)[0])
@@ -228,9 +252,12 @@ def lattice_pipes(sass, noise3d, noise1d):
     return {
         "K1": (20, sass.lattice_counts(l3, "noise3d_sum_s_kernel", 27 * K,
                                        LONG_3D * K, cells=27)),
-        # p, seed and the cotangent in; dp and 4 partials out
-        "K1b": (48, sass.lattice_counts(l3, "noise3d_sum_s_bwd_kernel",
-                                        27 * K, LONG_3D * K, cells=27)),
+        # p, seed and the cotangent in; dp out.  The split walk: the cell
+        # loop (K = 3 tests each) 27 times, an append and a drained entry
+        # per impulse within reach, and the point loop around the walk
+        # (loads, dp and the float64 partials) once
+        "K1b": (32, sass.split_counts(l3, "noise3d_sum_s_bwd_kernelILi3",
+                                      27, LONG_3D * K, around=1)),
         "K2": (28, sass.lattice_counts(l3, "noise3d_sum_kernel", 27 * K,
                                        LONG_3D * K, cells=27)),
         # p, seed, kr, qm and the cotangent in; dp and 5 partials out
@@ -238,8 +265,8 @@ def lattice_pipes(sass, noise3d, noise1d):
                                         27 * K, LONG_3D * K, cells=27)),
         "K3": (12, sass.lattice_counts(l1, "noise1d_sum_kernelILi3", 1,
                                        LONG_1D * K)),
-        # pz, seed and the cotangent in; dpz and 2 partials out
-        "K3b": (24, sass.lattice_counts(l1, "noise1d_sum_bwd_kernelILi3", 1,
+        # pz, seed and the cotangent in; dpz out
+        "K3b": (16, sass.lattice_counts(l1, "noise1d_sum_bwd_kernelILi3", 1,
                                         LONG_1D * K))}
 
 
@@ -962,75 +989,167 @@ def k1b_inputs(n, dev, seed=5):
 
 
 def bwd_checks(name, launch, twin, kernel, sizes, work, part_names, rtols,
-               card_line, per_point=0):
-    """A backward kernel (`launch(n)` -> (d [n, ...], per-point partials
-    [n, k])) against its twin (`twin(n)`) at each of `sizes`: d and the
-    first `per_point` partials within rtols[0] * (1 + |x|) per point, the
-    other partials' sums over points (in float64) within rtols[1]
-    relative; each size timed beside its bound by the kernel's device time
-    (a CUDA-event window around a launch this short holds mostly the
-    wrapper's host work).  Returns (max |kernel - twin| of d and the
-    per-point partials, {n: (device ms, twin ms, bound ms, by, class)})."""
+               card_line, per_point=None, control=None):
+    """A backward kernel against its twin (`twin(n)`) at each of `sizes`.
+    With per_point None, `launch(n)` -> (d [n, ...], the parameters'
+    partials summed over points, float32), the sums within rtols[1] float32
+    ulps of the twin's, and a second launch must repeat both bit for bit
+    (the sums are deterministic and the ticket was reset); with per_point
+    k, `launch(n)` -> (d, per-point partials [n, P]), whose first k columns
+    count with d and whose others are summed over points here (in float64),
+    the sums within rtols[1] relative.  d within rtols[0] * (1 + |x|) per
+    point (0: bit-equal).  With `kernel`, each size timed beside its bound
+    by the kernel's device time (a CUDA-event window around a launch this
+    short holds mostly the wrapper's host work), and `control(n)`, the twin
+    summing in float32, read against the twin (printed).  Returns (max
+    |kernel - twin| of d and the per-point partials, {n: (device ms, twin
+    ms, bound ms, by, class)})."""
     err, times = 0.0, {}
     for n in sizes:
-        d, part = launch(n)
-        d_t, part_t = twin(n)
+        d, second = launch(n)
+        d_t, second_t = twin(n)
+        again = launch(n) if per_point is None else None
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(d).all() and torch.isfinite(part).all()):
+        if not bool(torch.isfinite(d).all() and torch.isfinite(second).all()):
             raise RuntimeError(f"{name} returned non-finite values")
-        d = torch.cat([d.reshape(n, -1), part[:, :per_point]], dim=1)
-        d_t = torch.cat([d_t.reshape(n, -1), part_t[:, :per_point]], dim=1)
+        if per_point is None:
+            if not (torch.equal(again[0], d)
+                    and torch.equal(again[1], second)):
+                raise RuntimeError(f"{name} N={n}: two launches on the same "
+                                   "inputs differ")
+            s = second.double().reshape(-1)
+            s_t = second_t.double().reshape(-1)
+            d, d_t = d.reshape(n, -1), d_t.reshape(n, -1)
+            srel = f32_ulps(second, second_t)
+            unit = "float32 ulps"
+        else:
+            s = second[:, per_point:].sum(dim=0, dtype=torch.float64)
+            s_t = second_t[:, per_point:].sum(dim=0, dtype=torch.float64)
+            d = torch.cat([d.reshape(n, -1), second[:, :per_point]], dim=1)
+            d_t = torch.cat([d_t.reshape(n, -1), second_t[:, :per_point]],
+                            dim=1)
+            srel = float(((s - s_t).abs() / s_t.abs().clamp(min=1e-30))
+                         .max())
+            unit = "relative"
         rel = float(((d - d_t).abs() / (1.0 + d_t.abs())).max())
-        s = part[:, per_point:].sum(dim=0, dtype=torch.float64)
-        s_t = part_t[:, per_point:].sum(dim=0, dtype=torch.float64)
-        srel = float(((s - s_t).abs() / s_t.abs().clamp(min=1e-30)).max())
         err = max(err, float((d - d_t).abs().max()))
         if rel > rtols[0] or srel > rtols[1]:
             raise RuntimeError(f"{name} disagrees with its twin at N={n}: "
-                               f"{rel:.3e} of 1 + |x|, sums {srel:.3e}")
+                               f"{rel:.3e} of 1 + |x|, sums {srel:.3e} "
+                               f"{unit}")
+        same = "repeated launches bit-equal, " if per_point is None else ""
         if kernel is None:
             print(f"{name} N={n}: within {rel:.2e} * (1 + |x|) "
-                  f"({rtols[0]}), sums of the partials in {part_names} "
-                  f"within {srel:.2e} ({rtols[1]})", flush=True)
+                  f"({rtols[0]}), {same}sums of the partials in {part_names}"
+                  f" within {srel:.2e} {unit} ({rtols[1]})", flush=True)
             continue
+        ctl = ""
+        if control is not None:
+            crel = f32_ulps(control(n)[1], second_t)
+            verdict = "rejected" if crel > rtols[1] else "NOT rejected"
+            ctl = (f"; float32-accumulation control {crel:.0f} {unit} from "
+                   f"the twin's sums ({verdict} by the limit)")
         t_w = median_ms(lambda: launch(n))
         t_k = kernel_device_ms(lambda: launch(n), kernel)
         t_p = median_ms(lambda: twin(n), reps=5)
         b_ms, b_by, b_cls = bound_ms(*per_points(work, n))
         check_bound(f"{name} N={n}", t_k, b_ms)
         times[n] = (t_k, t_p, b_ms, b_by, b_cls)
+        old = ""
+        if name in OLD_WORK:
+            o_ms = OLD_WORK[name] * n / (SM_ISSUE * SMS * CLOCK) * 1e3
+            old = (f"; the old design's work ({OLD_WORK[name]} instructions "
+                   f"a point, issue): {o_ms:.4f} ms, {o_ms / t_k:.3f} of it "
+                   "(for information)")
         print(f"{name} K=3 N={n}: within {rel:.2e} * (1 + |x|) ({rtols[0]}),"
-              f" max |kernel - twin| {err:.3e}, sums of the partials in "
-              f"{part_names} {[round(v, 6) for v in s.tolist()]} within "
-              f"{srel:.2e} ({rtols[1]}); kernel {t_k:.4f} ms of device time "
+              f" max |kernel - twin| {err:.3e}, {same}sums of the partials "
+              f"in {part_names} {[round(v, 6) for v in s.tolist()]} within "
+              f"{srel:.2e} {unit} ({rtols[1]}); kernel {t_k:.4f} ms of "
+              f"device time "
               f"(mean of 20, torch.profiler), wrapper call {t_w:.4f} ms "
               f"(median of 20) and twin {t_p:.4f} ms (median of 5; CUDA "
-              f"events; {card_line}); bound {b_ms:.4f} ms ({b_cls})",
-              flush=True)
+              f"events; {card_line}); bound {b_ms:.4f} ms ({b_cls}), "
+              f"{b_ms / t_k:.3f} of it{old}{ctl}", flush=True)
     return err, times
+
+
+def f32_ulps(a, b):
+    """Largest |a - b| over float32 tensors a and b, in float32 ulps of b
+    (the step from b towards +inf)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    step = torch.nextafter(b, torch.full_like(b, float("inf"))) - b
+    return float(((a.double() - b.double()).abs() / step.double()).max())
+
+
+def device_kernels(fn):
+    """{kernel: [launches, device ms]} the card ran for one call of fn(),
+    after a warm-up call (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: [e.count, e.self_device_time_total / 1e3]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
+
+
+def backward_kernels(name, fn, kernel):
+    """The kernels the card ran for one call of fn(), a backward through
+    autograd: it must be one launch of `kernel` and nothing else."""
+    ran = device_kernels(fn)
+    print(f"{name}'s backward through autograd ran on the card: {ran}",
+          flush=True)
+    if sum(c for c, _ in ran.values()) != 1 or not any(kernel in k
+                                                       for k in ran):
+        raise RuntimeError(f"{name}'s backward is not one launch of {kernel}:"
+                           f" {ran}")
 
 
 def k1b_checks(noise3d, cov, K, work, dev, card_line):
     """K1b against its twin at K1B_POINTS (fresh points, seeds and
-    cotangents per size) with config 1's cell radius and splat form."""
+    cotangents per size) with config 1's cell radius and splat form, timed;
+    untimed at ODD_POINTS and with MANY_K impulses per cell (more
+    within reach than the ring holds); then one backward through autograd
+    must be one launch."""
     host = noise3d.host_params(cov.splat_radius(), cov.splat_form())
     kr, m3 = host[0], host[1:]
-    inputs = {n: k1b_inputs(n, dev) for n in K1B_POINTS}
+    inputs = {n: k1b_inputs(n, dev)
+              for n in (*ODD_POINTS, *K1B_POINTS)}
 
-    def args(n):
-        p, sd, g = inputs[n]
-        return p, sd, kr, m3, K, g
-    return bwd_checks(
-        "K1b", lambda n: noise3d.noise3d_sum_s_bwd(*args(n)),
-        lambda n: noise3d.noise3d_sum_s_bwd_ref(*args(n)),
-        "noise3d_sum_s_bwd_kernel", K1B_POINTS, work,
-        "(kr, m00, m11, m22)", (K1B_DP_RTOL, K1B_SUM_RTOL), card_line)
+    def check(sizes, K, kernel):
+        def args(n):
+            p, sd, g = inputs[n]
+            return p, sd, kr, m3, K, g
+        return bwd_checks(
+            f"K1b K={K}" if kernel is None else "K1b",
+            lambda n: noise3d.noise3d_sum_s_bwd(*args(n)),
+            lambda n: noise3d.noise3d_sum_s_bwd_ref(*args(n)), kernel, sizes,
+            work, "(kr, m00, m11, m22)", (K1B_DP_RTOL, K1B_SUM_ULPS),
+            card_line, control=lambda n: noise3d.noise3d_sum_s_bwd_ref(
+                *args(n), sum_dtype=torch.float32))
+    check(ODD_POINTS, K, None)
+    check((K1B_LINE_POINTS,), MANY_K, None)
+    p, sd, g = inputs[K1B_LINE_POINTS]
+    leaves = (p.clone().requires_grad_(),
+              torch.tensor(kr, device=dev, requires_grad=True),
+              torch.tensor(m3, device=dev, requires_grad=True))
+    out = noise3d.noise3d_sum_s_diff(leaves[0], sd, leaves[1], leaves[2], K,
+                                     host)
+    backward_kernels("K1b", lambda: torch.autograd.grad(
+        out, leaves, g, retain_graph=True), "noise3d_sum_s_bwd_kernel")
+    return check(K1B_POINTS, K, "noise3d_sum_s_bwd_kernel")
 
 
 def k3b_checks(noise1d, work, dev, card_line):
     """K3b against its twin at K3_POINTS random iso-ray coordinates and
     seeds (those of k3_checks; each size a prefix) with config 3's cell
-    radius and a random cotangent."""
+    radius and a random cotangent, timed; untimed at ODD_POINTS and
+    with K = 1 and MANY_K (the runtime-K kernel); then one backward
+    through autograd must be one launch."""
     rs = np.random.default_rng(3)
     n_max = max(K3_POINTS)
     pz = torch.from_numpy(rs.uniform(-40.0, 40.0, n_max).astype(
@@ -1039,13 +1158,26 @@ def k3b_checks(noise1d, work, dev, card_line):
                             .astype(np.uint32).view(np.int32)).to(dev)
     g = torch.from_numpy(rs.normal(size=n_max).astype(np.float32)).to(dev)
 
-    def args(n):
-        return pz[:n], seed[:n], 3.0, 3, g[:n]
-    return bwd_checks(
-        "K3b", lambda n: noise1d.noise1d_sum_bwd(*args(n)),
-        lambda n: noise1d.noise1d_sum_bwd_ref(*args(n)),
-        "noise1d_sum_bwd_kernel", K3_POINTS, work, "(kr, inv_r)",
-        (K3B_DP_RTOL, K3B_SUM_RTOL), card_line)
+    def check(sizes, K, kernel):
+        def args(n):
+            return pz[:n], seed[:n], 3.0, K, g[:n]
+        return bwd_checks(
+            f"K3b K={K}" if kernel is None else "K3b",
+            lambda n: noise1d.noise1d_sum_bwd(*args(n)),
+            lambda n: noise1d.noise1d_sum_bwd_ref(*args(n)), kernel, sizes,
+            work, "kr", (K3B_DP_RTOL, K3B_SUM_ULPS), card_line,
+            control=lambda n: noise1d.noise1d_sum_bwd_ref(
+                *args(n), sum_dtype=torch.float32))
+    check(ODD_POINTS, 3, None)
+    for K in (1, MANY_K):
+        check((K3B_LINE_POINTS,), K, None)
+    n = K3B_LINE_POINTS
+    leaves = (pz[:n].clone().requires_grad_(),
+              torch.tensor(3.0, device=dev, requires_grad=True))
+    out = noise1d.noise1d_sum_diff(leaves[0], seed[:n], leaves[1], 3)
+    backward_kernels("K3b", lambda: torch.autograd.grad(
+        out, leaves, g[:n], retain_graph=True), "noise1d_sum_bwd_kernel")
+    return check(K3_POINTS, 3, "noise1d_sum_bwd_kernel")
 
 
 def k2b_checks(noise3d, base, work, dev, card_line):
@@ -1339,7 +1471,8 @@ def profile_grad(entry, mod, fns, lattice, load_scene, what, path, dev,
           f"{walls[1] * 1e3:.1f} ms), device {dev_ms:.1f} ms (busy "
           f"{dev_ms / (wall * 1e3):.3f} of the profiled wall, "
           f"{dev_ms / (min(walls) * 1e3):.3f} of the fastest unprofiled "
-          f"wall); " + "; ".join(parts) + f"; cudaLaunchKernel "
+          f"wall); " + "; ".join(parts) + f"; kernels on the card "
+          f"x{sum(e.count for e in kern)}, cudaLaunchKernel "
           f"x{sum(e.count for e in launch)}, "
           f"{sum(e.cpu_time_total for e in launch) / 1e3:.1f} ms host "
           f"({card_line}); top kernels: "

@@ -132,14 +132,16 @@ def test_k3_backward_matches_jax_vjp(K):
     np.testing.assert_allclose(tp.grad.numpy(), jdp, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(float(kr.grad), float(jdkr), rtol=1e-4)
 
-    # a Python-float radius: the same dpz, and the twin's own partials
+    # a Python-float radius: the same dpz, and the twin's own pair (dpz,
+    # the partial in kr summed over points), the autograd one bit for bit
     tp2 = torch.from_numpy(pz).requires_grad_()
     noise1d.noise1d_sum_diff(tp2, tseed, float(kr0), K).backward(
         torch.from_numpy(g))
     assert torch.equal(tp2.grad, tp.grad)
-    dpz, part = noise1d.noise1d_sum_bwd(torch.from_numpy(pz), tseed,
-                                        float(kr0), K, torch.from_numpy(g))
-    assert torch.equal(dpz, tp.grad) and part.shape == (n, 2)
+    dpz, dkr = noise1d.noise1d_sum_bwd(torch.from_numpy(pz), tseed,
+                                       float(kr0), K, torch.from_numpy(g))
+    assert torch.equal(dpz, tp.grad) and dkr.shape == ()
+    assert dkr.dtype == torch.float32 and torch.equal(dkr, kr.grad)
 
 
 def test_k3_without_grad_is_the_raw_launch():

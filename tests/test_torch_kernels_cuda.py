@@ -9,20 +9,20 @@ machine that has only PyTorch:
 `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py`.
 
 Tolerances: K1 and K2 vs twin atol 1e-5 (a raw sum of at most 81
-unit-bounded fp32 terms; K1 measured 0 on an H100); K1b vs its twin on
-the CPU: dp within rtol and atol 1e-5 per point, the per-point partials
-in (kr, m00, m11, m22) within rtol 1e-5, atol 1e-4 (the kr partial is a
-difference of sums of terms up to ~1e2 each, so the CPU's exp, an ulp
-from the card's expf, shows at ~1e-5 of them; measured 6.9e-5 at most on
-an H100), and their sums over points within 1e-4; K2b vs its twin run
+unit-bounded fp32 terms; K1 measured 0 on an H100); K1b and K3b vs their
+twins run on the card, whose torch.exp is the kernels' expf: dp (dpz) bit
+for bit (the twins add each point's terms in the kernels' order with
+their operations), the partials summed over points (float64 in both, in
+other orders, each rounded once to float32) within SUM_ULPS = 0 float32
+ulps (summing in float32 misses it by up to tens of ulps: PERF.md), and
+two launches on the same inputs bit for bit, also on two streams at once;
+K2b vs its twin run
 on the card, whose torch.exp is the kernel's expf: dp and the per-point
 partials in (kr, qm, m00, m11, m22) within 1e-5 * (1 + |x|), their sums
 over points within 1e-4 (against the CPU's twin one ulp of exp moves the kr
 partial by up to ~2e-4: at the finest level it is a difference of terms
 up to ~1e3); K3 vs twin atol 1e-5
-(at most 9 such terms); K3b vs its twin on the CPU with K1b's limits
-(its partials in kr and inv_r are sums of at most 9 terms, the second
-times a coordinate up to 6).  K5/K4 vs twin, one whole search of 4096 rays of
+(at most 9 such terms).  K5/K4 vs twin, one whole search of 4096 rays of
 config 4a at n = 1024 (the shared-memory tile) and n = 1100 (beyond it):
 hit, sign0 or the step count differ on at most 0.1% of rays (the warp
 sums add in another order than the twin's, so a value within rounding of
@@ -52,6 +52,7 @@ M1D_PLAIN_SCENE = os.path.join(ROOT, "scenes", "gpis-mirror-1d.json")
 WS_SCENE = os.path.join(ROOT, "scenes", "gpis-weight-space.json")
 M1D_SCENE = os.path.join(ROOT, "scenes", "gpis-mirror-1d-corrxy.json")
 HERO_SCENE = os.path.join(ROOT, "scenes", "gpis-hero.json")
+SUM_ULPS = 0  # K1b's and K3b's float32 sums over points against twins
 
 
 @pytest.fixture
@@ -82,32 +83,52 @@ def test_k1_kernel_matches_twin_on_the_card(cuda, K):
                                atol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 3])
-def test_k1b_kernel_matches_twin_on_the_card(cuda, K):
+def _k1b_on_the_card(cuda, n, K, rng_seed=23):
+    """K1b at n random points against its twin run on the card: dp bit for
+    bit, the four sums within SUM_ULPS float32 ulps; a second launch must
+    give the same dp and sums bit for bit (the ticket was reset)."""
     scene, _ = load_scene(SCENE, device="cpu")
     cov = scene.media[0].gp.cov
     host = noise3d.host_params(cov.splat_radius(), cov.splat_form())
-    r = np.random.default_rng(23)
-    n = (1 << 16) + 3  # a ragged tail
+    r = np.random.default_rng(rng_seed)
     p = torch.from_numpy(r.uniform(-3.0, 3.0, (n, 3)).astype(np.float32))
     seed = torch.from_numpy(r.integers(0, 2 ** 32, n, dtype=np.uint64)
                             .astype(np.int64))
     g = torch.from_numpy(r.normal(size=n).astype(np.float32))
+    args = (p.to(cuda), seed.to(cuda), host[0], host[1:], K, g.to(cuda))
     before = noise3d.K1B_LAUNCHES
-    dp, part = noise3d.noise3d_sum_s_bwd(p.to(cuda), seed.to(cuda), host[0],
-                                         host[1:], K, g.to(cuda))
+    dp, sums = noise3d.noise3d_sum_s_bwd(*args)
+    again = noise3d.noise3d_sum_s_bwd(*args)
     torch.cuda.synchronize()
-    assert noise3d.K1B_LAUNCHES == before + 1
-    dp_t, part_t = noise3d.noise3d_sum_s_bwd_ref(p, seed, host[0], host[1:],
-                                                 K, g)
-    np.testing.assert_allclose(dp.cpu().numpy(), dp_t.numpy(), rtol=1e-5,
-                               atol=1e-5)
-    np.testing.assert_allclose(part.cpu().numpy(), part_t.numpy(),
-                               rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(
-        part.cpu().double().sum(0).numpy(), part_t.double().sum(0).numpy(),
-        rtol=1e-4)
+    assert noise3d.K1B_LAUNCHES == before + 2
+    assert dp.shape == (n, 3) and sums.shape == (4,)
+    assert sums.dtype == torch.float32
+    assert torch.equal(again[0], dp) and torch.equal(again[1], sums)
+    dp_t, sums_t = noise3d.noise3d_sum_s_bwd_ref(*args)
+    assert torch.equal(dp, dp_t)
+    np.testing.assert_array_max_ulp(sums.cpu().numpy(), sums_t.cpu().numpy(),
+                                    maxulp=SUM_ULPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_k1b_kernel_matches_twin_on_the_card(cuda, K):
+    _k1b_on_the_card(cuda, (1 << 16) + 3, K)  # a ragged tail
+
+
+@pytest.mark.cuda
+def test_k1b_ring_overflow_on_the_card(cuda):
+    # K = 8: ~33.5 impulses within reach of a point, more than the ring
+    # holds, so the warps drain inside the walk
+    _k1b_on_the_card(cuda, 1 << 14, 8, rng_seed=37)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 4097, 3 * (1 << 18) + 1])
+def test_k1b_sizes_on_the_card(cuda, n):
+    # one point, under one block, not a multiple of a block, more points
+    # than a wave of threads holds
+    _k1b_on_the_card(cuda, n, 3, rng_seed=n)
 
 
 @pytest.mark.cuda
@@ -117,28 +138,104 @@ def test_train_step_on_the_card_goes_through_k1b_and_matches_cpu(cuda):
     assert noise1d.LAUNCHES == 0 and noise1d.K3B_LAUNCHES == 0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 3])
-def test_k3b_kernel_matches_twin_on_the_card(cuda, K):
-    r = np.random.default_rng(29)
-    n = (1 << 16) + 3  # a ragged tail
+def _k3b_on_the_card(cuda, n, K, rng_seed=29):
+    """K3b at n random points against its twin run on the card: dpz bit for
+    bit, d/dkr within SUM_ULPS float32 ulps; a second launch must give the
+    same dpz and d/dkr bit for bit (the ticket was reset)."""
+    r = np.random.default_rng(rng_seed)
     pz = torch.from_numpy(r.uniform(-6.0, 6.0, n).astype(np.float32))
     seed = torch.from_numpy(r.integers(0, 2 ** 32, n, dtype=np.uint64)
                             .astype(np.int64))
     g = torch.from_numpy(r.normal(size=n).astype(np.float32))
+    args = (pz.to(cuda), seed.to(cuda), 3.0, K, g.to(cuda))
     before = noise1d.K3B_LAUNCHES
-    dpz, part = noise1d.noise1d_sum_bwd(pz.to(cuda), seed.to(cuda), 3.0, K,
-                                        g.to(cuda))
+    dpz, dkr = noise1d.noise1d_sum_bwd(*args)
+    again = noise1d.noise1d_sum_bwd(*args)
     torch.cuda.synchronize()
+    assert noise1d.K3B_LAUNCHES == before + 2
+    assert dpz.shape == (n,) and dkr.shape == ()
+    assert torch.equal(again[0], dpz) and torch.equal(again[1], dkr)
+    dpz_t, dkr_t = noise1d.noise1d_sum_bwd_ref(*args)
+    assert torch.equal(dpz, dpz_t)
+    np.testing.assert_array_max_ulp(dkr.cpu().numpy(), dkr_t.cpu().numpy(),
+                                    maxulp=SUM_ULPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_k3b_kernel_matches_twin_on_the_card(cuda, K):
+    _k3b_on_the_card(cuda, (1 << 16) + 3, K)  # a ragged tail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 4097, 3 * (1 << 20) + 1])
+def test_k3b_sizes_on_the_card(cuda, n):
+    # one point, under one block, not a multiple of a block, more points
+    # than a wave of threads holds
+    _k3b_on_the_card(cuda, n, 3, rng_seed=n)
+
+
+@pytest.mark.cuda
+def test_backwards_through_autograd_launch_once(cuda):
+    r = np.random.default_rng(41)
+    n = 4096
+    seed = torch.from_numpy(r.integers(0, 2 ** 32, n, dtype=np.uint64)
+                            .astype(np.int64)).to(cuda)
+    g = torch.from_numpy(r.normal(size=n).astype(np.float32)).to(cuda)
+    p = torch.from_numpy(r.uniform(-3.0, 3.0, (n, 3)).astype(np.float32))
+    p = p.to(cuda).requires_grad_()
+    kr = torch.tensor(0.3, device=cuda, requires_grad=True)
+    m3 = torch.tensor([2.0, 3.0, 4.0], device=cuda, requires_grad=True)
+    host = noise3d.host_params(kr, m3)
+    out = noise3d.noise3d_sum_s_diff(p, seed, kr, m3, 3, host)
+    before = noise3d.K1B_LAUNCHES
+    dp, dkr, dm = torch.autograd.grad(out, (p, kr, m3), g)
+    assert noise3d.K1B_LAUNCHES == before + 1
+    want = noise3d.noise3d_sum_s_bwd_ref(p.detach(), seed, host[0],
+                                         host[1:], 3, g)
+    assert torch.equal(dp, want[0])
+    np.testing.assert_array_max_ulp(
+        torch.cat([dkr.reshape(1), dm]).cpu().numpy(), want[1].cpu().numpy(),
+        maxulp=SUM_ULPS)
+    pz = (p.detach()[:, 0] * 10.0).requires_grad_()
+    kr1 = torch.tensor(3.0, device=cuda, requires_grad=True)
+    out = noise1d.noise1d_sum_diff(pz, seed, kr1, 3)
+    before = noise1d.K3B_LAUNCHES
+    dpz, dkr1 = torch.autograd.grad(out, (pz, kr1), g)
     assert noise1d.K3B_LAUNCHES == before + 1
-    dpz_t, part_t = noise1d.noise1d_sum_bwd_ref(pz, seed, 3.0, K, g)
-    np.testing.assert_allclose(dpz.cpu().numpy(), dpz_t.numpy(), rtol=1e-5,
-                               atol=1e-5)
-    np.testing.assert_allclose(part.cpu().numpy(), part_t.numpy(),
-                               rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(
-        part.cpu().double().sum(0).numpy(), part_t.double().sum(0).numpy(),
-        rtol=1e-4)
+    want = noise1d.noise1d_sum_bwd_ref(pz.detach(), seed, 3.0, 3, g)
+    assert torch.equal(dpz, want[0])
+    np.testing.assert_array_max_ulp(dkr1.cpu().numpy(),
+                                    want[1].cpu().numpy(), maxulp=SUM_ULPS)
+
+
+@pytest.mark.cuda
+def test_backwards_on_two_streams_at_once(cuda):
+    # K1b and K3b launched in turn on two streams, whose launches overlap:
+    # each stream takes its own ticket, so every launch's sums are those
+    # of a launch alone
+    r = np.random.default_rng(43)
+    n = 1 << 18
+    seed = torch.from_numpy(r.integers(0, 2 ** 32, n, dtype=np.uint64)
+                            .astype(np.int64)).to(cuda)
+    g = torch.from_numpy(r.normal(size=n).astype(np.float32)).to(cuda)
+    p = torch.from_numpy(r.uniform(-3.0, 3.0, (n, 3)).astype(np.float32))
+    p = p.to(cuda)
+    a1 = (p, seed, 0.3, (2.0, 3.0, 4.0), 3, g)
+    a3 = (p[:, 0] * 10.0, seed, 3.0, 3, g)
+    want = (noise3d.noise3d_sum_s_bwd(*a1)[1], noise1d.noise1d_sum_bwd(*a3)[1])
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(8):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append((noise3d.noise3d_sum_s_bwd(*a1)[1],
+                            noise1d.noise1d_sum_bwd(*a3)[1]))
+    torch.cuda.synchronize()
+    for sums, dkr in got:
+        assert torch.equal(sums, want[0]) and torch.equal(dkr, want[1])
 
 
 @pytest.mark.cuda

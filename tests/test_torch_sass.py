@@ -86,3 +86,85 @@ def test_lattice_counts_one_iteration_per_point():
 def test_lattice_counts_unknown_kernel():
     with pytest.raises(ValueError):
         sass.lattice_counts(LISTING, "no_such_kernel", 1, 1.0)
+
+
+# One kernel with a split walk: a cell loop (header 0x30, its hash at 0x30
+# and its tail at 0x120) around a test loop (header 0x50) that appends an
+# impulse within reach to the ring (STS at 0x90, skipped by the branch at
+# 0x80) and drains the ring when it is full (the loop at 0xc0, skipped by
+# the branch at 0xb0); after the walk, the final drain (the loop at 0x150).
+SPLIT_LISTING = """
+        code for sm_90a
+                Function : _Z17fake_split_kernelPf
+        .headerflags    @"EF_CUDA_SM90"
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, 0x10, PT ;
+        /*0020*/               @P0 EXIT ;
+        /*0030*/                   MOV R1, RZ ;
+        /*0040*/                   IMAD R2, R1, 0x3, RZ ;
+        /*0050*/                   IADD3 R3, RZ, RZ, RZ ;
+        /*0060*/                   FADD R4, R4, 1 ;
+        /*0070*/                   FSETP.GEU.AND P1, PT, R4, 1, PT ;
+        /*0080*/               @P1 BRA 0xa0 ;
+        /*0090*/                   STS.128 [R5], R8 ;
+        /*00a0*/                   ISETP.GE.AND P2, PT, R3, 0x4, PT ;
+        /*00b0*/              @!P2 BRA 0x110 ;
+        /*00c0*/                   LDS.128 R8, [R5] ;
+        /*00d0*/                   MUFU.EX2 R6, R8 ;
+        /*00e0*/                   FMUL R7, R6, R9 ;
+        /*00f0*/                   ISETP.GE.AND P3, PT, R6, 0x4, PT ;
+        /*0100*/              @!P3 BRA 0xc0 ;
+        /*0110*/                   IADD3 R3, R3, 0x1, RZ ;
+        /*0120*/                   ISETP.GE.AND P4, PT, R3, 0x3, PT ;
+        /*0130*/              @!P4 BRA 0x50 ;
+        /*0140*/                   IADD3 R1, R1, 0x1, RZ ;
+        /*0150*/                   ISETP.GE.AND P5, PT, R1, 0x3, PT ;
+        /*0160*/              @!P5 BRA 0x30 ;
+        /*0170*/                   LDS.128 R8, [R5] ;
+        /*0180*/                   MUFU.EX2 R6, R8 ;
+        /*0190*/                   FMUL R7, R6, R9 ;
+        /*01a0*/                   FADD R7, R7, R9 ;
+        /*01b0*/                   ISETP.GE.AND P6, PT, R6, 0x4, PT ;
+        /*01c0*/              @!P6 BRA 0x170 ;
+        /*01d0*/                   STG.E desc[UR6][R10.64], R7 ;
+        /*01e0*/                   EXIT ;
+        /*01f0*/                   BRA 0x1f0;
+"""
+
+
+def test_split_cfg_loops():
+    cfg = sass.Cfg(sass.parse(SPLIT_LISTING)["_Z17fake_split_kernelPf"])
+    assert {h: sorted(b) for h, (b, _) in cfg.loops.items()} == {
+        0x30: [0x30, 0x50, 0x90, 0xa0, 0xc0, 0x110, 0x140],
+        0x50: [0x50, 0x90, 0xa0, 0xc0, 0x110], 0xc0: [0xc0],
+        0x170: [0x170]}
+    assert sorted(cfg.innermost("MUFU.EX2")) == [0xc0, 0x170]
+    assert cfg.parent(0xc0) == 0x50 and cfg.parent(0x170) is None
+
+
+def test_split_counts():
+    # test loop's short path 0x50 + 0xa0 + 0x110: issue 9, fma 1, alu 5;
+    # the append 0x90: issue 1; a drained entry, the cheaper of the drain
+    # loops per class (0xc0; 0x170): issue 5, fma 1, alu 1, xu 1;
+    # the cell loop around the test loop, 0x30 and 0x140: issue 5, fma 1,
+    # fmaheavy 1, alu 2
+    got = sass.split_counts(SPLIT_LISTING, "fake_split", 6, 2.5, around=2)
+    assert got == {"issue": 6 * 9 + 2.5 * (1 + 5) + 2 * 5,
+                   "fma": 6 * 1 + 2.5 * 1 + 2 * 1, "fmaheavy": 2 * 1,
+                   "alu": 6 * 5 + 2.5 * 1 + 2 * 2, "xu": 2.5 * 1}
+    alone = sass.split_counts(SPLIT_LISTING, "fake_split", 1, 1.0)
+    assert alone == {"issue": 9 + 6.0, "fma": 1 + 1.0, "fmaheavy": 0.0,
+                     "alu": 5 + 1.0, "xu": 1.0}
+
+
+def test_split_counts_needs_the_loops_it_is_given():
+    # the fake lattice kernel's innermost expf loop (its impulse loop) has
+    # a cell loop around it, but the cell loop has none around it
+    with pytest.raises(ValueError, match="no loop around"):
+        sass.split_counts(LISTING, "fake_lattice", 6, 2.5, around=1)
+    with pytest.raises(ValueError, match="no drain loop"):
+        sass.split_counts(SPLIT_LISTING.replace("@!P5 BRA 0x30", "NOP")
+                          .replace("@!P4 BRA 0x50", "NOP"), "fake_split",
+                          1, 1.0)
+    with pytest.raises(ValueError, match="kernels match"):
+        sass.split_counts(SPLIT_LISTING, "no_such_kernel", 1, 1.0)

@@ -24,28 +24,58 @@
 // integer operations -- against 20 bytes moved for K1 (12 in, 4 seed, 4
 // out) and 28 for K2 (its kr and qm).  K2 adds a per-point reciprocal and
 // 27 * K multiplies by qm.  K1b hashes as K1 does and adds 12 float
-// operations per impulse within reach, against 48 bytes (p, seed and the
-// cotangent in; 3 + 4 partials out); K2b likewise against 60 (kr and qm
-// in too, 3 + 5 partials out).  The lever for later is data reuse:
-// neighbouring points share most of their 27 cells and all of those cells'
-// impulses, so a block could hash each cell once into shared memory instead
-// of once per point.
+// operations per impulse within reach, against 32 bytes (p, seed and the
+// cotangent in; dp out; the parameters' partials are summed in the
+// kernel); K2b likewise against 60 (kr and qm in too, 3 + 5 partials
+// out).  The lever for later is data reuse: neighbouring points share most
+// of their 27 cells and all of those cells' impulses, so a block could hash
+// each cell once into shared memory instead of once per point.
 //
-// Design: simple and exact first.  One thread per point, 256 threads per
-// block, a masked tail and no padding; p is read as [N,3] AoS; m6 (and K1's
-// kr) are passed by value; K is a runtime int.  Blocks keep no state between
-// them.  The arithmetic follows the TPU kernels op for op: inv_r = 1 / kr,
-// gx = px * inv_r, the cell index is (uint32)(int32)floor(g), keys are
-// hashed in (z, y, x, seed) order, variates are (h >> 8) * 2^-24, K2 scales
-// the finished quadratic form (q = qm * quad), and the sum runs dx, dy, dz,
-// k.  K1b and K2b accumulate their nine sums per point in registers in the
-// same order, with their loops kept rolled so that their SASS has K1's loop
-// shape, and leave the sum over points to the caller (no atomics).  Built
-// without fast math and with -fmad=false, so float rounding follows the
-// plain PyTorch twins (kernels/noise3d.py) operation for operation.
+// Design of K1, K2 and K2b: simple and exact first.  One thread per point,
+// 256 threads per block, a masked tail and no padding; p is read as [N,3]
+// AoS; m6 (and K1's kr) are passed by value; K is a runtime int.  Blocks
+// keep no state between them.  The arithmetic follows the TPU kernels op
+// for op: inv_r = 1 / kr, gx = px * inv_r, the cell index is
+// (uint32)(int32)floor(g), keys are hashed in (z, y, x, seed) order,
+// variates are (h >> 8) * 2^-24, K2 scales the finished quadratic form
+// (q = qm * quad), and the sum runs dx, dy, dz, k.  K2b accumulates its
+// nine sums per point in registers in the same order, with its loops kept
+// rolled so that its SASS has K1's loop shape, and leaves the sum over
+// points to the caller (no atomics).  Built without fast math and with
+// -fmad=false, so float rounding follows the plain PyTorch twins
+// (kernels/noise3d.py) operation for operation.
+//
+// Design of K1b, for the H100.  A warp runs an impulse's long path (its
+// sign hash, q, expf and nine sums) when any of its 32 lanes has that
+// impulse within reach: at K = 3 about 4 pi / 3 of a point's 27 impulses
+// per index are, a share of 0.155, so a warp that branches on every
+// impulse runs the long path on ~99.5% of them, six times the work within
+// reach.  K1b splits the walk instead: every lane tests each impulse (its
+// cell key, three position variates, the offset dd and r^2, the short
+// path) and appends the ones within reach to a ring of K1B_RING entries of
+// its own in shared memory, (ddx, ddy, ddz, the sign hash's first word),
+// laid out [slot][thread] so that a warp's lanes hit distinct banks.  When
+// a lane's ring could overflow in the next cell (__any_sync), and once at
+// the end of the point, the warp drains: each lane works off its own ring
+// in append order, so the warp pays the largest fill among its lanes (~19
+// at K = 3) instead of every impulse.  Each point's terms are added in
+// the (dx, dy, dz, k) order with the same operations as before, so dp
+// stays bit-equal to the twin.  K = 3 (every scene's) is a template with
+// the impulse loop unrolled; other counts take a runtime-K instantiation
+// that checks the ring before each impulse.  The grid is one whole wave
+// (the occupancy query's blocks per SM on every SM) that strides over the
+// points; each thread adds its points' partials in (kr, m00, m11, m22) in
+// float64, and grid_sum.cuh sums them over the grid in a fixed order (each
+// block's threads, then the last block to take a ticket over the blocks),
+// which then writes the four float32 sums: one launch, deterministic, no
+// host sync.  Tensor cores,
+// wgmma and TMA have nothing to do here: the function has no matrix
+// product and moves 32 bytes a point.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grid_sum.cuh"
 
 namespace {
 
@@ -177,99 +207,162 @@ noise3d_sum_kernel(const float* __restrict__ p,
 // the point's cotangent g, are
 //   d/dp_i   = g (-2 m_ii S_i) kr / kr,
 //   d/dkr    = g sum_i -2 m_ii (T_i - S_i p_i / kr),
-//   d/dm_ii  = -g Q_i,
-// written as dp [N, 3] and the per-point partials [N, 4] of (kr, m00, m11,
-// m22), which the caller sums over points.
-__global__ void __launch_bounds__(256)
+//   d/dm_ii  = -g Q_i;
+// dp [N, 3] is written per point, the other four are summed over points in
+// float64 (K1B_PARTS) and written as float32 sums [4] of (kr, m00, m11,
+// m22).
+// Chosen by timing ring sizes 8-24 at 2-4 blocks per SM on an H100: a ring
+// that seldom fills before the end of a point drains about once a point,
+// which beats a third block per SM.
+constexpr int K1B_THREADS = 256;
+constexpr int K1B_MIN_BLOCKS = 2;
+constexpr int K1B_RING = 24;  // entries per thread: 96 KB a block
+constexpr int K1B_PARTS = 4;
+
+// The nine sums of one point.
+struct Sums9 {
+  float sx, sy, sz, tx, ty, tz, qx, qy, qz;
+};
+
+// Work off this lane's ring (its column `mine`, `count` entries, in append
+// order) into s; every lane of the warp calls it together.
+__device__ __forceinline__ void k1b_drain(const float4* __restrict__ mine,
+                                          int& count, float kr, float m00,
+                                          float m11, float m22, Sums9& s) {
+  const int most = __reduce_max_sync(FULL_MASK, count);
+#pragma unroll 1
+  for (int j = 0; j < most; ++j) {
+    if (j < count) {
+      const float4 e = mine[j * K1B_THREADS];
+      // the rest of xxhash32_2(h, 4k + 3) from its first word
+      const float uw = u01(final_mix(P4 * rotl17(__float_as_uint(e.w))));
+      const float abx = kr * e.x;
+      const float aby = kr * e.y;
+      const float abz = kr * e.z;
+      const float q = m00 * abx * abx + m11 * aby * aby + m22 * abz * abz;
+      const float w = uw < 0.5f ? -1.0f : 1.0f;
+      const float t = w * expf(-q);
+      const float ex = t * abx;
+      const float ey = t * aby;
+      const float ez = t * abz;
+      s.sx = s.sx + ex;
+      s.sy = s.sy + ey;
+      s.sz = s.sz + ez;
+      s.tx = s.tx + ex * e.x;
+      s.ty = s.ty + ey * e.y;
+      s.tz = s.tz + ez * e.z;
+      s.qx = s.qx + ex * abx;
+      s.qy = s.qy + ey * aby;
+      s.qz = s.qz + ez * abz;
+    }
+  }
+  count = 0;
+}
+
+// KC > 0: the impulse count, fixed at compile time; KC == 0: k_runtime.
+template <int KC>
+__global__ void __launch_bounds__(K1B_THREADS, K1B_MIN_BLOCKS)
 noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
                          const uint32_t* __restrict__ seed,
                          const float* __restrict__ g, float* __restrict__ dp,
-                         float* __restrict__ part, int n, float kr, float m00,
-                         float m11, float m22, int impulse_count) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float px = p[3 * i + 0];
-  const float py = p[3 * i + 1];
-  const float pz = p[3 * i + 2];
-  const uint32_t sd = seed[i];
+                         double* __restrict__ block_sums,
+                         unsigned* __restrict__ ticket,
+                         float* __restrict__ sums, int n, float kr,
+                         float m00, float m11, float m22, int k_runtime) {
+  static_assert(K1B_RING >= KC, "a cell's impulses must fit the ring");
+  extern __shared__ float4 ring[];  // [K1B_RING][K1B_THREADS]
+  const int impulses = KC > 0 ? KC : k_runtime;
+  const int tid = threadIdx.x;
+  float4* const mine = ring + tid;  // this thread's column
   const float inv_r = 1.0f / kr;
-  const float gx = px * inv_r;
-  const float gy = py * inv_r;
-  const float gz = pz * inv_r;
-  const float bx = floorf(gx);
-  const float by = floorf(gy);
-  const float bz = floorf(gz);
-  const float fx = gx - bx;
-  const float fy = gy - by;
-  const float fz = gz - bz;
-  const uint32_t ix = (uint32_t)(int32_t)bx;
-  const uint32_t iy = (uint32_t)(int32_t)by;
-  const uint32_t iz = (uint32_t)(int32_t)bz;
-
-  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-  float tx = 0.0f, ty = 0.0f, tz = 0.0f;
-  float qx2 = 0.0f, qy2 = 0.0f, qz2 = 0.0f;
-#pragma unroll 1
-  for (int dx = -1; dx <= 1; ++dx) {
-#pragma unroll 1
-    for (int dy = -1; dy <= 1; ++dy) {
-#pragma unroll 1
-      for (int dz = -1; dz <= 1; ++dz) {
-        const uint32_t cx = ix + (uint32_t)dx;
-        const uint32_t cy = iy + (uint32_t)dy;
-        const uint32_t cz = iz + (uint32_t)dz;
-        const uint32_t h = xxhash32_4(cz, cy, cx, sd) + 1u;
-        const float qx = fx - (float)dx;
-        const float qy = fy - (float)dy;
-        const float qz = fz - (float)dz;
-#pragma unroll 1
-        for (int k = 0; k < impulse_count; ++k) {
-          const uint32_t c = 4u * (uint32_t)k;
-          const float ux = u01(xxhash32_2(h, c));
-          const float uy = u01(xxhash32_2(h, c + 1u));
-          const float uz = u01(xxhash32_2(h, c + 2u));
-          const float ddx = qx - ux;
-          const float ddy = qy - uy;
-          const float ddz = qz - uz;
-          const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
-          if (r2 < 1.0f) {
-            const float uw = u01(xxhash32_2(h, c + 3u));
-            const float abx = kr * ddx;
-            const float aby = kr * ddy;
-            const float abz = kr * ddz;
-            const float q = m00 * abx * abx + m11 * aby * aby
-                + m22 * abz * abz;
-            const float w = uw < 0.5f ? -1.0f : 1.0f;
-            const float e = w * expf(-q);
-            const float ex = e * abx;
-            const float ey = e * aby;
-            const float ez = e * abz;
-            sx = sx + ex;
-            sy = sy + ey;
-            sz = sz + ez;
-            tx = tx + ex * ddx;
-            ty = ty + ey * ddy;
-            tz = tz + ez * ddz;
-            qx2 = qx2 + ex * abx;
-            qy2 = qy2 + ey * aby;
-            qz2 = qz2 + ez * abz;
-          }
-        }
-      }
-    }
-  }
-  const float ct = g[i];
   const float c2x = -2.0f * m00;
   const float c2y = -2.0f * m11;
   const float c2z = -2.0f * m22;
-  dp[3 * i + 0] = ct * (c2x * sx) * kr * inv_r;
-  dp[3 * i + 1] = ct * (c2y * sy) * kr * inv_r;
-  dp[3 * i + 2] = ct * (c2z * sz) * kr * inv_r;
-  part[4 * i + 0] = ct * (c2x * (tx - sx * gx) + c2y * (ty - sy * gy)
-                          + c2z * (tz - sz * gz));
-  part[4 * i + 1] = -ct * qx2;
-  part[4 * i + 2] = -ct * qy2;
-  part[4 * i + 3] = -ct * qz2;
+  double acc[K1B_PARTS] = {0.0, 0.0, 0.0, 0.0};
+  // block-uniform trip count: a warp's lanes past n walk with no point
+  for (int base = blockIdx.x * K1B_THREADS; base < n;
+       base += gridDim.x * K1B_THREADS) {
+    const int i = base + tid;
+    const bool live = i < n;
+    const float px = live ? p[3 * i + 0] : 0.0f;
+    const float py = live ? p[3 * i + 1] : 0.0f;
+    const float pz = live ? p[3 * i + 2] : 0.0f;
+    const uint32_t sd = live ? seed[i] : 0u;
+    const float gx = px * inv_r;
+    const float gy = py * inv_r;
+    const float gz = pz * inv_r;
+    const float bx = floorf(gx);
+    const float by = floorf(gy);
+    const float bz = floorf(gz);
+    const float fx = gx - bx;
+    const float fy = gy - by;
+    const float fz = gz - bz;
+    const uint32_t ix = (uint32_t)(int32_t)bx;
+    const uint32_t iy = (uint32_t)(int32_t)by;
+    const uint32_t iz = (uint32_t)(int32_t)bz;
+
+    Sums9 s = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    int count = 0;
+    int dx = -1;
+    int dy = -1;
+    int dz = -1;
+#pragma unroll 1
+    for (int cell = 0; cell < 27; ++cell) {
+      const uint32_t h = xxhash32_4(iz + (uint32_t)dz, iy + (uint32_t)dy,
+                                    ix + (uint32_t)dx, sd) + 1u;
+      const uint32_t hp = P5 + h * P3;
+      const float qx = fx - (float)dx;
+      const float qy = fy - (float)dy;
+      const float qz = fz - (float)dz;
+#pragma unroll
+      for (int k = 0; k < impulses; ++k) {
+        if (KC == 0 && __any_sync(FULL_MASK, count == K1B_RING)) {
+          k1b_drain(mine, count, kr, m00, m11, m22, s);
+        }
+        const uint32_t c = 4u * (uint32_t)k;
+        const float ux = u01(xxhash32_2(h, c));
+        const float uy = u01(xxhash32_2(h, c + 1u));
+        const float uz = u01(xxhash32_2(h, c + 2u));
+        const float ddx = qx - ux;
+        const float ddy = qy - uy;
+        const float ddz = qz - uz;
+        const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
+        if (live && r2 < 1.0f) {
+          mine[count * K1B_THREADS] =
+              make_float4(ddx, ddy, ddz, __uint_as_float(c + 3u + hp));
+          ++count;
+        }
+      }
+      if (KC > 0 && __any_sync(FULL_MASK, count > K1B_RING - KC)) {
+        k1b_drain(mine, count, kr, m00, m11, m22, s);
+      }
+      // the next cell in (dx, dy, dz) order
+      const bool wrap_z = dz == 1;
+      const bool wrap_y = wrap_z && dy == 1;
+      dz = wrap_z ? -1 : dz + 1;
+      dy = wrap_y ? -1 : (wrap_z ? dy + 1 : dy);
+      dx = wrap_y ? dx + 1 : dx;
+    }
+    k1b_drain(mine, count, kr, m00, m11, m22, s);
+    if (live) {
+      const float ct = g[i];
+      dp[3 * i + 0] = ct * (c2x * s.sx) * kr * inv_r;
+      dp[3 * i + 1] = ct * (c2y * s.sy) * kr * inv_r;
+      dp[3 * i + 2] = ct * (c2z * s.sz) * kr * inv_r;
+      const float dkr = ct * (c2x * (s.tx - s.sx * gx)
+                              + c2y * (s.ty - s.sy * gy)
+                              + c2z * (s.tz - s.sz * gz));
+      acc[0] += (double)dkr;
+      acc[1] += (double)(-ct * s.qx);
+      acc[2] += (double)(-ct * s.qy);
+      acc[3] += (double)(-ct * s.qz);
+    }
+  }
+
+  if (grid_sum<K1B_PARTS, K1B_THREADS>(acc, block_sums, ticket)) {
+#pragma unroll
+    for (int j = 0; j < K1B_PARTS; ++j) sums[j] = (float)acc[j];
+  }
 }
 
 // K2b: the backward of K2, K1b's walk with a per-point radius kr and
@@ -409,9 +502,62 @@ extern "C" int noise3d_sum_s(const void* p, const void* seed, void* out, int n,
   return (int)(err != cudaSuccess ? err : restore);
 }
 
-// K1b.
+// K1b's instantiation for an impulse count, allowed its ring of dynamic
+// shared memory (above the default 48 KB).
+using K1bKernel = void (*)(const float*, const uint32_t*, const float*,
+                           float*, double*, unsigned*, float*, int, float,
+                           float, float, float, int);
+constexpr size_t K1B_SMEM = sizeof(float4) * K1B_RING * K1B_THREADS;
+
+static cudaError_t k1b_kernel(int impulse_count, K1bKernel* kernel) {
+  *kernel = noise3d_sum_s_bwd_kernel<0>;
+  if (impulse_count == 3) *kernel = noise3d_sum_s_bwd_kernel<3>;
+  return cudaFuncSetAttribute(*kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)K1B_SMEM);
+}
+
+// K1b's grid for n points on `device` (current on entry and exit): one
+// whole wave, the occupancy query's blocks per SM on every SM, or fewer
+// when n fills fewer blocks; at least 1.
+static cudaError_t k1b_grid(int n, int impulse_count, int device,
+                            int* blocks) {
+  K1bKernel kernel;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err = k1b_kernel(impulse_count, &kernel);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, K1B_THREADS, K1B_SMEM);
+  }
+  const int need = (n + K1B_THREADS - 1) / K1B_THREADS;
+  *blocks = need < sms * per_sm ? need : sms * per_sm;
+  if (*blocks < 1) *blocks = 1;
+  return err;
+}
+
+extern "C" int noise3d_sum_s_bwd_grid(int n, int impulse_count, int device,
+                                      int* blocks) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = k1b_grid(n, impulse_count, device, blocks);
+  const cudaError_t restore = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restore);
+}
+
+// K1b on `blocks` blocks (noise3d_sum_s_bwd_grid): dp [n, 3], and sums [4]
+// through block_sums [blocks, 4] (float64 scratch) and the ticket, a
+// device word at 0 that the launch leaves at 0.
 extern "C" int noise3d_sum_s_bwd(const void* p, const void* seed,
-                                 const void* g, void* dp, void* part, int n,
+                                 const void* g, void* dp, void* block_sums,
+                                 void* ticket, void* sums, int n, int blocks,
                                  float kr, float m00, float m11, float m22,
                                  int impulse_count, int device,
                                  void* stream) {
@@ -420,14 +566,15 @@ extern "C" int noise3d_sum_s_bwd(const void* p, const void* seed,
   if (err != cudaSuccess) return (int)err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n > 0) {
-    const int threads = 256;
-    const int blocks = (n + threads - 1) / threads;
-    noise3d_sum_s_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  K1bKernel kernel;
+  err = k1b_kernel(impulse_count, &kernel);
+  if (err == cudaSuccess) {
+    kernel<<<blocks, K1B_THREADS, K1B_SMEM, (cudaStream_t)stream>>>(
         (const float*)p, (const uint32_t*)seed, (const float*)g, (float*)dp,
-        (float*)part, n, kr, m00, m11, m22, impulse_count);
+        (double*)block_sums, (unsigned*)ticket, (float*)sums, n, kr, m00,
+        m11, m22, impulse_count);
+    err = cudaGetLastError();
   }
-  err = cudaGetLastError();
   const cudaError_t restore = cudaSetDevice(prev);
   return (int)(err != cudaSuccess ? err : restore);
 }

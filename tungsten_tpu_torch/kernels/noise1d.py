@@ -5,7 +5,8 @@ iso-ray axis (the SE splat exp(-0.5 (kr d)^2)), and K3b: its backward.
 counterpart of tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_1d;
 `noise1d_sum_bwd` (K3b) wraps the kernel that takes the place of
 ::_noise1d_sum_bwd (the JAX package's XLA re-trace of the sum under
-jax.vjp): the partials of K3's sum in pz, kr and inv_r.  A CUDA tensor
+jax.vjp): the partial of K3's sum in pz per point, and its partial in kr
+(through kr and inv_r) summed over points in the same launch.  A CUDA tensor
 launches the kernel; a CPU tensor takes the plain twin (`noise1d_sum_ref`,
 `noise1d_sum_bwd_ref`), which computes the same sums with the same
 operations in the same order in PyTorch.  The cell coordinate is
@@ -21,7 +22,8 @@ The kernels are built at first use with nvcc into
 `tungsten_tpu_torch/_build/` (see kernels/nvcc.py).  `LAUNCHES` (K3) and
 `K3B_LAUNCHES` count kernel launches and `MOST_POINTS` records the most
 points one K3 launch took, so a run can show that its main path went
-through the kernels and within which sizes.
+through the kernels and within which sizes.  K3b sums over points through
+a float64 scratch and a ticket per stream (kernels/grid_sum.py).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from ..utils import rng
+from . import grid_sum
 from .nvcc import compile_library
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "noise1d.cu"
@@ -41,6 +44,7 @@ K3B_LAUNCHES = 0
 MOST_POINTS = 0
 _FN = None
 _FN3B = None
+_GRID3B = None
 
 _OFFSETS = (-1, 0, 1)  # cells in the kernel's loop order
 _TWIN_CHUNK = 1 << 16
@@ -52,7 +56,7 @@ def build():
 
     Returns nvcc's output (register and spill report), or "" when the
     library was already built."""
-    global _FN, _FN3B
+    global _FN, _FN3B, _GRID3B
     lib, log = compile_library(SOURCE)
     if _FN is None:
         dll = ctypes.CDLL(str(lib))
@@ -62,11 +66,14 @@ def build():
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn3b = dll.noise1d_sum_bwd
-        fn3b.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+        fn3b.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
                          + [ctypes.c_float] * 2
                          + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn3b.restype = ctypes.c_int
-        _FN, _FN3B = fn, fn3b
+        grid3b = dll.noise1d_sum_bwd_grid
+        grid3b.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        grid3b.restype = ctypes.c_int
+        _FN, _FN3B, _GRID3B = fn, fn3b, grid3b
     return log
 
 
@@ -132,9 +139,9 @@ def noise1d_sum(pz, seed, kr, impulse_count):
 def noise1d_sum_bwd(pz, seed, kr, impulse_count, g):
     """K3b: the partials of K3's sum at iso-ray coordinates pz [N] with
     seeds [N], each scaled by the point's cotangent g [N] (float32); kr: the
-    cell radius (a Python float).  Returns (dpz [N], the per-point partials
-    [N, 2] in (kr, inv_r)); the partials in the parameters are their sums
-    over points."""
+    cell radius (a Python float).  Returns (dpz [N], the partial in kr,
+    through kr and inv_r = 1 / kr, summed over points: a float32 scalar):
+    one launch."""
     global K3B_LAUNCHES
     if pz.device.type == "cpu":
         return noise1d_sum_bwd_ref(pz, seed, kr, impulse_count, g)
@@ -148,18 +155,20 @@ def noise1d_sum_bwd(pz, seed, kr, impulse_count, g):
         raise ValueError(f"K3b takes fewer than {2 ** 30} points")
     if _FN3B is None:
         build()
+    blocks, scratch, ticket, stream = grid_sum.buffers(
+        _GRID3B, n, impulse_count, pz.device, 2, "K3b")
     kr32, inv_r = reciprocal(kr)
     seed32 = seed.to(torch.int32).contiguous()
     dpz = torch.empty(n, dtype=torch.float32, device=pz.device)
-    part = torch.empty(n, 2, dtype=torch.float32, device=pz.device)
+    dkr = torch.empty((), dtype=torch.float32, device=pz.device)
     err = _FN3B(pz.data_ptr(), seed32.data_ptr(), g.data_ptr(),
-                dpz.data_ptr(), part.data_ptr(), n, kr32, inv_r,
-                int(impulse_count), pz.device.index,
-                torch.cuda.current_stream(pz.device).cuda_stream)
+                dpz.data_ptr(), scratch.data_ptr(), ticket.data_ptr(),
+                dkr.data_ptr(), n, blocks, kr32, inv_r, int(impulse_count),
+                pz.device.index, stream)
     if err != 0:
         raise RuntimeError(f"K3b launch failed: CUDA error {err}")
     K3B_LAUNCHES += 1
-    return dpz, part
+    return dpz, dkr
 
 
 class _LatticeSum1D(torch.autograd.Function):
@@ -167,6 +176,8 @@ class _LatticeSum1D(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pz, kr_t, seed, kr, impulse_count):
+        # the uint32 words as int32 once, so that the backward is one launch
+        seed = seed.to(torch.int32)
         ctx.save_for_backward(pz, seed)
         ctx.kr, ctx.impulse_count = kr, impulse_count
         return noise1d_sum(pz, seed, kr, impulse_count)
@@ -174,16 +185,9 @@ class _LatticeSum1D(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         pz, seed = ctx.saved_tensors
-        dpz, part = noise1d_sum_bwd(pz, seed, ctx.kr, ctx.impulse_count,
-                                    g.contiguous())
-        dkr = None
-        if ctx.needs_input_grad[1]:
-            # the sums over points, in float64 so their order hardly
-            # matters; inv_r = 1 / kr adds its partial times -1 / kr^2
-            d = part.sum(dim=0, dtype=torch.float64)
-            inv_r = reciprocal(ctx.kr)[1]
-            dkr = (d[0] - d[1] * (inv_r * inv_r)).to(torch.float32)
-        return dpz, dkr, None, None, None
+        dpz, dkr = noise1d_sum_bwd(pz, seed, ctx.kr, ctx.impulse_count,
+                                   g.contiguous())
+        return dpz, dkr if ctx.needs_input_grad[1] else None, None, None, None
 
 
 def noise1d_sum_diff(pz, seed, kr, impulse_count):
@@ -216,11 +220,15 @@ def noise1d_sum_ref(pz, seed, kr, impulse_count):
     return out
 
 
-def noise1d_sum_bwd_ref(pz, seed, kr, impulse_count, g):
+def noise1d_sum_bwd_ref(pz, seed, kr, impulse_count, g,
+                        sum_dtype=torch.float64):
     """Plain PyTorch twin of K3b: the same partials in closed form (not
     autograd through the forward twin), chunked, each in-reach term and
     each of the two sums per point computed with the kernel's operations in
-    its order."""
+    its order; the per-point partials in kr and inv_r summed over points in
+    sum_dtype (float64 as in the kernel, in another order; float32 only as
+    a control of the sum's precision), and inv_r = 1 / kr adds its sum
+    times -1 / kr^2 to the partial in kr."""
     _check(pz, seed, g)
     n = pz.shape[0]
     dpz = torch.empty(n, dtype=torch.float32, device=pz.device)
@@ -229,7 +237,9 @@ def noise1d_sum_bwd_ref(pz, seed, kr, impulse_count, g):
         c = slice(s, s + _TWIN_CHUNK)
         dpz[c], part[c] = _twin_bwd_chunk(pz[c], rng.u32(seed[c]), kr,
                                           impulse_count, g[c])
-    return dpz, part
+    d = part.sum(dim=0, dtype=sum_dtype)
+    inv_r = reciprocal(kr)[1]
+    return dpz, (d[0] - d[1] * (inv_r * inv_r)).to(torch.float32)
 
 
 def _twin_offsets(pz, seed, kr, K):

@@ -7,10 +7,11 @@ covariance) wrap the CUDA kernels in csrc/noise3d.cu, the counterparts of
 tungsten_tpu/ops/sparse_conv_pallas.py::_noise_kernel_scalar and
 ::_noise_kernel.  `noise3d_sum_s_bwd` (K1b) wraps the kernel that takes the
 place of ::_noise3d_sum_s_bwd (the JAX package's XLA re-trace of the sum
-under jax.vjp): the partials of K1's sum in p, kr and the diagonal of a
-diagonal splat form.  `noise3d_sum_bwd` (K2b) does the same for K2, in
-place of ::_noise3d_sum_bwd: the partials in p, the per-point kr and qm and
-the splat form's diagonal.  A CUDA tensor launches the kernel; a CPU tensor
+under jax.vjp): the partials of K1's sum in p, and in kr and the diagonal
+of a diagonal splat form summed over points in the same launch.
+`noise3d_sum_bwd` (K2b) does the same for K2, in place of
+::_noise3d_sum_bwd: the partials in p, the per-point kr and qm and the
+splat form's diagonal.  A CUDA tensor launches the kernel; a CPU tensor
 takes the plain twin (`noise3d_sum_s_ref`, `noise3d_sum_ref`,
 `noise3d_sum_s_bwd_ref`, `noise3d_sum_bwd_ref`), which computes the same
 sums with the same operations in the same order in PyTorch.
@@ -28,7 +29,9 @@ loaded with ctypes; see kernels/nvcc.py), once per content of the source,
 nvcc flags and nvcc version.  `LAUNCHES` (K1), `K1B_LAUNCHES`,
 `K2_LAUNCHES` and `K2B_LAUNCHES` count kernel launches, so a run can show
 that its main path went through the kernel; `K2_MOST_POINTS` and
-`K2B_MOST_POINTS` record the most points one K2 or K2b launch took.
+`K2B_MOST_POINTS` record the most points one K2 or K2b launch took.  K1b
+sums over points through a float64 scratch and a ticket per stream
+(kernels/grid_sum.py).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from pathlib import Path
 import torch
 
 from ..utils import rng
+from . import grid_sum
 from .nvcc import compile_library
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "noise3d.cu"
@@ -50,6 +54,7 @@ K2B_LAUNCHES = 0
 K2B_MOST_POINTS = 0
 _FN = None
 _FN1B = None
+_GRID1B = None
 _FN2 = None
 _FN2B = None
 
@@ -65,7 +70,7 @@ def build():
 
     Returns nvcc's output (register and spill report), or "" when the
     library was already built."""
-    global _FN, _FN1B, _FN2, _FN2B
+    global _FN, _FN1B, _GRID1B, _FN2, _FN2B
     lib, log = compile_library(SOURCE)
     if _FN is None:
         dll = ctypes.CDLL(str(lib))
@@ -75,10 +80,13 @@ def build():
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn1b = dll.noise3d_sum_s_bwd
-        fn1b.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+        fn1b.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
                          + [ctypes.c_float] * 4
                          + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn1b.restype = ctypes.c_int
+        grid1b = dll.noise3d_sum_s_bwd_grid
+        grid1b.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        grid1b.restype = ctypes.c_int
         fn2 = dll.noise3d_sum
         fn2.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
                         + [ctypes.c_float] * 6
@@ -89,7 +97,7 @@ def build():
                          + [ctypes.c_float] * 3
                          + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn2b.restype = ctypes.c_int
-        _FN, _FN1B, _FN2, _FN2B = fn, fn1b, fn2, fn2b
+        _FN, _FN1B, _GRID1B, _FN2, _FN2B = fn, fn1b, grid1b, fn2, fn2b
     return log
 
 
@@ -154,8 +162,8 @@ def noise3d_sum_s_bwd(p, seed, kr, m3, impulse_count, g):
 
     kr and m3 = (m00, m11, m22), the diagonal of the qm-folded splat form
     (its off-diagonal entries are 0), are Python floats.  Returns (dp
-    [N, 3], the per-point partials [N, 4] in (kr, m00, m11, m22)); the
-    partials in the parameters are their sums over points."""
+    [N, 3], the partials in (kr, m00, m11, m22) summed over points [4]):
+    one launch."""
     global K1B_LAUNCHES
     if p.device.type == "cpu":
         return noise3d_sum_s_bwd_ref(p, seed, kr, m3, impulse_count, g)
@@ -169,21 +177,23 @@ def noise3d_sum_s_bwd(p, seed, kr, m3, impulse_count, g):
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
     if not (p.is_contiguous() and g.is_contiguous()):
         raise ValueError("p and g must be contiguous")
-    if n >= 2 ** 31 // 4:
-        raise ValueError(f"K1b takes fewer than {2 ** 31 // 4} points")
+    if n >= 2 ** 31 // 3:
+        raise ValueError(f"K1b takes fewer than {2 ** 31 // 3} points")
     if _FN1B is None:
         build()
+    blocks, scratch, ticket, stream = grid_sum.buffers(
+        _GRID1B, n, impulse_count, p.device, 4, "K1b")
     seed32 = seed.to(torch.int32).contiguous()
     dp = torch.empty(n, 3, dtype=torch.float32, device=p.device)
-    part = torch.empty(n, 4, dtype=torch.float32, device=p.device)
+    sums = torch.empty(4, dtype=torch.float32, device=p.device)
     err = _FN1B(p.data_ptr(), seed32.data_ptr(), g.data_ptr(), dp.data_ptr(),
-                part.data_ptr(), n, float(kr), *(float(v) for v in m3),
-                int(impulse_count), p.device.index,
-                torch.cuda.current_stream(p.device).cuda_stream)
+                scratch.data_ptr(), ticket.data_ptr(), sums.data_ptr(), n,
+                blocks, float(kr), *(float(v) for v in m3),
+                int(impulse_count), p.device.index, stream)
     if err != 0:
         raise RuntimeError(f"K1b launch failed: CUDA error {err}")
     K1B_LAUNCHES += 1
-    return dp, part
+    return dp, sums
 
 
 def host_params(kr, m3):
@@ -198,6 +208,8 @@ class _LatticeSumS(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, p, kr, m3, seed, host, impulse_count):
+        # the uint32 words as int32 once, so that the backward is one launch
+        seed = seed.to(torch.int32)
         ctx.save_for_backward(p, seed)
         ctx.host, ctx.impulse_count = host, impulse_count
         return noise3d_sum_s(p, seed, host[0], (*host[1:], 0.0, 0.0, 0.0),
@@ -206,10 +218,8 @@ class _LatticeSumS(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         p, seed = ctx.saved_tensors
-        dp, part = noise3d_sum_s_bwd(p, seed, ctx.host[0], ctx.host[1:],
-                                     ctx.impulse_count, g.contiguous())
-        # the sum over points, in float64 so its order hardly matters
-        d = part.sum(dim=0, dtype=torch.float64).to(torch.float32)
+        dp, d = noise3d_sum_s_bwd(p, seed, ctx.host[0], ctx.host[1:],
+                                  ctx.impulse_count, g.contiguous())
         return dp, d[0], d[1:], None, None, None
 
 
@@ -356,11 +366,15 @@ def noise3d_sum_s_ref(p, seed, kr, m6q, impulse_count):
     return out
 
 
-def noise3d_sum_s_bwd_ref(p, seed, kr, m3, impulse_count, g):
+def noise3d_sum_s_bwd_ref(p, seed, kr, m3, impulse_count, g,
+                          sum_dtype=torch.float64):
     """Plain PyTorch twin of K1b: the same partials in closed form (not
     autograd through the forward twin), chunked, each in-reach term and
     each of the nine sums per point computed with the kernel's operations
-    in its order."""
+    in its order; the per-point partials in (kr, m00, m11, m22) summed over
+    points in sum_dtype (float64 as in the kernel, in another order;
+    float32 only as a control of the sums' precision), returned as float32
+    [4]."""
     _check(p, seed)
     n = p.shape[0]
     if g.dtype != torch.float32 or tuple(g.shape) != (n,):
@@ -374,7 +388,7 @@ def noise3d_sum_s_bwd_ref(p, seed, kr, m3, impulse_count, g):
         c = slice(s, s + _TWIN_CHUNK)
         dp[c], part[c] = _twin_bwd_chunk(p[c], rng.u32(seed[c]), krt, None,
                                          m3, impulse_count, g[c])
-    return dp, part
+    return dp, part.sum(dim=0, dtype=sum_dtype).to(torch.float32)
 
 
 def noise3d_sum_bwd_ref(p, seed, kr, qm, m3, impulse_count, g):

@@ -2,8 +2,9 @@
 interface, for loading with ctypes.
 
 Each library lands in `tungsten_tpu_torch/_build/` under a name that hashes
-the source, `NVCC_FLAGS` and `nvcc --version`, so a change to any of them
-rebuilds it and an unchanged one is built once.  Building happens at a
+the source, the headers beside it (`csrc/*.cuh`), `NVCC_FLAGS` and
+`nvcc --version`, so a change to any of them rebuilds it and an unchanged
+one is built once.  Building happens at a
 kernel's first use, never at import: the CPU tests import every module on
 machines without nvcc.
 """
@@ -34,6 +35,8 @@ def compile_library(source):
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout
     key = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        key.update(header.read_bytes())
     key.update("\0".join((*NVCC_FLAGS, version)).encode())
     lib = BUILD_DIR / f"lib{source.stem}_{key.hexdigest()[:16]}.so"
     if lib.exists():

@@ -25,11 +25,16 @@ HFMA2.MMA, loads, shuffles, uniform-datapath instructions) counts towards
 "issue" only, so each class's count is at most what the pipe executes and
 the bound built on it is a lower bound.
 
-The lattice kernels K1, K2 and K3 branch around each impulse's last
-variate and its expf when the impulse lies beyond the splat (d^2 >= 1):
-`lattice_counts` counts the short path for every impulse and the long
+The lattice kernels K1, K2, K2b and K3b branch around each impulse's
+last variate and its expf when the impulse lies beyond the splat (d^2 >=
+1): `lattice_counts` counts the short path for every impulse and the long
 path's extra instructions for the expected number of impulses within
-reach.  The listing comes from `nvcc.sass_listing`.
+reach.  K1b splits its walk into a test loop that appends the impulses
+within reach to a ring in shared memory and a drain loop that works them
+off: `split_counts` counts the test loop's short path for every
+iteration, the append and one drained entry for each expected impulse
+within reach, and the loops around them.  The listing comes from
+`nvcc.sass_listing`.
 """
 from __future__ import annotations
 
@@ -215,9 +220,31 @@ def _loop_iteration(cfg, header, cls, via=None):
             n = cfg.path(header, latch, body, cls)
         else:
             n = (cfg.path(header, via, body, cls)
-                 + cfg.path(via, latch, body, cls) - cfg.blocks[via].count(cls))
+                 + cfg.path(via, latch, body, cls)
+                 - cfg.blocks[via].count(cls))
         best = min(best, n)
     return best
+
+
+def _around(cfg, outer, inner, cls):
+    """Fewest `cls` instructions of one iteration of the loop at `outer`
+    outside the loop at `inner` that it holds: from its header into
+    `inner`, and from an exit of `inner` back to a latch of `outer`."""
+    body, latches = cfg.loops[inner]
+    pbody, platches = cfg.loops[outer]
+    outside = (pbody - body) | {inner}
+    exits = {t for s in latches for t in cfg.blocks[s].succ if t not in body}
+    into = cfg.path(outer, inner, outside, cls) - cfg.blocks[inner].count(cls)
+    after = min(cfg.path(e, lt, pbody - body, cls)
+                for e in exits for lt in platches)
+    return into + after
+
+
+def _kernel_cfg(text, kernel):
+    fns = {k: v for k, v in parse(text).items() if kernel in k}
+    if len(fns) != 1:
+        raise ValueError(f"{len(fns)} kernels match {kernel!r}")
+    return Cfg(next(iter(fns.values())))
 
 
 def lattice_counts(text, kernel, iters, long_hits, cells=0):
@@ -228,15 +255,12 @@ def lattice_counts(text, kernel, iters, long_hits, cells=0):
     of `long_hits` expected impulses within reach; with `cells`, plus
     `cells` times the enclosing loop's own instructions around it (K1/K2's
     cell hash).  `kernel` is a substring of the kernel's mangled name."""
-    fns = {k: v for k, v in parse(text).items() if kernel in k}
-    if len(fns) != 1:
-        raise ValueError(f"{len(fns)} kernels match {kernel!r}")
-    cfg = Cfg(next(iter(fns.values())))
+    cfg = _kernel_cfg(text, kernel)
     inner = cfg.innermost("MUFU.EX2")
     if len(inner) != 1:
         raise ValueError(f"{kernel}: {len(inner)} innermost expf loops")
     h = inner[0]
-    body, latches = cfg.loops[h]
+    body = cfg.loops[h][0]
     ex2 = [s for s in body if cfg.blocks[s].has("MUFU.EX2")]
     out = {}
     for cls in CLASSES:
@@ -248,13 +272,49 @@ def lattice_counts(text, kernel, iters, long_hits, cells=0):
             if p is None:
                 raise ValueError(f"{kernel}: the impulse loop has no cell "
                                  "loop around it")
-            pbody, platches = cfg.loops[p]
-            outside = (pbody - body) | {h}
-            exits = {t for s in latches for t in cfg.blocks[s].succ
-                     if t not in body}
-            into = cfg.path(p, h, outside, cls) - cfg.blocks[h].count(cls)
-            after = min(cfg.path(e, lt, pbody - body, cls)
-                        for e in exits for lt in platches)
-            n += cells * (into + after)
+            n += cells * _around(cfg, p, h, cls)
+        out[cls] = n
+    return out
+
+
+def split_counts(text, kernel, iters, hits, around=0):
+    """Per-class instructions per point of a kernel whose walk tests each
+    impulse and drains the ones within reach from a ring (K1b).
+
+    The drain loops are the innermost loops holding MUFU.EX2 (one inside
+    the walk, one after it); the test loop is the smallest loop around
+    one of them (K = 3 unrolled: the cell loop).  Counted: `iters` times
+    the test loop's short path (outside the drain loops, no append),
+    `hits` times the extra of an append (a path through a block of the
+    test loop holding STS, if any) and of one drained entry (an
+    iteration through a MUFU.EX2 block), and with `around`, that many
+    times the enclosing loop's own instructions around the test loop
+    (K1b's point loop: its loads, epilogue and float64 partials)."""
+    cfg = _kernel_cfg(text, kernel)
+    drains = cfg.innermost("MUFU.EX2")
+    parents = {cfg.parent(d) for d in drains} - {None}
+    if not parents:
+        raise ValueError(f"{kernel}: no drain loop inside a test loop")
+    test = min(parents, key=lambda h: len(cfg.loops[h][0]))
+    drained = set().union(*(cfg.loops[d][0] for d in drains))
+    body, latches = cfg.loops[test]
+    nodes = body - drained
+    stores = [s for s in nodes if cfg.blocks[s].has("STS")]
+    outer = cfg.parent(test)
+    if around and outer is None:
+        raise ValueError(f"{kernel}: the test loop has no loop around it")
+    out = {}
+    for cls in CLASSES:
+        short = min(cfg.path(test, lt, nodes, cls) for lt in latches)
+        append = min((cfg.path(test, s, nodes, cls)
+                      + min(cfg.path(s, lt, nodes, cls) for lt in latches)
+                      - cfg.blocks[s].count(cls) for s in stores),
+                     default=short) - short
+        entry = min(_loop_iteration(cfg, d, cls, via=s) for d in drains
+                    for s in cfg.loops[d][0]
+                    if cfg.blocks[s].has("MUFU.EX2"))
+        n = iters * short + hits * (append + entry)
+        if around:
+            n += around * _around(cfg, outer, test, cls)
         out[cls] = n
     return out
