@@ -26,6 +26,10 @@ and read just after:
 - BASELINE config 5, the hero (scenes/gpis-hero.json, multi-resolution
   procedural-nonstationary noise under the Global context, K2), at its own
   1920x1080 in row bands;
+- BASELINE config 2, the ensemble (scenes/gpis-ensemble.json, 3D sampling
+  in isotropic-ray space, renewal+ conditioning of each path's 3D
+  realization, K1), at its own 256x256, 16 spp through the CLI and at
+  128x128, 16 spp with its launches, host syncs and peak memory;
 - config 1's hyperparameter gradient: sample_distance's d sum(t) /
   d(sigma, l) on 32 rays against central FD and against the port on the
   CPU, then 3 inverse-rendering steps of tungsten_tpu_torch.entry's
@@ -43,7 +47,20 @@ and read just after:
   central FD and the CPU, 3 training steps at 128x128, 16 spp, depth 2
   (K2 forward, K2b backward), each with its loss, gradient, wall,
   launches, host syncs and peak memory, and one step through the CLI at
-  the hero's own 1920x1080, 1 spp, in 8 row bands.
+  the hero's own 1920x1080, 1 spp, in 8 row bands;
+- config 2's hyperparameter gradient: the two-segment d sum(t1 + t2) /
+  d(sigma, l) on 32 rays (the second segment conditioned at its start)
+  against central FD over the lanes FD resolves and against the CPU, and
+  3 training steps at its own 256x256, 16 spp, depth 2 (4 groups of 4
+  samples; K1 forward, K1b backward);
+- config 4a's hyperparameter gradient (K5/K4 search, the realization
+  rebuilt in the graph): the medium-level gradient on 32 rays against
+  central FD (K5; K4's printed) and the CPU, for both step sizes; the
+  image-level check of tests/test_grad_e2e.py::test_image_grad_allclose_fd
+  (24x24, 16 passes, isotropic phase, event-linear pixels) against
+  central FD in sigma and l; 3 training steps at 128x128, 8 spp (K5) and
+  one with step_size 0 (K4), each launching the kernel as often as the
+  forward render.
 It checks each image, shows that every weight-space search was one launch
 with no host sync inside, prints config 4a's host syncs, realization
 synthesis and peak memory beside the earlier design's recorded numbers,
@@ -56,14 +73,15 @@ device.
 
 `python3 chip_smoke.py --profile` adds phases that measure where the
 renders' time goes (PERF.md section 5): config 1 at 1, 4 and 16 spp per ray
-batch, config 4a (both step sizes) at 8 spp, config 3 and the hero at 16
+batch, config 4a (both step sizes) at 8 spp, configs 3, 5 and 2 at 16
 spp, each with its launches and host syncs, and one render of each under
 torch.profiler, whose op tables it writes to OUT_DIR, with each kernel's
 bound over that render; K5/K4 timed whole and in parts; and config 4a's
 host syncs, realization synthesis and peak memory through the plain
 twins, which keep the earlier design's [R, n] structure; and one
-training step each of configs 1, 3 and 5 under torch.profiler, with the
-bounds of their lattice kernel and its backward over it.
+training step each of configs 1, 3, 5 and 2 (128x128, 16 spp) under
+torch.profiler, with the bounds of their lattice kernel and its backward
+over it, and of config 4a (both step sizes) with K5's or K4's.
 """
 import argparse
 import concurrent.futures
@@ -89,6 +107,8 @@ M1D_SCENES = {name: (os.path.join(ROOT, "scenes", f"gpis-{stem}.json"),
                                  ("config 3b", "mirror-1d-corrxy"))}
 HERO_SCENE = os.path.join(ROOT, "scenes", "gpis-hero.json")
 HERO_GOLDEN = os.path.join(ROOT, "goldens", "gpis-hero.pfm")
+ENS_SCENE = os.path.join(ROOT, "scenes", "gpis-ensemble.json")
+ENS_GOLDEN = os.path.join(ROOT, "goldens", "gpis-ensemble.pfm")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 K1_ATOL = 1e-5  # raw sum of at most 81 unit-bounded terms, fp32
 TWIN_POINTS = 1 << 20
@@ -152,16 +172,30 @@ K2B_RTOL, K2B_SUM_RTOL = 1e-5, 1e-4
 # package's tests/test_grad_e2e.py::test_medium_level_grad_matches_fd and
 # ::test_medium_level_grad_matches_fd_1d, and against the port on the CPU.
 # Per scene, the rays of that test: (count, origin, half-angle of the fan,
-# y of the direction, near, far, FD step).
+# y of the direction, near, far, FD step, or the steps in sigma and l).
 # The hero's (tests/test_torch_grad_hero.py) weighs each ray's t by the sign
 # of its d t / d sigma as the JAX package gave it (MEDIUM_WEIGHTS), so that
-# FD resolves the sigma partial.
+# FD resolves the sigma partial.  Config 4a's phases scale as 1 / l, so
+# its l step is 1e-4 (1e-3 leaves the realization's linear regime).
+# Config 2's rays go on from their first crossing in a second segment,
+# conditioned there (renewal+), as tests/test_torch_ensemble.py runs them;
+# FD is taken over the lanes it resolves (`fd_lanes`).
 MEDIUM_RAYS = {"config 1": (32, (0.0, 1.0, 3.8), 0.12, -0.02, 2.0, 4.5, 4e-3),
+               "config 2": (32, (0.0, 1.0, 3.8), 0.12, -0.02, 2.0, 4.5, 5e-4),
                "config 3": (48, (0.0, 0.9, 3.0), 0.15, -0.01, 1.2, 4.5, 2e-3),
+               "config 4a": (32, (0.0, 1.0, 3.8), 0.12, -0.02, 2.0, 4.5,
+                             (1e-3, 1e-4)),
                "config 5": (32, (0.0, 1.0, 3.8), 0.10, -0.03, 2.0, 4.5, 5e-4)}
 MEDIUM_WEIGHTS = {"config 5": "--+---+-++---+------+++++++--++-"}
+# the K4 variant of config 4a takes config 4a's rays
+MEDIUM_SPEC = {"config 4a, step_size 0": "config 4a"}
 MEDIUM_FD_RTOL, MEDIUM_FD_ATOL = 0.15, 0.5
 MEDIUM_CPU_RTOL = 1e-3
+# K5 and K4 agree with their twins within WS_RTOL * (1 + |x|) in t and
+# the gradient, not bit for bit (cosf/sinf of phases up to ~50 rad, other
+# sums' orders), and config 4a's sums over lanes cancel to ~1% of their
+# terms' magnitudes: its card gradient is held to the CPU's within 1e-2
+WS_MEDIUM_CPU_RTOL = 1e-2
 TRAIN_STEPS = 3
 
 # Peaks of one H100 SXM at 700 W: HBM bytes/s (NVIDIA's data sheet), and
@@ -978,6 +1012,51 @@ def profile_render(trender, what, scene, spp, mod, counter, kernel, label,
     check_bound(f"{label} over the {what} render", k_ms, b_ms)
 
 
+def profile_ws_step(entry, searches, load_scene, what, path, dev,
+                    card_line, name):
+    """One config-4a training step at 128x128, 8 spp under torch.profiler:
+    wall, device time and busy share, the search kernel's device time
+    against its bound over the step's searches (`searches`, WsSearches),
+    and the top kernels (op table in OUT_DIR)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    scene, _ = load_scene(path, res_override=(128, 128), device=dev)
+    spp_idx = torch.arange(8, device=dev)
+    target = torch.zeros(128, 128, 3, device=dev)
+    walls = [timed(lambda: entry.train_step(scene, target, spp_idx))
+             for _ in range(2)]
+    searches.reset()
+    with torch.profiler.profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = timed(lambda: entry.train_step(scene, target, spp_idx))
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    kernel = "ws_march_kernel" if name == "K5" else "ws_trace_kernel"
+    k_ms = sum(e.self_device_time_total for e in kern
+               if kernel in e.key) / 1e3
+    b_ms, _, b_cls, rays, steps = searches.bound(name, 1024)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    launch = [e for e in events if e.key.startswith("cudaLaunchKernel")]
+    table = profile_table(prof, f"profile_grad_step_{name}.txt")
+    print(f"{what} training step (128x128, 8 spp) under torch.profiler: wall "
+          f"{wall * 1e3:.1f} ms (unprofiled {walls[0] * 1e3:.1f}, "
+          f"{walls[1] * 1e3:.1f} ms), device {dev_ms:.1f} ms (busy "
+          f"{dev_ms / (wall * 1e3):.3f} of the profiled wall); {name} "
+          f"{k_ms:.2f} ms over {searches.calls[name]} searches of "
+          f"{rays:.0f} rays and {steps:.0f} steps, bound {b_ms:.3f} ms "
+          f"({b_cls}); kernels on the card x{sum(e.count for e in kern)}, "
+          f"cudaLaunchKernel x{sum(e.count for e in launch)} ({card_line});"
+          " top kernels: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
+                      f" x{e.count}" for e in top)
+          + f"; table in {table}", flush=True)
+    if k_ms <= 0:
+        raise RuntimeError(f"the profiler saw no device time for {name}")
+    check_bound(f"{name} over {what}'s training step", k_ms, b_ms)
+
+
 def k1b_inputs(n, dev, seed=5):
     """n random points, seeds and cotangents of K1b, made with numpy."""
     r = np.random.default_rng(seed)
@@ -1203,15 +1282,10 @@ def k2b_checks(noise3d, base, work, dev, card_line):
         (K2B_RTOL, K2B_SUM_RTOL), card_line, per_point=2)
 
 
-def medium_grad(md, convert, entry, scene, dev, spec, weights=None):
-    """d sum(w t) / d(sigma, l) of a scene's sample_distance on the rays of
-    the medium-level gradient test for it (`spec`, an entry of
-    MEDIUM_RAYS; w = +-1 per ray from `weights`, "+" and "-", or 1), over
-    the lanes that hit at every FD evaluation, and its central FD: returns
-    (dsigma, dl, FD dsigma, FD dl, stable lanes)."""
-    R, origin, half, dy, near, far, eps = spec
-    w_ray = torch.tensor([-1.0 if c == "-" else 1.0
-                          for c in (weights or "+" * R)], device=dev)
+def fan_rays(spec, dev):
+    """The rays of a medium-level gradient test (`spec`, an entry of
+    MEDIUM_RAYS) on `dev`: (ro, rd, near, far, pss, u_jitter, active)."""
+    R, origin, half, dy, near, far = spec[:6]
     ths = np.linspace(-half, half, R, dtype=np.float32)
     ro = np.tile(np.array([origin], np.float32), (R, 1))
     rd = np.stack([np.sin(ths), np.zeros(R, np.float32) + dy,
@@ -1219,11 +1293,24 @@ def medium_grad(md, convert, entry, scene, dev, spec, weights=None):
     rd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
     pss = np.stack([np.arange(R), np.zeros(R), np.zeros(R), np.zeros(R)],
                    axis=-1).astype(np.int64)
-    args = [torch.from_numpy(a).to(dev) for a in (
-        ro, rd, np.full(R, near, np.float32), np.full(R, far, np.float32))]
-    rest = (torch.from_numpy(pss).to(dev),
-            torch.full((R,), 0.5, device=dev),
-            torch.ones(R, dtype=torch.bool, device=dev))
+    return (*(torch.from_numpy(a).to(dev) for a in (
+        ro, rd, np.full(R, near, np.float32), np.full(R, far, np.float32),
+        pss)), torch.full((R,), 0.5, device=dev),
+        torch.ones(R, dtype=torch.bool, device=dev))
+
+
+def medium_grad(md, convert, entry, scene, dev, spec, weights=None):
+    """d sum(w t) / d(sigma, l) of a scene's sample_distance on the rays of
+    the medium-level gradient test for it (`spec`, an entry of
+    MEDIUM_RAYS; w = +-1 per ray from `weights`, "+" and "-", or 1), over
+    the lanes that hit at every FD evaluation, and its central FD: returns
+    (dsigma, dl, FD dsigma, FD dl, stable lanes)."""
+    R, eps = spec[0], spec[-1]
+    eps_s, eps_l = eps if isinstance(eps, tuple) else (eps, eps)
+    w_ray = torch.tensor([-1.0 if c == "-" else 1.0
+                          for c in (weights or "+" * R)], device=dev)
+    ro, rd, near, far, pss, uj, active = fan_rays(spec, dev)
+    args, rest = (ro, rd, near, far), (pss, uj, active)
 
     def crossing(sigma, l):
         med = convert.set_params(scene, sigma, l).media[0]
@@ -1238,14 +1325,15 @@ def medium_grad(md, convert, entry, scene, dev, spec, weights=None):
 
     with torch.no_grad():
         stable = torch.ones(R, dtype=torch.bool, device=dev)
-        for ds, dl in ((0, 0), (eps, 0), (-eps, 0), (0, eps), (0, -eps)):
+        for ds, dl in ((0, 0), (eps_s, 0), (-eps_s, 0), (0, eps_l),
+                       (0, -eps_l)):
             stable &= ~crossing(val(sigma0 + ds), val(l0 + dl))["exited"]
         w = torch.where(stable, w_ray, 0.0)
 
         def f(s, l):
             return float((w * crossing(val(s), val(l))["t"]).sum())
-        fd_s = (f(sigma0 + eps, l0) - f(sigma0 - eps, l0)) / (2 * eps)
-        fd_l = (f(sigma0, l0 + eps) - f(sigma0, l0 - eps)) / (2 * eps)
+        fd_s = (f(sigma0 + eps_s, l0) - f(sigma0 - eps_s, l0)) / (2 * eps_s)
+        fd_l = (f(sigma0, l0 + eps_l) - f(sigma0, l0 - eps_l)) / (2 * eps_l)
     sigma = val(sigma0).requires_grad_()
     l = val(l0).requires_grad_()
     loss = (w * crossing(sigma, l)["t"]).sum()
@@ -1253,10 +1341,13 @@ def medium_grad(md, convert, entry, scene, dev, spec, weights=None):
     return float(gs), float(gl), fd_s, fd_l, stable.cpu()
 
 
-def grad_checks(md, convert, entry, load_scene, dev, what, path):
+def grad_checks(md, convert, entry, load_scene, dev, what, path,
+                fd_gate=True, cpu_rtol=MEDIUM_CPU_RTOL):
     """A scene's medium-level gradient on the card against central FD and
-    against the port on the CPU."""
-    spec, weights = MEDIUM_RAYS[what], MEDIUM_WEIGHTS.get(what)
+    against the port on the CPU within cpu_rtol (without `fd_gate`, FD is
+    printed, not held)."""
+    spec, weights = MEDIUM_RAYS[MEDIUM_SPEC.get(what, what)], \
+        MEDIUM_WEIGHTS.get(what)
     R, eps = spec[0], spec[-1]
     scene, _ = load_scene(path, device=dev)
     gs, gl, fd_s, fd_l, stable = medium_grad(md, convert, entry, scene, dev,
@@ -1275,15 +1366,154 @@ def grad_checks(md, convert, entry, load_scene, dev, what, path):
                            "are stable")
     for name, ad, fd, cpu in (("dsigma", gs, fd_s, c_gs),
                               ("dl", gl, fd_l, c_gl)):
-        if ad == 0.0 or abs(ad - fd) > MEDIUM_FD_ATOL + MEDIUM_FD_RTOL * abs(
-                fd):
+        if ad == 0.0 or fd_gate and abs(ad - fd) > (
+                MEDIUM_FD_ATOL + MEDIUM_FD_RTOL * abs(fd)):
             raise RuntimeError(f"{what}: medium-level {name} {ad} is not "
                                f"within rtol {MEDIUM_FD_RTOL}, atol "
                                f"{MEDIUM_FD_ATOL} of FD {fd}")
-        if abs(ad - cpu) > MEDIUM_CPU_RTOL * abs(cpu):
+        if abs(ad - cpu) > cpu_rtol * abs(cpu):
             raise RuntimeError(f"{what}: medium-level {name} on the card {ad}"
+                               f" is not within {cpu_rtol} of the CPU's "
+                               f"{cpu}")
+
+
+def two_segments(md, med, scene_seed, rays):
+    """sample_distance along the rays (fan_rays), then on from each first
+    crossing in the same direction in a second segment, which renewal+
+    conditions at its start on the first crossing's value and normal:
+    (first result, second result)."""
+    ro, rd, near, far, pss, uj, active = rays
+    R = ro.shape[0]
+    r1, st = md.sample_distance(med, scene_seed, ro, rd, near, far,
+                                md.MediumState.make(R, ro.device), pss, uj,
+                                active)
+    r2, _ = md.sample_distance(
+        med, scene_seed, ro + r1["t"][:, None] * rd, rd, torch.zeros_like(near),
+        torch.full_like(far, 3.0), st,
+        pss + torch.tensor([0, 0, 0, 1], device=pss.device), uj,
+        ~r1["exited"])
+    return r1, r2
+
+
+def fd_lanes(run, params, i, eps):
+    """(lanes, central FD of sum(t1 + t2) over them) in parameter i at step
+    eps, `run(sigma, l)` giving the two segments' results: the lanes that
+    hit in both segments at every evaluation and whose t1 and t2 have
+    central differences at eps and eps / 4 within 10% (+ 0.05) of each
+    other.  A lane whose march takes another bracket or refinement path
+    across the stencil jumps in t, which FD turns into a slope no
+    derivative has (tests/test_torch_ensemble.py)."""
+    def at(d):
+        x = list(params)
+        x[i] += d
+        with torch.no_grad():
+            a, b = run(*x)
+        return a["t"], b["t"], ~a["exited"] & ~b["exited"]
+
+    c, p, m, p4, m4 = (at(d) for d in (0.0, eps, -eps, eps / 4, -eps / 4))
+    lanes = c[2] & p[2] & m[2] & p4[2] & m4[2]
+    for k in range(2):
+        f1 = (p[k] - m[k]) / (2 * eps)
+        f4 = (p4[k] - m4[k]) / (eps / 2)
+        lanes &= (f1 - f4).abs() <= 0.1 * f1.abs() + 0.05
+    fd = torch.where(lanes, p[0] + p[1] - m[0] - m[1], 0.0).sum() / (2 * eps)
+    return lanes, float(fd)
+
+
+def two_segment_grad_checks(md, convert, entry, load_scene, dev, what, path):
+    """A renewal scene's two-segment medium-level gradient d sum(t1 + t2) /
+    d(sigma, l) on the card against central FD over the lanes FD resolves
+    and against the port on the CPU over the same lanes."""
+    spec = MEDIUM_RAYS[what]
+    R, eps = spec[0], spec[-1]
+    scenes = {d: load_scene(path, device=d)[0] for d in (dev, "cpu")}
+
+    def run(d, sigma, l):
+        sc = scenes[d]
+        med = convert.set_params(
+            sc, *(torch.as_tensor(v, dtype=torch.float32, device=d)
+                  for v in (sigma, l))).media[0]
+        return two_segments(md, med, sc.scene_seed, fan_rays(spec, d))
+
+    def ad(d, lanes, i):
+        x = [torch.tensor(float(v), device=d, requires_grad=True)
+             for v in entry.params(scenes[d])]
+        r1, r2 = run(d, *x)
+        loss = torch.where(lanes.to(d), r1["t"] + r2["t"], 0.0).sum()
+        return float(torch.autograd.grad(loss, x[i])[0])
+
+    params = tuple(float(v) for v in entry.params(scenes[dev]))
+    for i, name in enumerate(("dsigma", "dl")):
+        lanes, fd = fd_lanes(lambda s, l: run(dev, s, l), params, i, eps)
+        g, g_cpu = ad(dev, lanes, i), ad("cpu", lanes.cpu(), i)
+        print(f"{what} two-segment medium-level d sum(t1 + t2) / {name[1:]}"
+              f" on the {int(lanes.sum())} of {R} lanes FD resolves: card "
+              f"{g:.5f}, central FD at eps {eps} {fd:.5f}, CPU {g_cpu:.5f}",
+              flush=True)
+        if int(lanes.sum()) < R // 4:
+            raise RuntimeError(f"{what}: FD resolves fewer than {R // 4} "
+                               "lanes")
+        if g == 0.0 or abs(g - fd) > MEDIUM_FD_ATOL + MEDIUM_FD_RTOL * abs(
+                fd):
+            raise RuntimeError(f"{what}: medium-level {name} {g} is not "
+                               f"within rtol {MEDIUM_FD_RTOL}, atol "
+                               f"{MEDIUM_FD_ATOL} of FD {fd}")
+        if abs(g - g_cpu) > MEDIUM_CPU_RTOL * abs(g_cpu):
+            raise RuntimeError(f"{what}: medium-level {name} on the card {g}"
                                f" is not within {MEDIUM_CPU_RTOL} of the "
-                               f"CPU's {cpu}")
+                               f"CPU's {g_cpu}")
+
+
+def ws_image_grad_check(entry, convert, load_scene, dev, card_line):
+    """tests/test_grad_e2e.py::test_image_grad_allclose_fd for config 4a in
+    the port: a 24x24 image averaged over 16 passes with the isotropic
+    phase in place of the BRDF one (FD sees the scattered direction turn
+    with the normal, which the detached-sampling estimator leaves out);
+    over the pixels linear in the parameter across the FD stencil, AD of
+    their sum within rtol 0.15, atol 2e-2 of central FD, in sigma at eps
+    1e-3 and in l at eps 1e-5."""
+    import dataclasses
+    from tungsten_tpu_torch.models.integrator import render_pass
+    base, _ = load_scene(WS_SCENE, res_override=(24, 24), device=dev)
+    base = dataclasses.replace(base, media=(dataclasses.replace(
+        base.media[0], phase_kind="isotropic"),))
+    spp = torch.arange(16, device=dev)
+
+    def img(sigma, l):
+        return render_pass(convert.set_params(base, sigma, l),
+                           spp).sum(-1) / 16
+
+    x0 = [float(v) for v in entry.params(base)]
+
+    def val(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    with torch.no_grad():
+        i0 = img(val(x0[0]), val(x0[1]))
+    for i, name, eps in ((0, "sigma", 1e-3), (1, "l", 1e-5)):
+        xp, xm = list(x0), list(x0)
+        xp[i] += eps
+        xm[i] -= eps
+        with torch.no_grad():
+            ip, im = img(*map(val, xp)), img(*map(val, xm))
+        lin = (ip + im - 2.0 * i0).abs()
+        d1 = (ip - im).abs()
+        m = (lin < 0.35 * d1 + 1e-4) & (d1 > 1e-6)
+        leaves = [val(v).requires_grad_() for v in x0]
+        ad = float(torch.autograd.grad(
+            torch.where(m, img(*leaves), 0.0).sum(), leaves[i])[0])
+        fd = float((torch.where(m, ip, 0.0).sum()
+                    - torch.where(m, im, 0.0).sum()) / (2 * eps))
+        print(f"config 4a image-level d/d{name} (24x24, 16 passes, isotropic "
+              f"phase) over {int(m.sum())} event-linear pixels: AD {ad:.5f},"
+              f" central FD at eps {eps} {fd:.5f} ({card_line})", flush=True)
+        if int(m.sum()) < 24:
+            raise RuntimeError(f"config 4a: only {int(m.sum())} event-linear "
+                               "pixels")
+        if not (np.isfinite(ad) and abs(ad) > 1e-5
+                and abs(ad - fd) <= 2e-2 + 0.15 * abs(fd)):
+            raise RuntimeError(f"config 4a: image-level d/d{name} {ad} is "
+                               f"not within rtol 0.15, atol 2e-2 of FD {fd}")
 
 
 def launch_counters(noise3d, noise1d, wst):
@@ -1315,15 +1545,16 @@ def check_counts(counters, used, what):
 
 
 def train_steps(entry, counters, load_scene, dev, card_line, what, path,
-                steps, shape, used, res=None, spp=None):
+                steps, shape, used, res=None, spp=None, per_step=None):
     """`steps` steps of entry.train_step on a scene at its own resolution,
     spp and depth (or at `res` and `spp`; `shape`: (H, W, spp,
-    max_bounces), checked) in one ray batch, against a zero target, with
-    the launch counts set to 0 just before and read just after; each step
-    must have a finite loss and a finite, nonzero dsigma and dl, and go
-    through the kernels `used` (a forward and its backward) alone, the
-    backward at least once per sample_distance that records a graph.
-    Returns the launch counts."""
+    max_bounces), checked), against a zero target, with the launch counts
+    set to 0 just before and read just after; each step must have a finite
+    loss and a finite, nonzero dsigma and dl, and go through the kernels
+    `used` (a forward and, for a lattice sum, its backward) alone, the
+    backward at least once per sample_distance that records a graph, and
+    the forward `per_step` times a step if given.  Returns the launch
+    counts."""
     from tungsten_tpu_torch import convert
     from tungsten_tpu_torch.models import media as md
     scene, rdoc = load_scene(path, res_override=res, device=dev)
@@ -1377,11 +1608,17 @@ def train_steps(entry, counters, load_scene, dev, card_line, what, path,
                                    f"dl {float(gl)}: the gradient chain is "
                                    "severed or not finite")
             bwd = used[-1]
-            if not 0 < graphs[0] <= after[bwd] - before[bwd]:
+            if graphs[0] <= 0 or len(used) > 1 and graphs[0] > (
+                    after[bwd] - before[bwd]):
                 raise RuntimeError(f"{what} step {step}: {bwd} launched "
                                    f"{after[bwd] - before[bwd]} times for "
                                    f"{graphs[0]} sample_distance calls with "
                                    "a graph")
+            fwd = after[used[0]] - before[used[0]]
+            if per_step is not None and fwd != per_step:
+                raise RuntimeError(f"{what} step {step}: {used[0]} launched "
+                                   f"{fwd} times, the forward render "
+                                   f"{per_step}")
             scene = convert.set_params(scene, sigma, l)
     finally:
         md.sample_distance = sample_distance
@@ -1726,6 +1963,43 @@ def main():
         check_k2_points(noise3d, "the hero")
         done(t0)
 
+        phase("config 2, the ensemble (256x256, 16 spp, in 4 batches of 4 "
+              "spp) through the CLI")
+        t0 = time.perf_counter()
+        noise3d.LAUNCHES = noise3d.K1B_LAUNCHES = noise3d.K2_LAUNCHES = 0
+        noise1d.LAUNCHES = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
+        img, wall, peak = render_cli(trender, ENS_SCENE, 16, tmp, "ensemble")
+        k1_ens = noise3d.LAUNCHES
+        lum = check_image(img, "config 2", (256, 256, 3))
+        print(f"mean luminance {lum:.4f}, K1 launches {k1_ens}; {wall:.2f} s"
+              f" with scene load ({256 * 256 * 16 / wall / 1e3:.2f} "
+              f"Ksamples/s), peak device memory {peak / 2 ** 30:.2f} GiB "
+              f"({card_line})", flush=True)
+        if (k1_ens <= 0 or noise3d.K1B_LAUNCHES or noise3d.K2_LAUNCHES
+                or noise1d.LAUNCHES or wst.MARCH_LAUNCHES
+                or wst.TRACE_LAUNCHES):
+            raise RuntimeError("the config-2 render did not go through K1 "
+                               "alone")
+        done(t0)
+
+        phase("config 2 (128x128, 16 spp, one batch): launches, host syncs "
+              "and peak memory")
+        t0 = time.perf_counter()
+        ens128, _ = load_scene(ENS_SCENE, res_override=(128, 128),
+                               device=dev)
+        noise3d.LAUNCHES = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        syncs = host_syncs(lambda: trender.render(ens128, 16, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        print(f"config 2, 128x128, 16 spp: {wall:.3f} s with the sync count "
+              f"on, K1 launches {noise3d.LAUNCHES}, host syncs {syncs}, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+              f" GiB ({card_line})", flush=True)
+        done(t0)
+
     counters = launch_counters(noise3d, noise1d, wst)
     phase("config 1's medium-level gradient: card against FD and the CPU")
     t0 = time.perf_counter()
@@ -1793,6 +2067,53 @@ def main():
     check_k2_points(noise3d, "the hero's CLI step")
     done(t0)
 
+    phase("config 2's two-segment medium-level gradient (renewal+ at the "
+          "second segment's start): card against FD and the CPU")
+    t0 = time.perf_counter()
+    two_segment_grad_checks(md, convert, entry, load_scene, dev, "config 2",
+                            ENS_SCENE)
+    done(t0)
+
+    phase(f"config 2's training step (256x256, 16 spp, depth 2, in 4 groups "
+          f"of 4 samples): {TRAIN_STEPS} steps of entry.train_step")
+    t0 = time.perf_counter()
+    k1b_ens = train_steps(entry, counters, load_scene, dev, card_line,
+                          "config 2", ENS_SCENE, TRAIN_STEPS,
+                          (256, 256, 16, 2), ("K1", "K1b"))["K1b"]
+    done(t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ws0_path = os.path.join(tmp, "ws-trace.json")
+        with open(ws0_path, "w") as fh:
+            json.dump(ws_doc(step_size=0.0), fh)
+        for what, path, gate in (("config 4a", WS_SCENE, True),
+                                 ("config 4a, step_size 0", ws0_path, False)):
+            phase(f"{what}'s medium-level gradient: card against FD"
+                  + ("" if gate else " (printed, not held: K4's IFT is taken"
+                     " at its trace's end point, off the root)")
+                  + " and the CPU")
+            t0 = time.perf_counter()
+            grad_checks(md, convert, entry, load_scene, dev, what, path,
+                        fd_gate=gate, cpu_rtol=WS_MEDIUM_CPU_RTOL)
+            done(t0)
+
+        phase("config 4a's image-level gradient against FD (24x24, 16 "
+              "passes, isotropic phase, event-linear pixels)")
+        t0 = time.perf_counter()
+        ws_image_grad_check(entry, convert, load_scene, dev, card_line)
+        done(t0)
+
+        for what, path, used, steps, fwd in (
+                ("config 4a", WS_SCENE, ("K5",), TRAIN_STEPS, k5_launches),
+                ("config 4a, step_size 0", ws0_path, ("K4",), 1,
+                 k4_launches)):
+            phase(f"{what}'s training step (128x128, 8 spp, depth 2): "
+                  f"{steps} step(s) of entry.train_step")
+            t0 = time.perf_counter()
+            train_steps(entry, counters, load_scene, dev, card_line, what,
+                        path, steps, (128, 128, 8, 2), used, per_step=fwd)
+            done(t0)
+
     phase("timing runs (128x128)")
     t0 = time.perf_counter()
     noise1d.MOST_POINTS = wst.MARCH_LAUNCHES = wst.TRACE_LAUNCHES = 0
@@ -1802,7 +2123,8 @@ def main():
     m1d128, _ = load_scene(M1D_SCENES["config 3"][0], device=dev)
     hero128, _ = load_scene(HERO_SCENE, res_override=(128, 128), device=dev)
     for what, sc, spp in (("config 1", scene128, 16), ("config 4a", ws128, 8),
-                          ("config 3", m1d128, 16), ("config 5", hero128, 16)):
+                          ("config 3", m1d128, 16), ("config 5", hero128, 16),
+                          ("config 2", ens128, 16)):
         film = None
 
         def run():
@@ -1831,7 +2153,9 @@ def main():
             *((what, load_scene(path, res_override=(64, 64), device=dev)[0],
                gold, True) for what, (path, gold) in M1D_SCENES.items()),
             ("config 5", load_scene(HERO_SCENE, res_override=(64, 64),
-                                    device=dev)[0], HERO_GOLDEN, True)):
+                                    device=dev)[0], HERO_GOLDEN, True),
+            ("config 2", load_scene(ENS_SCENE, res_override=(64, 64),
+                                    device=dev)[0], ENS_GOLDEN, True)):
         ours = (trender.render(sc, 48, device=dev) / 48).cpu().numpy()
         ratio, frac_bad = golden_bucket_test(ours, read_pfm(gold), 48)
         print(f"{what}: energy ratio {ratio:.4f} (0.9-1.1), frac_bad "
@@ -1875,6 +2199,24 @@ def main():
             "K2b": ("noise3d_sum_bwd", "noise3d_sum_bwd_kernel")},
             lattice, load_scene, "config 5", HERO_SCENE, dev, card_line,
             res=(128, 128), spp=16)
+        profile_render(trender, "config 2", ens128, 16, noise3d, "LAUNCHES",
+                       "noise3d_sum_s_kernel", "K1",
+                       "profile_ensemble_16spp.txt", dev, card_line,
+                       "noise3d_sum_s", lattice["K1"])
+        profile_grad(entry, noise3d, {
+            "K1": ("noise3d_sum_s", "noise3d_sum_s_kernel"),
+            "K1b": ("noise3d_sum_s_bwd", "noise3d_sum_s_bwd_kernel")},
+            lattice, load_scene, "config 2", ENS_SCENE, dev, card_line,
+            res=(128, 128), spp=16)
+        with tempfile.TemporaryDirectory() as tmp:
+            ws0_path = os.path.join(tmp, "ws-trace.json")
+            with open(ws0_path, "w") as fh:
+                json.dump(ws_doc(step_size=0.0), fh)
+            for what, path, name in (("config 4a", WS_SCENE, "K5"),
+                                     ("config 4a, step_size 0", ws0_path,
+                                      "K4")):
+                profile_ws_step(entry, searches, load_scene, what, path, dev,
+                                card_line, name)
         done(t0)
 
     if "jax" in sys.modules or "tungsten_tpu" in sys.modules:
@@ -1885,10 +2227,10 @@ def main():
     kernels = []
     for name, src, line, launched, err, (t_k, t_p, b_ms, b_by, b_cls) in (
             ("K1 noise3d_sum_s", "noise3d.cu", "sparse_conv_pallas.py:144",
-             k1_launches, k1_err, k1_times[K1_MAIN_POINTS]),
+             k1_launches + k1_ens, k1_err, k1_times[K1_MAIN_POINTS]),
             ("K1b noise3d_sum_s_bwd", "noise3d.cu",
-             "sparse_conv_pallas.py:234 _noise3d_sum_s_bwd", k1b_launches,
-             k1b_err, k1b_times[K1B_LINE_POINTS]),
+             "sparse_conv_pallas.py:234 _noise3d_sum_s_bwd",
+             k1b_launches + k1b_ens, k1b_err, k1b_times[K1B_LINE_POINTS]),
             ("K2 noise3d_sum", "noise3d.cu", "sparse_conv_pallas.py:136",
              k2_launches, k2_err, k2_times[K2_LINE_POINTS]),
             ("K2b noise3d_sum_bwd", "noise3d.cu",

@@ -287,8 +287,12 @@ def test_unported_backwards_refuse_by_name():
         noise1d.noise1d_sum(torch.zeros(4, requires_grad=True), seed, 3.0, 3)
     with pytest.raises(NotImplementedError, match="noise3d_sum_s_diff"):
         noise3d.noise3d_sum_s(p, seed, 0.25, [1.0] * 3 + [0.0] * 3, 3)
+    # the weight-space gradient is ported: finite and nonzero
     from tungsten_tpu_torch.scene.parse import load_scene
-    ws, _ = load_scene(WS_SCENE, res_override=(2, 2), device="cpu")
+    ws, _ = load_scene(WS_SCENE, res_override=(4, 4), device="cpu")
+    ws = dataclasses.replace(ws, media=(dataclasses.replace(
+        ws.media[0], basis_functions=64),))
     sigma, l = _leaves(ws)
-    with pytest.raises(NotImplementedError, match="weight-space"):
-        render_pass(convert.set_params(ws, sigma, l), 0)
+    img = render_pass(convert.set_params(ws, sigma, l), torch.tensor([0, 1]))
+    grads = torch.autograd.grad(img.sum(), (sigma, l))
+    assert all(bool(torch.isfinite(g)) and float(g) != 0.0 for g in grads)

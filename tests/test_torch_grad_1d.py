@@ -484,12 +484,12 @@ def test_cli_takes_the_mirror_scene(capsys):
 
 
 def test_unported_gradient_refuses_by_name():
-    """The weight-space medium's gradient is not ported (the hero's is,
-    tests/test_torch_grad_hero.py): the gradient entry points refuse it by
-    name."""
+    """The gradient entry points now differentiate the weight-space medium
+    too (tests/test_torch_grad_ws.py holds it to JAX): fwd_bwd and the CLI
+    give a finite, nonzero gradient, where they refused it by name."""
     ws, _ = tload_scene(WS, res_override=(2, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="weight-space"):
-        entry.fwd_bwd(ws, 0)
-    with pytest.raises(NotImplementedError, match="weight-space"):
-        entry.main(["--scene", WS, "--device", "cpu", "--res", "2x2",
-                    "--steps", "1"])
+    _, grads = entry.fwd_bwd(ws, torch.arange(4))
+    assert all(bool(torch.isfinite(g)) and float(g) != 0.0 for g in grads)
+    # the CLI raises on a non-finite or zero gradient
+    entry.main(["--scene", WS, "--device", "cpu", "--res", "2x2", "--spp",
+                "4", "--steps", "1"])

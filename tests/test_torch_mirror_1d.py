@@ -434,7 +434,7 @@ def test_parser_refuses_what_the_slice_leaves_out():
     with open(SCENES[False]) as f:
         doc = json.load(f)
     for field, value, what in (("correlation_context", "renewal", "renewal"),
-                               ("1D_sampling", False, "3D"),
+                               ("1D_sampling", False, "mirror phase"),
                                ("1D_sampling_scheme", "bogus", "scheme")):
         d = json.loads(json.dumps(doc))
         d["media"][0][field] = value

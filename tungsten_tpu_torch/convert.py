@@ -9,7 +9,8 @@ class name.  `scene_from_numpy(tree)` builds this package's Scene from such
 a dict, so both renderers compute from the same parameters; every tensor
 of it is a leaf of its own, which a caller may mark `requires_grad`.
 `set_params(scene, sigma, l)` puts other GP hyperparameters into a scene,
-as the JAX package's gradient checks do.
+as the JAX package's gradient checks do; `coeffs_from_numpy` carries
+conditioning coefficients across.
 """
 from __future__ import annotations
 
@@ -132,23 +133,24 @@ def scene_from_numpy(tree, device="cuda"):
                  and tree[m + "normal_method"] == "conditioned_gaussian"
                  and tree[m + "law"] is None, "this medium configuration")
         c = m + "cfg."
-        _require(not (tree[c + "isotropic_3d"]
-                      or tree[c + "surf_vol_phase_separate"]),
-                 "isotropic / phase-separated sampling")
+        _require(not (tree[c + "surf_vol_phase_separate"] or (
+            tree[c + "isotropic_3d"] and not tree[c + "isotropic_ray_3d"])),
+            "plain isotropic or phase-separated sampling")
         cfg = sc.SparseConvConfig(
             global_seed=int(tree[c + "global_seed"]),
             impulse_density=t(c + "impulse_density"), ctxt=tree[c + "ctxt"],
             use_single_realization=tree[c + "use_single_realization"],
             impulse_count=tree[c + "impulse_count"],
             one_d=tree[c + "one_d"], scheme=tree[c + "scheme"],
-            correlation_xy=tree[c + "correlation_xy"])
+            correlation_xy=tree[c + "correlation_xy"],
+            isotropic_3d=tree[c + "isotropic_3d"])
         _require(not (cfg.one_d and kind == md.GPIS_WEIGHT_SPACE),
                  "1D sampling of a weight-space medium")
         _require(cfg.one_d or bsdf_kinds[tree[m + "phase_bsdf"]] != bs.MIRROR,
                  "a mirror phase function without 1D sampling")
         _require(kind == md.GPIS_WEIGHT_SPACE or not cfg.activate_conditioning
-                 or (cfg.one_d and cfg.ctxt == sc.CTXT_RENEWAL_PLUS),
-                 "renewal conditioning of 3D realizations")
+                 or not cfg.one_d or cfg.ctxt == sc.CTXT_RENEWAL_PLUS,
+                 "renewal conditioning of 1D realizations")
         g = m + "gp."
         _require(all(tree[g + k] is None for k in (
             "mean_additional", "csg_right", "global_cond", "color_field",
@@ -156,9 +158,10 @@ def scene_from_numpy(tree, device="cuda"):
         cov = _cov(tree, g + "cov.", t)
         _require(cov.is_stationary or (
             kind == md.GPIS_SPARSE_CONV
-            and not (cfg.one_d or cfg.activate_conditioning)),
-            "a nonstationary covariance in weight space, with 1D sampling "
-            "or with conditioning")
+            and not (cfg.one_d or cfg.activate_conditioning
+                     or cfg.isotropic_3d)),
+            "a nonstationary covariance in weight space, with 1D or "
+            "isotropic sampling or with conditioning")
         _require(float(tree[c + "base"]) == sc.MULTI_RES_BASE,
                  "another multi-resolution base")
         mean_type = tree[g + "mean.__type__"]
@@ -190,6 +193,18 @@ def scene_from_numpy(tree, device="cuda"):
         enable_light_sampling=tree["enable_light_sampling"],
         enable_volume_light_sampling=tree["enable_volume_light_sampling"],
         cam_medium=tree["cam_medium"], shadow_hops=tree["shadow_hops"])
+
+
+def coeffs_from_numpy(c, device="cuda"):
+    """This package's sc.Coeffs from conditioning coefficients with the
+    fields value_scale [R], gradient_scale [R, 3] and ray_origin [R, 3] (the
+    JAX package's batched Coeffs, or any tree of arrays with those
+    fields)."""
+    device = check_device(device)
+    return sc.Coeffs(**{
+        k: torch.as_tensor(np.array(getattr(c, k)), dtype=torch.float32,
+                           device=device)
+        for k in ("value_scale", "gradient_scale", "ray_origin")})
 
 
 def set_params(scene, sigma, l):

@@ -1,7 +1,7 @@
-"""The hyperparameter gradient of BASELINE configs 1, 3, 3b and 5 (the
-hero), the port's counterpart of the JAX package's `__graft_entry__.py`:
-`python -m tungsten_tpu_torch.entry --device cuda --steps 3
-[--scene scenes/gpis-hero.json] [--spp 1]`.
+"""The hyperparameter gradient of BASELINE configs 1, 2, 3, 3b, 4a and 5
+(the hero), the port's counterpart of the JAX package's
+`__graft_entry__.py`: `python -m tungsten_tpu_torch.entry --device cuda
+--steps 3 [--scene scenes/gpis-hero.json] [--spp 1]`.
 
 `fwd_bwd(scene, spp_idx)` renders one pass and returns the image with
 d sum(image) / d(sigma, l) of medium 0's covariance, as `entry()` does
@@ -13,18 +13,21 @@ device).  (sigma, l) are those of medium 0's covariance, of its stationary
 base for the hero's procedural nonstationary covariance.
 The render keeps its graph only from the parameters on, by the
 detached-sampling estimator (models/integrator.py); on CUDA tensors the
-lattice sum's backward is kernel K1b (config 1's 3D sum), K2b (the hero's
-two multi-resolution levels) or K3b (the 1D sum of configs 3 and 3b).  A
-weight-space medium, whose gradient is not ported, refuses by name.
+lattice sum's backward is kernel K1b (the 3D sum of configs 1 and 2), K2b
+(the hero's two multi-resolution levels) or K3b (the 1D sum of configs 3
+and 3b).  A weight-space medium (config 4a) searches with K5 or K4 on
+detached parameters and differentiates through its realization in
+PyTorch (models/media.py `_ws_reattach`).
 
 The CLI loads `--scene` (config 1, `scenes/gpis-sphere-box.json`, by
 default) at its own resolution (or `--res WxH`), spp (or `--spp`) and
-depth (config 1: 128x128, 4 spp; configs 3 and 3b: 128x128, 16 spp; the
-hero: 1920x1080, 32 spp; max_bounces 2 in all) and takes `--steps` steps
-against a zero target, printing each step's loss, parameters and
-gradient.  A frame of at most `render.MAX_RAYS` pixels renders all samples
-of a step in one ray batch; a larger one (the hero's) in render.render's
-row bands (see train_step).
+depth (config 1: 128x128, 4 spp; config 2: 256x256, 16 spp; configs 3
+and 3b: 128x128, 16 spp; config 4a: 128x128, 8 spp; the hero: 1920x1080,
+32 spp; max_bounces 2 in all) and takes `--steps` steps against a zero
+target, printing each step's loss, parameters and gradient.  A step of
+at most `render.MAX_RAYS` rays renders all its samples in one ray batch;
+a larger one in render.render's groups of samples or, above MAX_RAYS
+pixels (the hero's), its row bands (see train_step).
 """
 from __future__ import annotations
 
@@ -83,17 +86,37 @@ def train_step(scene, target, spp_idx, lr=1e-3):
     render.render's bands of MAX_RAYS // W rows, one sample at a time; each
     band's part of the loss is backpropagated on its own and the bands'
     gradients are summed before the step, as dryrun_multichip sums its row
-    shards.  The loss and gradient are the single batch's, and the peak
-    memory is one band's graph."""
+    shards.  A smaller frame whose samples make more than MAX_RAYS rays
+    (config 2's 256x256 at 16 spp) renders in render.render's groups of
+    MAX_RAYS // (H * W) samples: the loss, a square of the samples' mean,
+    needs the whole image before any group's backward, so the groups are
+    first rendered without a graph (a plain render has the values of one
+    with gradient), then each is rendered again and backpropagated on its
+    own with the loss's gradient in its image, and the groups' gradients
+    are summed.  Either way the loss and gradient are the single batch's
+    (to rounding), and the peak memory is one band's or group's graph."""
     sigma, l = _leaves(scene)
     samples = torch.as_tensor(spp_idx).reshape(-1)
     spp = samples.numel()
     pscene = convert.set_params(scene, sigma, l)
     H, W = scene.camera.res_y, scene.camera.res_x
-    if H * W <= render.MAX_RAYS:
+    if H * W * spp <= render.MAX_RAYS:
         img = render_pass(pscene, spp_idx) / spp
         loss = ((img - target) ** 2).mean()
         gs, gl = torch.autograd.grad(loss, (sigma, l))
+    elif H * W <= render.MAX_RAYS:
+        per = render.MAX_RAYS // (H * W)
+        groups = [samples[i:i + per] for i in range(0, spp, per)]
+        with torch.no_grad():
+            img = sum(render_pass(pscene, g) for g in groups) / spp
+        resid = img - target
+        loss = (resid ** 2).mean()
+        d_img = resid * (2.0 / (target.numel() * spp))
+        gs = gl = 0.0
+        for g in groups:
+            d_s, d_l = torch.autograd.grad(render_pass(pscene, g), (sigma, l),
+                                           grad_outputs=d_img)
+            gs, gl = gs + d_s, gl + d_l
     else:
         rows = max(1, render.MAX_RAYS // W)
         loss = gs = gl = 0.0
@@ -112,8 +135,8 @@ def train_step(scene, target, spp_idx, lr=1e-3):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Inverse-rendering steps on the GP hyperparameters of "
-                    "a GPIS scene (BASELINE config 1, 3, 3b or 5) with "
-                    "tungsten_tpu_torch.")
+                    "a GPIS scene (BASELINE config 1, 2, 3, 3b, 4a or 5) "
+                    "with tungsten_tpu_torch.")
     ap.add_argument("--scene", default=SCENE,
                     help="the scene file (default: config 1's "
                          "scenes/gpis-sphere-box.json)")
@@ -137,8 +160,12 @@ def main(argv=None):
     spp_idx = torch.arange(spp, device=device)
     H, W = scene.camera.res_y, scene.camera.res_x
     target = torch.zeros(H, W, 3, device=device)
-    if H * W <= render.MAX_RAYS:
+    if H * W * spp <= render.MAX_RAYS:
         batches = f"in one batch of {W * H * spp} rays"
+    elif H * W <= render.MAX_RAYS:
+        per = render.MAX_RAYS // (H * W)
+        batches = (f"in {-(-spp // per)} groups of {per} samples, each "
+                   "rendered twice (without and with a graph)")
     else:
         rows = max(1, render.MAX_RAYS // W)
         batches = (f"in {-(-H // rows)} bands of {rows} rows, one sample at "

@@ -13,8 +13,9 @@ sampling).  The normal at a crossing comes from the general evaluator
 when no ray is still marching, which reads `marching.any()` on the host
 once per step.  The JAX package's `[S, R]` step blocking only fills TPU
 lanes; with one step per iteration the evaluated steps are the same.
-Per-path 1D realizations under renewal+ are first conditioned at the
-segment start on the value and normal the path carries (`_precondition`).
+Per-path realizations under a renewal context (3D: renewal and renewal+,
+1D: renewal+) are first conditioned at the segment start on the value and
+normal the path carries (`_precondition`).
 
 Weight space: each ray's RFF realization is keyed by its (pixel, sample,
 bounce) words; K5 marches it in fixed steps (step_size > 0) or K4
@@ -29,9 +30,11 @@ the GP hyperparameters by the implicit function theorem and its normal is
 sampled at the reattached point.  The lattice sum's backward is K1b on
 the 3D stationary path, K2b on the two multi-resolution levels of a
 nonstationary covariance (whose level blend and fields stay in the graph)
-and K3b on the 1D path, where the renewal+ conditioning at a segment start
-keeps the graph of the value and normal the path carries.  The
-weight-space crossing has no gradient yet and refuses by name.
+and K3b on the 1D path; the renewal conditioning at a segment start
+keeps the graph of the value and normal the path carries.  A weight-space
+crossing is found by K5/K4 on detached parameters and reattached by the
+same IFT through its realization, rebuilt in the graph for the hit rays
+only (`_ws_reattach`).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from ..kernels import ws_trace as wst
 from ..ops import sparse_conv as sc
 from ..ops import sparse_conv_fast as fast
 from ..ops import weight_space as ws
-from ..utils.vecmath import dot
+from ..utils.vecmath import dot, mat_vec
 
 GPIS_SPARSE_CONV = "sparse_conv_noise"
 GPIS_WEIGHT_SPACE = "weight_space"
@@ -66,6 +69,9 @@ class Medium:
     kind: str = GPIS_SPARSE_CONV
     basis_functions: int = 300  # weight space: RFF basis size n
     ws_sphere_trace: bool = False  # weight space with step_size == 0
+    # "brdf" (the phase_bsdf row) or "isotropic" (the JAX package's
+    # isotropic phase, which its image-level gradient checks put in place)
+    phase_kind: str = "brdf"
 
     @property
     def sigma_t(self):
@@ -78,7 +84,7 @@ class MediumState:
     (first_scatter), the last sampled normal and the field value at the
     last segment end (the targets of renewal conditioning), the path length
     through media so far (info_t), the 1D sampling scheme at the last
-    crossing, and the 1D conditioning coefficients of the current
+    crossing, and the 1D and 3D conditioning coefficients of the current
     segment."""
     first_scatter: torch.Tensor  # [R] bool
     last_aniso: torch.Tensor  # [R, 3]
@@ -86,6 +92,7 @@ class MediumState:
     info_t: torch.Tensor  # [R]
     scheme: torch.Tensor  # [R] int64
     coeff1: sc.Coeffs
+    coeff3: sc.Coeffs
 
     @staticmethod
     def make(n, device):
@@ -96,7 +103,8 @@ class MediumState:
             first_scatter=torch.ones(n, dtype=torch.bool, device=device),
             last_aniso=aniso, last_val=zeros, info_t=zeros,
             scheme=torch.zeros(n, dtype=torch.int64, device=device),
-            coeff1=sc.Coeffs.zeros(n, device))
+            coeff1=sc.Coeffs.zeros(n, device),
+            coeff3=sc.Coeffs.zeros(n, device))
 
     def reset_where(self, mask):
         """Fresh state on rays that cross a boundary; the path length
@@ -147,20 +155,24 @@ def make_value_at(med, scene_seed, ro, rd, pss, state):
     if med.cfg.one_d:
         return fast.make_value_at_1d(med.cfg, med.gp, state.coeff1, ro, rd,
                                      pss, scene_seed)
-    return fast.make_value_at(med.cfg, med.gp, ro, rd, pss, scene_seed)
+    return fast.make_value_at(med.cfg, med.gp, ro, rd, pss, scene_seed,
+                              coeff3=state.coeff3)
 
 
 def _precondition(med, scene_seed, ro, rd, near, state, pss, active):
     """Condition each fresh per-path realization at its segment start on
     the value and normal the path carries (rays that start at a surface
-    keep their coefficients)."""
+    keep their coefficients): coeff1 for 1D sampling, coeff3 for 3D."""
     if med.kind != GPIS_SPARSE_CONV or not med.cfg.activate_conditioning:
         return state
-    new = sc.conditioning(med.cfg, med.gp, state.coeff1,
-                          ro + near[:, None] * rd, rd, state.last_val,
-                          state.last_aniso, pss, scene_seed)
-    return dataclasses.replace(state, coeff1=select(
-        active & ~state.first_scatter, new, state.coeff1))
+    c3, c1 = sc.conditioning(med.cfg, med.gp, state.coeff3, state.coeff1,
+                             ro + near[:, None] * rd, rd, state.last_val,
+                             state.last_aniso, pss, scene_seed)
+    need = active & ~state.first_scatter
+    if med.cfg.one_d:
+        return dataclasses.replace(state,
+                                   coeff1=select(need, c1, state.coeff1))
+    return dataclasses.replace(state, coeff3=select(need, c3, state.coeff3))
 
 
 def march(med, value_at, near, far, state, u_jitter, active, refine=True):
@@ -252,13 +264,16 @@ def _ws_search(med, ro, rd, near, far, first_scatter, pss, u_jitter,
 
 
 def sample_gradient(med, scene_seed, p, pss, rd=None, t_segment=None,
-                    coeff1=None):
+                    coeff1=None, coeff3=None):
     """The conditioned-Gaussian normal of a sparse-conv medium: the GP
     gradient at p [R, 3]; a 1D-sampled one takes the rays' directions,
-    distances from the segment start and conditioning coefficients (a
-    weight-space medium's comes with its search, `_ws_search`)."""
+    distances from the segment start and conditioning coefficients, an
+    isotropic-ray 3D one the directions and a conditioned 3D one its
+    coefficients (a weight-space medium's comes with its search,
+    `_ws_search`)."""
     return sc.eval_gradient(med.cfg, med.gp, p, pss, scene_seed, ray_dir=rd,
-                            t_segment=t_segment, coeff1=coeff1)
+                            t_segment=t_segment, coeff1=coeff1,
+                            coeff3=coeff3)
 
 
 def _far_eff(med, ro, rd, near, far):
@@ -284,6 +299,58 @@ def _crossing_ws(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
         val[idx], grad[idx] = res["val"], res["grad"]
         hit[idx], t[idx] = res["hit"], res["t"]
     return hit, t, grad, val, gp_id
+
+
+def detach(tree):
+    """A dataclass tree (a Medium, a GP, a covariance) with every tensor
+    detached."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: detach(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def _ws_reattach(med, ro, rd, t, hit, grad_k, pss):
+    """The weight-space crossing t [R] and normal [R, 3] of the search,
+    reattached to the medium's parameters and the rays.
+
+    On the hit rays the realization is rebuilt from its key with sigma and
+    l in the graph (`ws.noise_at`: f = sqrt(cov(p, p)) S + mean) at the
+    detached p = ro + t rd.  t takes the IFT step of `_reattach_crossing`
+    with dfdt = grad_k . rd, the t-derivative of the realization that the
+    kernel's gradient grad_k already gives (grazing crossings, |dfdt| <=
+    1e-3, stay detached).  The normal is the realization's gradient at the
+    reattached point p_r, with the noise gradient carried there to first
+    order by its held Hessian (gn + H (p_r - p), exact in the first
+    derivative), so one pass over the basis serves the value and the
+    normal.  The primals stay the kernel's (t exactly, the normal as
+    grad_k + (g - g.detach())), so a render with gradient has the plain
+    render's values."""
+    idx = torch.nonzero(hit).squeeze(1)
+    if not idx.numel():
+        return t, grad_k
+    gp = med.gp
+    ro_h, rd_h, t_h = ro[idx], rd[idx], t[idx]
+    p = ro_h + t_h[:, None] * rd_h
+    s, gn, hs = ws.noise_at(gp.cov, med.basis_functions,
+                            _ws_key(med, pss[idx]), p)
+    mean, _ = gp.mean_and_id(p)
+    f = torch.sqrt(gp.cov.cov(p, p)) * s + mean
+    dfdt = dot(grad_k[idx], rd_h).detach()
+    ift_ok = dfdt.abs() > 1e-3
+    corr = (f - f.detach()) / torch.where(ift_ok, dfdt, 1.0)
+    t_r = t_h - torch.where(ift_ok, corr, 0.0)
+    p_r = ro_h + t_r[:, None] * rd_h
+    g = (torch.sqrt(gp.cov.cov(p_r, p_r))[:, None]
+         * (gn + mat_vec(hs, p_r - p)) + gp.mean.grad(p_r))
+    t_out = t.detach().clone()
+    t_out[idx] = t_r
+    grad = grad_k.detach().clone()
+    grad[idx] = grad_k[idx] + (g - g.detach())
+    return t_out, grad
 
 
 def requires_grad(*trees):
@@ -335,17 +402,15 @@ def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
     search and records no graph; the crossing is reattached by the
     implicit function theorem (`_reattach_crossing`) and the normal is
     sampled at the reattached point, so it carries d(normal)/dtheta.  The
-    weight-space search has no gradient yet and refuses parameters that
-    require grad."""
+    weight-space search (K5/K4) runs on the detached medium and rays, and
+    `_ws_reattach` reattaches its crossing and normal."""
     far_eff = _far_eff(med, ro, rd, near, far)
     if med.kind == GPIS_WEIGHT_SPACE:
-        if torch.is_grad_enabled() and requires_grad(med, ro, rd, state):
-            raise NotImplementedError(
-                "the weight-space crossing has no gradient yet (the IFT "
-                "through the realization's evaluate)")
         hit, t, grad, end_val, gp_id = _crossing_ws(
-            med, scene_seed, ro, rd, near, far_eff, state, pss, u_jitter,
-            active)
+            detach(med), scene_seed, ro.detach(), rd.detach(), near.detach(),
+            far_eff.detach(), state, pss, u_jitter, active)
+        if torch.is_grad_enabled() and requires_grad(med, ro, rd):
+            t, grad = _ws_reattach(med, ro, rd, t, hit, grad, pss)
     else:
         state = _precondition(med, scene_seed, ro, rd, near, state, pss,
                               active)
@@ -359,7 +424,7 @@ def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
         end_val = f_at_t.detach()
         grad = sample_gradient(med, scene_seed, ro + t[:, None] * rd, pss,
                                rd=rd, t_segment=t - near,
-                               coeff1=state.coeff1)
+                               coeff1=state.coeff1, coeff3=state.coeff3)
 
     grad_ok = torch.isfinite(grad.sum(dim=-1))
     wrong_side = hit & (dot(grad, rd) > 0.0)

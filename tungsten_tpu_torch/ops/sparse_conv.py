@@ -10,13 +10,18 @@ writes these functions per point and vmaps them; here the ray batch is the
 leading dimension.
 
 These are the evaluators behind the gradient (the conditioned-Gaussian
-normal at a crossing), the renewal+ conditioning of 1D per-path
-realizations and the mirror NEE of 1D media (`nee_grad`, `nee_pdf`).  The
-march evaluates values through ops/sparse_conv_fast.py and kernels K1 and
-K3.  As in the JAX package, this general evaluator computes the 1D cell
-coordinate as t / kernel_radius, the march as t * (1 / kernel_radius).
-Not ported yet: 3D conditioning, isotropic 3D sampling and the
-multi-resolution 1D branches (the parser refuses what needs them).
+normal at a crossing), the renewal and renewal+ conditioning of per-path
+realizations (3D: `conditioning_3d`, 1D: `conditioning_1d`) and the
+mirror NEE of 1D media (`nee_grad`, `nee_pdf`).  3D noise is sampled in
+world space or in isotropic-ray space (`cfg.isotropic_3d`: each point
+mapped world -> isotropic and rotated into its ray's frame, the splat
+exp(-|ab|^2 / 2) at cell radius kernel_scale).  The march evaluates values
+through ops/sparse_conv_fast.py and kernels K1 and K3.  As in the JAX
+package, this general evaluator computes the 1D cell coordinate as
+t / kernel_radius, the march as t * (1 / kernel_radius).
+Not ported yet: plain isotropic 3D sampling (`isotropic_ray_3d` false),
+conditioning of nonstationary covariances and the multi-resolution 1D
+branches (the parser refuses what needs them).
 """
 from __future__ import annotations
 
@@ -26,8 +31,8 @@ import math
 import torch
 
 from ..utils import rng
-from ..utils.vecmath import (dot, frame_to_local, frame_to_world, normalize,
-                             tangent_frame)
+from ..utils.vecmath import (dot, frame_to_local, frame_to_world, inverse3,
+                             mat_vec, normalize, tangent_frame)
 
 CTXT_GLOBAL = "global"
 CTXT_RENEWAL_PLUS = "renewal+"
@@ -96,11 +101,12 @@ class SparseConvConfig:
     one_d: bool = False
     scheme: int = SCHEME_UNI
     correlation_xy: bool = False
+    isotropic_3d: bool = False  # 3D sampling in isotropic-ray space
 
     @staticmethod
     def create(global_seed, impulse_density, device, ctxt=CTXT_RENEWAL_PLUS,
                use_single_realization=False, one_d=False, scheme=SCHEME_UNI,
-               correlation_xy=False):
+               correlation_xy=False, isotropic_3d=False):
         """A config from scene-file values with the JAX package's derived
         fields: NEE/MIS applies to per-path 1D realizations only, every
         other config samples UNI; the impulse count is the integer part of
@@ -114,7 +120,7 @@ class SparseConvConfig:
             impulse_count=int(impulse_density), one_d=one_d,
             scheme=(scheme if one_d and not use_single_realization
                     else SCHEME_UNI),
-            correlation_xy=correlation_xy)
+            correlation_xy=correlation_xy, isotropic_3d=isotropic_3d)
 
     @property
     def activate_conditioning(self):
@@ -135,10 +141,12 @@ def compute_seed(cfg, pss, scene_seed):
     return (cfg.global_seed + h + rng.xxhash32(scene_seed)) & rng.MASK32
 
 
-def _noise3d(cfg, cov, p, seed, kernel_radius, global_scale=1.0):
-    """27-cell x K splat sum at p [R, 3] with seeds [R], cell radius
-    `kernel_radius` and the splat at spatial scale `global_scale` (each a
-    scalar or one per ray, [R]); returns (val [R], grad [R, 3])."""
+def _noise3d(cfg, cov, p, seed, kernel_radius, global_scale=1.0,
+            is_identity=False):
+    """27-cell x K splat sum at p [R, 3] (in the sampling space) with seeds
+    [R], cell radius `kernel_radius` and the splat at spatial scale
+    `global_scale` (each a scalar tensor or one per ray, [R]), or the
+    isotropic splat (`is_identity`); returns (val [R], grad [R, 3])."""
     dev = p.device
     K = cfg.impulse_count
     if kernel_radius.dim():
@@ -159,8 +167,10 @@ def _noise3d(cfg, cov, p, seed, kernel_radius, global_scale=1.0):
     w = rng.bernoulli_pm1(rng.uniform(key, ctr + 3))  # [R, 27, K]
     d = (frac[:, None, :] - offs.to(torch.float32))[:, :, None, :] - u
     inside = dot(d, d) < 1.0
+    # (a multi-resolution level's covariance has no isotropic splat)
+    iso = {"is_identity": True} if is_identity else {}
     val, grad = cov.splat3_val_grad(kernel_radius[..., None, None] * d,
-                                    global_scale)
+                                    global_scale, **iso)
     wm = torch.where(inside, w, 0.0)
     return ((wm * val).sum(dim=(1, 2)),
             (wm[..., None] * grad).sum(dim=(1, 2)))
@@ -173,13 +183,16 @@ def _level_word(kernel_spatial_scale):
                        / _LOG_BASE).to(torch.int64)
 
 
-def eval_noise3d_world(cfg, gp, p, seed, kernel_spatial_scale=None):
+def eval_noise3d_world(cfg, gp, p, seed, kernel_spatial_scale=None,
+                       coeff3=None, conditioning=False):
     """Normalized world-space 3D noise and its gradient at p [R, 3].
 
     A stationary covariance samples world space at spatial scale 1: the
-    seed offset is 0 and the cell radius is the splat's.  A
-    multi-resolution level passes its scale s [R]: the seed is offset by
-    the level of s, and the cell radius and splat are the base's at s."""
+    seed offset is 0 and the cell radius is the splat's; with
+    `conditioning` under a renewal context it adds the conditioning splat
+    of `coeff3` ([R] Coeffs).  A multi-resolution level passes its scale
+    s [R]: the seed is offset by the level of s, and the cell radius and
+    splat are the base's at s."""
     cov = gp.cov
     if kernel_spatial_scale is None:
         scale = 1.0
@@ -190,7 +203,42 @@ def eval_noise3d_world(cfg, gp, p, seed, kernel_spatial_scale=None):
         radius = cov.splat_radius(scale)
     val, grad = _noise3d(cfg, cov, p, seed, radius, scale)
     norm = torch.sqrt(cov.variance3(cfg.impulse_density, radius, scale))
-    return val / norm, grad / norm[..., None]
+    val, grad = val / norm, grad / norm[..., None]
+    if cfg.activate_conditioning and conditioning:
+        dv, dg = cov.splat3_conditioning_combo(
+            p - coeff3.ray_origin, coeff3.gradient_scale, coeff3.value_scale)
+        val, grad = val + dv, grad + dg
+    return val, grad
+
+
+def eval_noise3d_iso_ray(cfg, gp, p, ray_dir, seed, coeff3=None,
+                         conditioning=False):
+    """Normalized 3D noise in isotropic-ray space and its world gradient at
+    p [R, 3] (stationary: spatial scale 1, seed offset 0): p is mapped
+    world -> isotropic and rotated into its ray's frame (`_ray_frame`),
+    the lattice sum runs there with the isotropic splat at cell radius
+    kernel_scale, and the gradient is rotated and mapped back.  With
+    `conditioning` under a renewal context it adds the conditioning splat
+    of `coeff3` around its origin, rotated into the same frame."""
+    cov = gp.cov
+    radius = torch.full((), cov.splat_radius_iso(), dtype=torch.float32,
+                        device=p.device)
+    tg, bt, rdi = _ray_frame(cov, ray_dir)
+    p_ir = frame_to_local(tg, bt, rdi, cov.pos_world_to_local(p))
+    val, grad_ir = _noise3d(cfg, cov, p_ir, seed, radius, is_identity=True)
+    grad = cov.grad_local_to_world(frame_to_world(tg, bt, rdi, grad_ir))
+    norm = torch.sqrt(cov.variance3(cfg.impulse_density, radius,
+                                    is_identity=True))
+    val, grad = val / norm, grad / norm
+    if cfg.activate_conditioning and conditioning:
+        o_ir = frame_to_local(tg, bt, rdi,
+                              cov.pos_world_to_local(coeff3.ray_origin))
+        dv, dg_ir = cov.splat3_conditioning_combo(
+            p_ir - o_ir, coeff3.gradient_scale, coeff3.value_scale,
+            is_identity=True)
+        dg = cov.grad_local_to_world(frame_to_world(tg, bt, rdi, dg_ir))
+        val, grad = val + dv, grad + dg
+    return val, grad
 
 
 def level_pair(gp, p):
@@ -207,12 +255,19 @@ def level_pair(gp, p):
     return lvl_lo, s_lo, s_hi, (1.0 - frac) / denom, frac / denom
 
 
-def eval_noise3d(cfg, gp, p, seed):
-    """Normalized 3D noise and its gradient at p [R, 3]: world space at
-    scale 1 for a stationary covariance, the blend of two levels for a
-    multi-resolution one."""
+def eval_noise3d(cfg, gp, p, seed, coeff3=None, ray_dir=None,
+                 conditioning=False):
+    """Normalized 3D noise and its gradient at p [R, 3]: isotropic-ray space
+    (`cfg.isotropic_3d`, which needs the rays' directions) or world space
+    at scale 1 for a stationary covariance, each conditioned on `coeff3`
+    with `conditioning`; the blend of two world-space levels for a
+    multi-resolution one (which conditions nothing)."""
+    if cfg.isotropic_3d:
+        return eval_noise3d_iso_ray(cfg, gp, p, ray_dir, seed, coeff3,
+                                    conditioning)
     if gp.cov.is_stationary:
-        return eval_noise3d_world(cfg, gp, p, seed)
+        return eval_noise3d_world(cfg, gp, p, seed, None, coeff3,
+                                  conditioning)
     _, s_lo, s_hi, r_lo, r_hi = level_pair(gp, p)
     v_lo, g_lo = eval_noise3d_world(cfg, gp, p, seed, s_lo)
     v_hi, g_hi = eval_noise3d_world(cfg, gp, p, seed, s_hi)
@@ -336,36 +391,71 @@ def eval_gradient_noise1d(cfg, gp, coeff1, p, t_segment, ray_dir, pss,
     return cov.grad_local_to_world(frame_to_world(tg, bt, rdi, g_ir))
 
 
-def eval_value(cfg, gp, p, pss, scene_seed, ray_dir=None, coeff1=None):
+def eval_value(cfg, gp, p, pss, scene_seed, ray_dir=None, coeff1=None,
+               coeff3=None):
     """GPIS value f(p) = amplitude * noise + mean; returns (val, gp_id).
-    1D sampling needs the rays' directions and conditioning
-    coefficients."""
+    1D and isotropic-ray 3D sampling need the rays' directions, a renewal
+    context the conditioning coefficients (coeff1 in 1D, coeff3 in 3D)."""
     seed = compute_seed(cfg, pss, scene_seed)
     if cfg.one_d:
         nv = eval_value_noise1d(cfg, gp, coeff1, p, ray_dir, seed, True)
     else:
-        nv, _ = eval_noise3d(cfg, gp, p, seed)
+        nv, _ = eval_noise3d(cfg, gp, p, seed, coeff3, ray_dir, True)
     m, gp_id = gp.mean_and_id(p)
     return gp.cov.amplitude(p) * nv + m, gp_id
 
 
 def eval_gradient(cfg, gp, p, pss, scene_seed, ray_dir=None, t_segment=None,
-                  coeff1=None):
+                  coeff1=None, coeff3=None):
     """GPIS gradient at p [R, 3]: amplitude * noise gradient + mean
     gradient.  1D sampling needs the rays' directions, their distances
-    t_segment from the segment start and conditioning coefficients."""
+    t_segment from the segment start and conditioning coefficients;
+    isotropic-ray 3D sampling the directions, and a renewal context the 3D
+    coefficients."""
     if cfg.one_d:
         ng = eval_gradient_noise1d(cfg, gp, coeff1, p, t_segment, ray_dir,
                                    pss, scene_seed, True)
     else:
         seed = compute_seed(cfg, pss, scene_seed)
-        _, ng = eval_noise3d(cfg, gp, p, seed)
+        _, ng = eval_noise3d(cfg, gp, p, seed, coeff3, ray_dir, True)
     return gp.cov.amplitude(p)[..., None] * ng + gp.mean.grad(p)
 
 
 # ---------------------------------------------------------------------------
-# Renewal / Renewal+ conditioning of 1D per-path realizations
+# Renewal / Renewal+ conditioning of per-path realizations
 # ---------------------------------------------------------------------------
+
+def conditioning_3d(cfg, gp, p, ray_dir, target_val, target_grad, pss,
+                    scene_seed):
+    """Coefficients [R] that make the fresh 3D realization of each ray
+    reproduce target_val (renewal) and target_grad (renewal+) at the
+    segment start p [R, 3] (stationary covariances): the value scale of the
+    covariance kernel's splat and, under renewal+, the gradient scale that
+    its first derivatives carry, in the sampling space."""
+    cov = gp.cov
+    seed = compute_seed(cfg, pss, scene_seed)
+    amp = cov.amplitude(p)
+    safe_amp = torch.where(amp == 0.0, 1.0, amp)
+    m, gp_id = gp.mean_and_id(p)
+    nv, ng = eval_noise3d(cfg, gp, p, seed, None, ray_dir, False)
+    value_scale = (target_val - m) / safe_amp - nv
+    gradient_scale = torch.zeros_like(p)
+    if cfg.ctxt == CTXT_RENEWAL_PLUS:
+        mg = gp.mean_grad_by_id(p, gp_id)
+        delta = (target_grad - mg) / safe_amp[:, None] - ng
+        if cfg.isotropic_3d:
+            tg, bt, rdi = _ray_frame(cov, ray_dir)
+            delta = frame_to_local(tg, bt, rdi,
+                                   cov.grad_world_to_local(delta))
+        # times the squared nonstationary splat scale, 1 here
+        gradient_scale = mat_vec(
+            cov.one_over_second_derivative(cfg.isotropic_3d)[None], delta)
+    ok = amp != 0.0
+    return Coeffs(value_scale=torch.where(ok, value_scale, 0.0),
+                  gradient_scale=torch.where(ok[:, None], gradient_scale,
+                                             0.0),
+                  ray_origin=p)
+
 
 def conditioning_1d(cfg, gp, p, ray_dir, target_val, target_grad, pss,
                     scene_seed):
@@ -399,41 +489,23 @@ def conditioning_1d(cfg, gp, p, ray_dir, target_val, target_grad, pss,
                   ray_origin=p)
 
 
-def conditioning(cfg, gp, coeff1, p, ray_dir, target_val, target_grad, pss,
-                 scene_seed):
-    """Coefficients conditioned at p [R, 3] on (target_val, target_grad);
-    `coeff1` unchanged when the config conditions nothing.  Only the 1D
-    branch is ported (the parser refuses 3D conditioning)."""
+def conditioning(cfg, gp, coeff3, coeff1, p, ray_dir, target_val,
+                 target_grad, pss, scene_seed):
+    """(coeff3, coeff1) conditioned at p [R, 3] on (target_val,
+    target_grad): the 1D set for 1D sampling, the 3D set otherwise; both
+    unchanged when the config conditions nothing."""
     if not cfg.activate_conditioning:
-        return coeff1
-    return conditioning_1d(cfg, gp, p, ray_dir, target_val, target_grad, pss,
-                           scene_seed)
+        return coeff3, coeff1
+    if cfg.one_d:
+        return coeff3, conditioning_1d(cfg, gp, p, ray_dir, target_val,
+                                       target_grad, pss, scene_seed)
+    return conditioning_3d(cfg, gp, p, ray_dir, target_val, target_grad,
+                           pss, scene_seed), coeff1
 
 
 # ---------------------------------------------------------------------------
 # NEE for 1D GPIS with a mirror phase
 # ---------------------------------------------------------------------------
-
-def _inverse3(m):
-    """Inverse of [R, 3, 3] matrices by the adjugate over the determinant
-    (no host sync, unlike torch.linalg.inv's error check on CUDA)."""
-    a, b, c = m[:, 0, 0], m[:, 0, 1], m[:, 0, 2]
-    d, e, f = m[:, 1, 0], m[:, 1, 1], m[:, 1, 2]
-    g, h, i = m[:, 2, 0], m[:, 2, 1], m[:, 2, 2]
-    c00, c01, c02 = e * i - f * h, f * g - d * i, d * h - e * g
-    det = a * c00 + b * c01 + c * c02
-    adj = torch.stack([
-        torch.stack([c00, c * h - b * i, b * f - c * e], dim=-1),
-        torch.stack([c01, a * i - c * g, c * d - a * f], dim=-1),
-        torch.stack([c02, b * g - a * h, a * e - b * d], dim=-1)], dim=-2)
-    return adj / det[:, None, None]
-
-
-def _mat_vec(m, v):
-    """[R, 3, 3] @ [R, 3] with the sums written out."""
-    return (m[:, :, 0] * v[:, 0:1] + m[:, :, 1] * v[:, 1:2]
-            + m[:, :, 2] * v[:, 2:3])
-
 
 def _cross(a, b):
     return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
@@ -462,7 +534,7 @@ def _nee_shared(cfg, gp, coeff1, ray_dir, normal, p, pss, scene_seed):
     stretch = torch.sqrt(torch.clamp(dot(cp, cp), min=1e-30))
     plane_n = cp / stretch[:, None]
     isect_dist = dot(plane_pt, plane_n) / dot(normal, plane_n)
-    grad_ir = _mat_vec(_inverse3(mtx_pt),
+    grad_ir = mat_vec(inverse3(mtx_pt),
                        isect_dist[:, None] * normal - mean_grad)
     return gc, grad_ir, plane_n, stretch, isect_dist
 

@@ -1,18 +1,20 @@
 """The march-step evaluators: value_at(t) along a ray batch, with the raw
-lattice sum in kernel K1 (stationary, world-space branch of
-tungsten_tpu/ops/sparse_conv_fast.py::make_value_at), K2 (the
+lattice sum in kernel K1 (stationary, the world-space and isotropic-ray
+branches of tungsten_tpu/ops/sparse_conv_fast.py::make_value_at), K2 (the
 multi-resolution world-space branch of the same function) or K3 (1D
 sampling, `make_value_at_1d`).
 
 Everything that does not change along a ray (seeds, the splat quadratic
 form, the cell radius, the variance normalization, the iso-ray
-parametrization and the conditioning constants) is computed once per
-batch, so each step is one kernel plus a few elementwise ops on [R]
-tensors.  Under the multi-resolution grid the two levels around ls(p)
-change along the ray, so each step computes them, with their radii,
-quadratic-form scales and variances, and sums both in one K2 launch.
-The 3D steps are differentiable in t, the rays and the covariance's
-parameters: K1's backward is K1b, K2's is K2b.
+parametrization, the isotropic-ray frame and the conditioning constants)
+is computed once per batch, so each step is one kernel plus a few
+elementwise ops on [R] tensors.  Under the multi-resolution grid the two
+levels around ls(p) change along the ray, so each step computes them,
+with their radii, quadratic-form scales and variances, and sums both in
+one K2 launch.
+The 3D steps are differentiable in t, the rays, the covariance's
+parameters and the conditioning coefficients: K1's backward is K1b, K2's
+is K2b.
 """
 from __future__ import annotations
 
@@ -20,30 +22,69 @@ import torch
 
 from ..kernels import noise1d, noise3d
 from ..utils import rng
-from ..utils.vecmath import dot, normalize
+from ..utils.vecmath import dot, frame_to_local, normalize, tangent_frame
 from . import sparse_conv as sc
 
 
-def make_value_at(cfg, gp, ro, rd, pss, scene_seed):
-    """value_at(t [R]) -> (f [R], gp_id [R]) for the rays ro + t * rd."""
+def make_value_at(cfg, gp, ro, rd, pss, scene_seed, coeff3=None):
+    """value_at(t [R]) -> (f [R], gp_id [R]) for the rays ro + t * rd
+    (`coeff3`: the rays' 3D conditioning coefficients, [R] Coeffs, read
+    under a renewal context)."""
     cov = gp.cov
     seed0 = sc.compute_seed(cfg, pss, scene_seed)
     if not cov.is_stationary:
         return _make_value_at_multi_res(cfg, gp, ro, rd, seed0)
-    kr = cov.splat_radius()
-    # the splat form is diagonal: K1 takes its diagonal and kr as tensors
-    # (differentiable in l) and by value (one host read for all four per
-    # batch)
-    m3 = cov.splat_form()
-    host = noise3d.host_params(kr, m3)
-    norm = torch.sqrt(cov.variance3(cfg.impulse_density, kr))
+    if cfg.isotropic_3d:
+        # isotropic-ray space: world -> isotropic, then each ray's frame
+        # (tg, bt, rdi); K1 sums there with the identity splat form and
+        # the cell radius kernel_scale, constants of the covariance
+        rd_iso = cov.pos_world_to_local(rd)
+        rdi = normalize(rd_iso)
+        tg, bt = tangent_frame(rdi)
+        ro_s = frame_to_local(tg, bt, rdi, cov.pos_world_to_local(ro))
+        rd_s = frame_to_local(tg, bt, rdi, rd_iso)
+        kr_f = cov.splat_radius_iso()
+        kr = torch.full((), kr_f, dtype=torch.float32, device=ro.device)
+        m3 = cov.splat_form(is_identity=True)
+        host = (kr_f, 0.5, 0.5, 0.5)
+        norm = torch.sqrt(cov.variance3(cfg.impulse_density, kr_f,
+                                        is_identity=True))
+    else:
+        ro_s, rd_s = ro, rd
+        kr = cov.splat_radius()
+        # the splat form is diagonal: K1 takes its diagonal and kr as
+        # tensors (differentiable in l) and by value (one host read for
+        # all four per batch)
+        m3 = cov.splat_form()
+        host = noise3d.host_params(kr, m3)
+        norm = torch.sqrt(cov.variance3(cfg.impulse_density, kr))
     K = cfg.impulse_count
+    use_cond = cfg.activate_conditioning
+    if use_cond:
+        # the conditioning splat exp(-q0) around each ray's conditioning
+        # origin, in the same sampling space
+        if cfg.isotropic_3d:
+            o_s = frame_to_local(tg, bt, rdi,
+                                 cov.pos_world_to_local(coeff3.ray_origin))
+        else:
+            o_s = coeff3.ray_origin
+        m_cond = cov.cond_form(cfg.isotropic_3d)
+        vsc, gsc = coeff3.value_scale, coeff3.gradient_scale
 
     def value_at(t):
         p = ro + t[:, None] * rd
-        total = noise3d.noise3d_sum_s_diff(p, seed0, kr, m3, K, host)
+        ps = ro_s + t[:, None] * rd_s if cfg.isotropic_3d else p
+        total = noise3d.noise3d_sum_s_diff(ps, seed0, kr, m3, K, host)
+        val = total / norm
+        if use_cond:
+            dd = ps - o_s
+            mdd = m_cond * dd
+            q0 = dot(mdd, dd)
+            d0 = -2.0 * mdd
+            val = val + (vsc + d0[:, 0] * gsc[:, 0] + d0[:, 1] * gsc[:, 1]
+                         + d0[:, 2] * gsc[:, 2]) * torch.exp(-q0)
         mean, gp_id = gp.mean_and_id(p)
-        return cov.amplitude(p) * (total / norm) + mean, gp_id
+        return cov.amplitude(p) * val + mean, gp_id
 
     return value_at
 

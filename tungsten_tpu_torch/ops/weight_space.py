@@ -13,6 +13,12 @@ is needed instead of stored.  Every ray carries its own realization: dirs
 Projections onto the basis directions are written out as three products
 and two sums in full float32 (the JAX package asks for
 precision="highest"); no TF32 enters.
+
+`noise_at` is the realization's noise sum under autograd for the
+weight-space gradient: differentiable in the points and in the length
+scale l, which enters only through the frequencies (|omega| = |z
+sqrt(aniso)| / l), it sums over the basis in chunks of rays and keeps only
+per-ray sums for its backward, so no [R, n] tensor outlives a chunk.
 """
 from __future__ import annotations
 
@@ -147,3 +153,68 @@ def cos_interval(lo, hi):
     cmax = torch.where(k_even | wide, 1.0, cmax)
     cmin = torch.where(k_odd | wide, -1.0, cmin)
     return cmin, cmax
+
+
+# (ray, basis function) pairs per chunk of `noise_at`
+NOISE_CHUNK = 1 << 24
+
+
+def _noise_sums(cov, n, key, p):
+    """Per-ray sums over the basis of the realizations of keys [c] at
+    p [c, 3], with c = sqrt(2/n) and u = (dirs . p) freqs, phi = u +
+    offsets: S = c sum w cos(phi) (the noise), gn = c sum -w sin(phi) freqs
+    dirs (its gradient), hs = c sum -w cos(phi) freqs^2 dirs dirs^T (its
+    Hessian, [c, 3, 3]), a = c sum w sin(phi) u and b = c sum w cos(phi)
+    u freqs dirs (the sums that d/dl needs)."""
+    real = realization_from_key(cov, n, key)
+    bs = real.basis
+    c2n = sqrt_2_over_n(n, p.device)
+    u = project(bs.dirs, p) * bs.freqs
+    phase = u + bs.offsets
+    wc = real.weights * torch.cos(phase)
+    sn = torch.sin(phase)
+    coeff = -sn * bs.freqs * real.weights
+    gn = torch.einsum("rn,rnd->rd", coeff, bs.dirs) * c2n
+    hs = torch.einsum("rn,rni,rnj->rij", -wc * bs.freqs * bs.freqs,
+                      bs.dirs, bs.dirs) * c2n
+    a = (real.weights * sn * u).sum(dim=-1) * c2n
+    b = torch.einsum("rn,rnd->rd", wc * u * bs.freqs, bs.dirs) * c2n
+    return wc.sum(dim=-1) * c2n, gn, hs, a, b
+
+
+class _Noise(torch.autograd.Function):
+    """S, gn and hs of `_noise_sums` over all rays, differentiable in p and
+    l (hs is held: it only carries a point's motion to first order)."""
+
+    @staticmethod
+    def forward(ctx, p, l, cov, n, key):
+        rays = max(1, NOISE_CHUNK // n)
+        parts = [_noise_sums(cov, n, key[i:i + rays], p[i:i + rays])
+                 for i in range(0, p.shape[0], rays)]
+        s, gn, hs, a, b = (torch.cat(x) for x in zip(*parts))
+        ctx.save_for_backward(gn, hs, a, b, l)
+        ctx.mark_non_differentiable(hs)
+        return s, gn, hs
+
+    @staticmethod
+    def backward(ctx, g_s, g_gn, _):
+        gn, hs, a, b, l = ctx.saved_tensors
+        # dS/dp = gn, dgn/dp = hs; phi depends on l through u = (dirs . p)
+        # f1 / l: dS/dl = a / l, dgn/dl = (b - gn) / l
+        dp = g_s[:, None] * gn + torch.einsum("rij,rj->ri", hs, g_gn)
+        dl = ((g_s * a).sum() + dot(g_gn, b - gn).sum()) / l
+        return dp, dl, None, None, None
+
+
+def noise_at(cov, n, key, p):
+    """The noise part of the realizations of stream keys [R] at p [R, 3]:
+    (S [R], its gradient gn [R, 3], its Hessian [R, 3, 3], held), with S
+    and gn differentiable in p and in cov.l.  The basis comes from the
+    covariance with its parameters detached; f = sqrt(cov(p, p)) S +
+    mean(p), and the gradient sqrt(cov(p, p)) gn + grad mean(p)."""
+    if cov.aniso.requires_grad:
+        raise NotImplementedError("the weight-space gradient in the "
+                                  "anisotropy")
+    held = dataclasses.replace(cov, sigma=cov.sigma.detach(),
+                               l=cov.l.detach())
+    return _Noise.apply(p, cov.l, held, n, key)

@@ -229,9 +229,8 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
     if t not in _MEDIUM_KINDS:
         raise _unsupported(f"medium type {t!r}")
     kind = _MEDIUM_KINDS[t]
-    for key in ("isotropic_3D_sampling", "surf_vol_phase_separate"):
-        if m.get(key, False):
-            raise _unsupported(f"medium option {key!r}")
+    if m.get("surf_vol_phase_separate", False):
+        raise _unsupported("medium option 'surf_vol_phase_separate'")
     one_d = bool(m.get("1D_sampling", False))
     if one_d and kind != md.GPIS_SPARSE_CONV:
         raise _unsupported("1D sampling of a weight-space medium")
@@ -252,7 +251,8 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
         ctxt=_CTXT[ctxt],
         use_single_realization=bool(m.get("single_realization", False)),
         one_d=one_d, scheme=_SCHEME[scheme],
-        correlation_xy=bool(m.get("1D_gradient_correlationXY", False)))
+        correlation_xy=bool(m.get("1D_gradient_correlationXY", False)),
+        isotropic_3d=bool(m.get("isotropic_3D_sampling", False)))
     gp = parse_gp(m.get("gaussian_process", {}), device)
     if kind == md.GPIS_WEIGHT_SPACE:
         # a weight-space realization is drawn fresh per segment and
@@ -260,17 +260,21 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
         if not wst.supports(gp):
             raise _unsupported("a weight-space GP outside the K4/K5 kernels' "
                                "scope")
-    # the 1D multi-resolution branches and 3D conditioning are not ported
+    # the 1D and isotropic multi-resolution branches and the conditioning
+    # of nonstationary covariances are not ported
     elif not gp.cov.is_stationary and one_d:
         raise _unsupported("a nonstationary covariance with 1D sampling")
+    elif not gp.cov.is_stationary and cfg.isotropic_3d:
+        raise _unsupported("isotropic 3D sampling of a nonstationary "
+                           "covariance")
     elif not gp.cov.is_stationary and cfg.activate_conditioning:
         raise _unsupported(f"a nonstationary covariance with {ctxt!r} "
                            "conditioning")
-    elif cfg.activate_conditioning and not (
-            one_d and cfg.ctxt == sc.CTXT_RENEWAL_PLUS):
+    elif cfg.activate_conditioning and one_d and \
+            cfg.ctxt != sc.CTXT_RENEWAL_PLUS:
         # the port conditions 1D realizations under renewal+ only
-        raise _unsupported(f"{ctxt!r} conditioning of per-path "
-                           f"{'1D' if one_d else '3D'} realizations")
+        raise _unsupported(f"{ctxt!r} conditioning of per-path 1D "
+                           "realizations")
     step_size = float(m.get("step_size", 0.01))
     return md.Medium(
         sigma_a=torch.tensor(_rgb(m.get("sigma_a"), (0, 0, 0)), device=device),

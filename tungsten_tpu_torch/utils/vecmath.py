@@ -53,3 +53,24 @@ def frame_to_local(t, b, n, v):
 
 def frame_to_world(t, b, n, v):
     return t * v[..., 0:1] + b * v[..., 1:2] + n * v[..., 2:3]
+
+
+def inverse3(m):
+    """Inverse of [R, 3, 3] matrices by the adjugate over the determinant
+    (no host sync, unlike torch.linalg.inv's error check on CUDA)."""
+    a, b, c = m[:, 0, 0], m[:, 0, 1], m[:, 0, 2]
+    d, e, f = m[:, 1, 0], m[:, 1, 1], m[:, 1, 2]
+    g, h, i = m[:, 2, 0], m[:, 2, 1], m[:, 2, 2]
+    c00, c01, c02 = e * i - f * h, f * g - d * i, d * h - e * g
+    det = a * c00 + b * c01 + c * c02
+    adj = torch.stack([
+        torch.stack([c00, c * h - b * i, b * f - c * e], dim=-1),
+        torch.stack([c01, a * i - c * g, c * d - a * f], dim=-1),
+        torch.stack([c02, b * g - a * h, a * e - b * d], dim=-1)], dim=-2)
+    return adj / det[:, None, None]
+
+
+def mat_vec(m, v):
+    """[R, 3, 3] (or [1, 3, 3]) @ [R, 3] with the sums written out."""
+    return (m[:, :, 0] * v[:, 0:1] + m[:, :, 1] * v[:, 1:2]
+            + m[:, :, 2] * v[:, 2:3])
