@@ -3,8 +3,12 @@
 Builds the port's CUDA kernels from tungsten_tpu_torch/csrc/ (one nvcc per
 source, all started together) and holds each against its plain PyTorch
 twin on the card: K1, K2 and their backwards K1b and K2b (noise3d.cu), K3
-and its backward K3b (noise1d.cu) and K5/K4 (ws_trace.cu, one whole
-weight-space search per launch).  K1b and K3b sum the parameters'
+and its backward K3b (noise1d.cu), K5/K4 (ws_trace.cu, one whole
+weight-space search per launch) and K8 (psd.cu, the function-space
+medium's batched symmetric eigensolver: against torch.linalg.eigh on the
+matrices a config-4b render of its own hands it and on 131,072 random 34x34
+conditioning blocks, beside torch.linalg.eigh's own time and launches).
+K1b and K3b sum the parameters'
 partials over points inside the launch: their d/dp must equal the twin's
 bit for bit, their sums the twin's within 1e-4, two launches on the same
 inputs must agree bit for bit, a backward through autograd must be one
@@ -12,8 +16,9 @@ launch, and K1b is also run with more impulses within reach of a point
 than its ring holds.  Each kernel's bound is the largest of its bytes over
 HBM's rate and its instructions per pipe class over that class's rate
 (K1, K1b, K2, K2b, K3 and K3b: counted from the built kernels' SASS, K1b's
-along its split walk; K5/K4: operations read off the source, all counted
-as issued); a measured time below its bound fails the run.  Then it
+along its split walk; K5/K4 and K8: operations read off the source, all
+counted as issued, K8's float64 ones and its shared-memory bytes in classes
+of their own); a measured time below its bound fails the run.  Then it
 drives the port's main paths through tungsten_tpu_torch.render and
 tungsten_tpu_torch.entry, each with the launch counts set to 0 just before
 and read just after:
@@ -53,9 +58,15 @@ and read just after:
   against central FD over the lanes FD resolves and against the CPU, and
   3 training steps at its own 256x256, 16 spp, depth 2 (4 groups of 4
   samples; K1 forward, K1b backward);
+- BASELINE config 4b (scenes/gpis-function-space.json) and its CSG union
+  (scenes/gpis-csg.json), function space, renewal+, K8 alone: 128x128,
+  8 spp through the CLI, then under torch.profiler with host syncs, peak
+  memory and the check that no cuSOLVER kernel and no torch.linalg.eigh
+  ran;
 - config 4a's hyperparameter gradient (K5/K4 search, the realization
   rebuilt in the graph): the medium-level gradient on 32 rays against
-  central FD (K5; K4's printed) and the CPU, for both step sizes; the
+  central FD (K5; K4's printed) and, per lane with the card's crossing
+  fed to the CPU's reattachment, the CPU, for both step sizes; the
   image-level check of tests/test_grad_e2e.py::test_image_grad_allclose_fd
   (24x24, 16 passes, isotropic phase, event-linear pixels) against
   central FD in sigma and l; 3 training steps at 128x128, 8 spp (K5) and
@@ -191,12 +202,33 @@ MEDIUM_WEIGHTS = {"config 5": "--+---+-++---+------+++++++--++-"}
 MEDIUM_SPEC = {"config 4a, step_size 0": "config 4a"}
 MEDIUM_FD_RTOL, MEDIUM_FD_ATOL = 0.15, 0.5
 MEDIUM_CPU_RTOL = 1e-3
-# K5 and K4 agree with their twins within WS_RTOL * (1 + |x|) in t and
-# the gradient, not bit for bit (cosf/sinf of phases up to ~50 rad, other
-# sums' orders), and config 4a's sums over lanes cancel to ~1% of their
-# terms' magnitudes: its card gradient is held to the CPU's within 1e-2
-WS_MEDIUM_CPU_RTOL = 1e-2
+# Config 4a's K5 and K4 agree with their twins within WS_RTOL * (1 + |x|),
+# not bit for bit, and its sum over lanes cancels: its card gradient is
+# held to the CPU's per lane, with the crossing (t, hit, the kernel's
+# gradient) that the card's search found fed into the CPU's reattachment
+# (`ws_lane_grads`), each lane within MEDIUM_CPU_RTOL of (|its CPU
+# partial| + the lanes' mean |partial|)
 TRAIN_STEPS = 3
+# Config 4b (function space) and its CSG union: 128x128, 8 spp, depth 2
+# through the CLI and the 64x64, 48-spp goldens.  K8 against its twin
+# (torch.linalg.eigh, on the CPU): V diag(W) V^T within K8_RECON_TOL
+# max|w| of A, V^T V within K8_ORTH_TOL of I, W within K8_EIG_TOL max|w|
+# of the twin's, and, with the limits of tests/test_torch_gp.py, the
+# symmetric root within K8_ROOT_RTOL sqrt(max|w|) and b^T pinv(A) b within
+# K8_SCHUR_RTOL; on the first K8_CAPTURE matrices of each size that a
+# config-4b render hands it (a render of its own, with no time or memory
+# reported) and on K8_RANDOM random conditioning blocks [K8_RANDOM, 34,
+# 34].  The kernels line and the library call at K8_LINE of those blocks.
+FS_SCENES = {name: (os.path.join(ROOT, "scenes", f"gpis-{stem}.json"),
+                    os.path.join(ROOT, "goldens", f"gpis-{stem}.pfm"))
+             for name, stem in (("config 4b", "function-space"),
+                                ("config 4b, CSG", "csg"))}
+K8_RECON_TOL, K8_ORTH_TOL, K8_EIG_TOL = 1e-5, 1e-5, 1e-5
+K8_ROOT_RTOL, K8_SCHUR_RTOL = 2e-3, 5e-3
+K8_CAPTURE, K8_RANDOM, K8_LINE = 16384, 131072, 4096
+# kernel and op names of cuSOLVER's and MAGMA's eigensolvers
+SOLVER_WORDS = ("syev", "cusolver", "sytrd", "steqr", "ormtr", "magma",
+                "linalg_eigh")
 
 # Peaks of one H100 SXM at 700 W: HBM bytes/s (NVIDIA's data sheet), and
 # 132 SMs at 1.98 GHz, each issuing or executing per clock the thread-
@@ -205,9 +237,14 @@ TRAIN_STEPS = 3
 # multiply-adds on the heavy FMA pipe, 64 on the ALU (integer add, logic,
 # shift, compare, select), 16 on the XU (MUFU, conversions).  The data
 # sheet's 67 TFLOP/s counts an FMA as two operations; the kernels are built
-# with -fmad=false.
+# with -fmad=false.  Two classes more, for K8: "fp64", float64 adds and
+# multiplies, 64 per SM and clock (the data sheet's 34 TFLOP/s of FP64 FMA
+# at 132 SMs and 1.98 GHz), and "shared", bytes of shared-memory loads and
+# stores, 128 per SM and clock (32 banks of 4 bytes; CUDA C++ Programming
+# Guide).
 PEAK_BYTES = 3.35e12
 SMS, CLOCK = 132, 1.98e9
+EXTRA_RATES = {"fp64": 64, "shared": 128}
 SM_ISSUE = 128  # thread-instructions issued per SM and clock
 # K1, K2 and K3: instructions per point by class, counted from the built
 # kernels' SASS (lattice_pipes).  Each impulse within reach of the point
@@ -366,12 +403,14 @@ def kernel_device_ms(fn, kernel, reps=20, tries=3):
 def bound_ms(n_bytes, counts):
     """(least time in ms, "bytes" or "operations", the class that bounds
     it) for n_bytes of device memory traffic and {class: instructions}:
-    the largest of bytes over HBM's rate and each class's instructions over
-    its rate on all SMs (SM_RATES)."""
+    the largest of bytes over HBM's rate and each class's instructions
+    (bytes, for "shared") over its rate on all SMs (SM_RATES and
+    EXTRA_RATES)."""
     from tungsten_tpu_torch.kernels.sass import SM_RATES
+    rates = {**SM_RATES, **EXTRA_RATES}
     times = {"bytes": n_bytes / PEAK_BYTES}
     for cls, n in counts.items():
-        times[cls] = n / (SM_RATES[cls] * SMS * CLOCK)
+        times[cls] = n / (rates[cls] * SMS * CLOCK)
     cls = max(times, key=times.get)
     return (times[cls] * 1e3, "bytes" if cls == "bytes" else "operations",
             cls)
@@ -1341,11 +1380,54 @@ def medium_grad(md, convert, entry, scene, dev, spec, weights=None):
     return float(gs), float(gl), fd_s, fd_l, stable.cpu()
 
 
+def ws_lane_grads(md, convert, scene, cpu_scene, dev, spec):
+    """Per-lane d t / d(sigma, l) of a weight-space scene's sample_distance
+    on the card, and on the CPU with the card's search result (hit, t, the
+    kernel's gradient) fed into the CPU's reattachment
+    (`media._ws_reattach`): ([R, 2] card, [R, 2] CPU, hit [R]), both on the
+    CPU."""
+    R = spec[0]
+    ro, rd, near, far, pss, uj, active = fan_rays(spec, dev)
+    params = [torch.tensor(float(x), device=dev).requires_grad_()
+              for x in (scene.media[0].gp.cov.sigma, scene.media[0].gp.cov.l)]
+    med = convert.set_params(scene, *params).media[0]
+    state = md.MediumState.make(R, dev)
+    res, _ = md.sample_distance(med, scene.scene_seed, ro, rd, near, far,
+                                state, pss, uj, active)
+    with torch.no_grad():
+        hit, t_k, grad_k, _, _ = md._crossing_ws(
+            md.detach(med), scene.scene_seed, ro, rd, near,
+            md._far_eff(med, ro, rd, near, far).detach(), state, pss, uj,
+            active)
+    cpu_params = [x.detach().cpu().requires_grad_() for x in params]
+    cpu_med = convert.set_params(cpu_scene, *cpu_params).media[0]
+    t_c, _ = md._ws_reattach(cpu_med, ro.cpu(), rd.cpu(), t_k.cpu(),
+                             hit.cpu(), grad_k.cpu(), pss.cpu())
+    if not torch.equal(res["t"].detach().cpu(), t_k.cpu()):
+        raise RuntimeError("the card's sample_distance and its search found "
+                           "other crossings")
+
+    def grads(y, xs):  # a grazing lane (no IFT step) has none
+        if not y.requires_grad:
+            return torch.zeros(len(xs))
+        return torch.stack([torch.zeros(()) if g is None else g.cpu()
+                            for g in torch.autograd.grad(
+                                y, xs, retain_graph=True,
+                                allow_unused=True)])
+
+    card, cpu = torch.zeros(R, 2), torch.zeros(R, 2)
+    for i in torch.nonzero(hit.cpu()).squeeze(1).tolist():
+        card[i] = grads(res["t"][i], params)
+        cpu[i] = grads(t_c[i], cpu_params)
+    return card, cpu, hit.cpu()
+
+
 def grad_checks(md, convert, entry, load_scene, dev, what, path,
-                fd_gate=True, cpu_rtol=MEDIUM_CPU_RTOL):
+                fd_gate=True, lanes=False):
     """A scene's medium-level gradient on the card against central FD and
-    against the port on the CPU within cpu_rtol (without `fd_gate`, FD is
-    printed, not held)."""
+    against the port on the CPU within MEDIUM_CPU_RTOL (without `fd_gate`,
+    FD is printed, not held; with `lanes`, a weight-space scene, the CPU is
+    held per lane by `ws_lane_grads`)."""
     spec, weights = MEDIUM_RAYS[MEDIUM_SPEC.get(what, what)], \
         MEDIUM_WEIGHTS.get(what)
     R, eps = spec[0], spec[-1]
@@ -1371,10 +1453,23 @@ def grad_checks(md, convert, entry, load_scene, dev, what, path,
             raise RuntimeError(f"{what}: medium-level {name} {ad} is not "
                                f"within rtol {MEDIUM_FD_RTOL}, atol "
                                f"{MEDIUM_FD_ATOL} of FD {fd}")
-        if abs(ad - cpu) > cpu_rtol * abs(cpu):
+        if not lanes and abs(ad - cpu) > MEDIUM_CPU_RTOL * abs(cpu):
             raise RuntimeError(f"{what}: medium-level {name} on the card {ad}"
-                               f" is not within {cpu_rtol} of the CPU's "
-                               f"{cpu}")
+                               f" is not within {MEDIUM_CPU_RTOL} of the "
+                               f"CPU's {cpu}")
+    if lanes:
+        card, cpu, hit = ws_lane_grads(md, convert, scene, cpu_scene, dev,
+                                       spec)
+        floor = cpu[hit].abs().mean(dim=0)
+        err = ((card - cpu).abs() / (cpu.abs() + floor))[hit]
+        print(f"{what}: per-lane d t / d(sigma, l) on {int(hit.sum())} hit "
+              f"lanes, the card's search fed to the CPU's reattachment: "
+              f"max |card - CPU| / (|CPU| + mean |CPU|) = "
+              f"({float(err[:, 0].max()):.3e}, {float(err[:, 1].max()):.3e})"
+              f" (limit {MEDIUM_CPU_RTOL})", flush=True)
+        if int(hit.sum()) < R // 2 or float(err.max()) > MEDIUM_CPU_RTOL:
+            raise RuntimeError(f"{what}: the card's per-lane gradient is not "
+                               f"within {MEDIUM_CPU_RTOL} of the CPU's")
 
 
 def two_segments(md, med, scene_seed, rays):
@@ -1516,13 +1611,230 @@ def ws_image_grad_check(entry, convert, load_scene, dev, card_line):
                                f"not within rtol 0.15, atol 2e-2 of FD {fd}")
 
 
-def launch_counters(noise3d, noise1d, wst):
+def fs_blocks(gpmod, cov, B, n, dev, seed):
+    """B random conditioning blocks of the function-space normal's solve
+    on the card ([B, n + 2, n + 2]: n values along a segment of length
+    0.2-1.6 of a random ray, then the value and along-ray derivative at its
+    end) and their cross covariances with the 3 derivative queries there
+    ([B, n + 2, 3]), under the covariance `cov`."""
+    r = np.random.default_rng(seed)
+    ro = r.uniform(-0.5, 0.5, (B, 3)) + np.array([0.0, 0.9, 0.0])
+    rd = r.normal(size=(B, 3))
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    ts = np.linspace(0.0, 1.0, n)[None] * r.uniform(0.2, 1.6, (B, 1))
+    pts = ro[:, None] + ts[..., None] * rd[:, None]
+    rows = np.concatenate([pts, pts[:, -1:], pts[:, -1:]], axis=1)
+    tg = np.cross(rd, r.normal(size=(B, 3)))
+    tg /= np.linalg.norm(tg, axis=-1, keepdims=True)
+    qd = np.stack([tg, np.cross(rd, tg), rd], axis=1)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    dirs = t(np.broadcast_to(rd[:, None], rows.shape))
+    kinds = torch.tensor([0] * (n + 1) + [1], device=dev)
+    qk = torch.ones(3, dtype=torch.int64, device=dev)
+    a = gpmod.cov_matrix(cov, t(rows), kinds, dirs, t(rows), kinds, dirs)
+    b = gpmod.cov_matrix(cov, t(rows), kinds, dirs,
+                         t(np.broadcast_to(pts[:, -1:], (B, 3, 3))), qk,
+                         t(qd))
+    return a.contiguous(), b.contiguous()
+
+
+# K8: what one pair-element of a round's rotations needs, read off
+# csrc/psd.cu as K5's and K4's operations are: A's row pair and column
+# pair, each 2 float32 loads, 4 FMUL and 2 FADD and 2 stores, and V's
+# column pair in float64, 2 loads, 4 DMUL and 2 DADD and 2 stores; 64 bytes
+# of shared memory.  The pair's rotation, once a pair, and the sweep's
+# off-diagonal norm, n^2 reads a sweep, are left out.  The SASS issues more
+# per pair-element (the pair's c, s, p and q reloaded, the addresses, the
+# wrap and the branch): printed beside, from sass.jacobi_counts.
+K8_PER_ELEMENT = {"issue": 30, "fma": 12, "fp64": 6, "shared": 64}
+
+
+def k8_work(n, sweeps, batch):
+    """(bytes, {class: operations}) of K8 on `batch` matrices of size n
+    that took `sweeps` sweeps in all: each sweep m - 1 rounds of floor(n/2)
+    pairs of n elements, at K8_PER_ELEMENT each."""
+    m = n + (n & 1)
+    elements = sweeps * (m - 1) * (n // 2) * n
+    return (batch * (8 * n * n + 4 * n + 4),
+            {c: elements * k for c, k in K8_PER_ELEMENT.items()})
+
+
+def k8_against_twin(psd, gpmod, a, b, what):
+    """K8 on the card against its twin (torch.linalg.eigh, run on the CPU)
+    on matrices a [B, n, n] (and, given b [B, n, k], the product
+    b^T pinv(a) b the conditioning subtracts), with the limits of
+    tests/test_torch_gp.py.  Returns (max |w - twin's|, total sweeps, max
+    sweeps)."""
+    n = a.shape[-1]
+    w, v, sw = psd.eigh(a, sweeps=True)
+    a_cpu = a.cpu()
+    tw, tv = psd.eigh_ref(a_cpu)
+    wmax = tw.abs().amax(-1).double().to(a.device)
+    a64 = (0.5 * (a + a.transpose(1, 2))).double()
+    v64 = v.double()
+    recon = torch.matmul(v64 * w.double()[:, None, :], v64.transpose(1, 2))
+    err_recon = ((recon - a64).abs().amax((1, 2)) / wmax).max()
+    err_orth = (torch.matmul(v64.transpose(1, 2), v64)
+                - torch.eye(n, dtype=torch.float64, device=a.device)).abs(
+                    ).max()
+    err_w = (w.double().cpu() - tw.double()).abs().amax(-1)
+    err_eig = (err_w.to(a.device) / wmax).max()
+    mine, twin = (lambda _: (w, v)), (lambda _: (tw, tv))
+    root = psd.sqrt_psd(a, eigh_fn=mine).cpu()
+    troot = psd.sqrt_psd(a_cpu, eigh_fn=twin)
+    err_root = ((root - troot).abs().amax((1, 2)).double()
+                / wmax.cpu().sqrt()).max()
+    line = (f"{what}: {a.shape[0]} matrices {n}x{n}, sweeps mean "
+            f"{float(sw.float().mean()):.2f} max {int(sw.max())}; max "
+            f"|V W V^T - A| / max|w| {float(err_recon):.3e} (limit "
+            f"{K8_RECON_TOL}), max |V^T V - I| {float(err_orth):.3e} "
+            f"({K8_ORTH_TOL}), max |w - twin| / max|w| {float(err_eig):.3e} "
+            f"({K8_EIG_TOL}), max |root - twin's| / sqrt(max|w|) "
+            f"{float(err_root):.3e} ({K8_ROOT_RTOL})")
+    bad = (err_recon > K8_RECON_TOL or err_orth > K8_ORTH_TOL
+           or err_eig > K8_EIG_TOL or err_root > K8_ROOT_RTOL)
+    if b is not None:
+        bt = b.transpose(1, 2)
+        got = torch.matmul(bt, torch.matmul(
+            psd.pseudo_inverse(a, eigh_fn=mine), b)).cpu()
+        b_cpu = b.cpu()
+        want = torch.matmul(b_cpu.transpose(1, 2), torch.matmul(
+            psd.pseudo_inverse(a_cpu, eigh_fn=twin), b_cpu))
+        err_schur = ((got - want).abs().amax((1, 2))
+                     / want.abs().amax((1, 2)).clamp(min=1e-30)).max()
+        line += (f", max |b^T pinv(A) b - twin's| / max|twin's| "
+                 f"{float(err_schur):.3e} ({K8_SCHUR_RTOL})")
+        bad = bad or err_schur > K8_SCHUR_RTOL
+    print(line, flush=True)
+    if bad or not bool(torch.isfinite(w).all()):
+        raise RuntimeError(f"K8 disagrees with its twin on {what}")
+    return float(err_w.max()), int(sw.sum()), int(sw.max())
+
+
+def no_solver_kernels(prof):
+    """The profiled run launched no cuSOLVER (or MAGMA) kernel and called
+    no torch.linalg.eigh: raises otherwise."""
+    from torch.autograd import DeviceType
+    bad = [e.key for e in prof.key_averages()
+           if any(w in e.key.lower() for w in SOLVER_WORDS)
+           and (e.device_type == DeviceType.CUDA or "linalg" in e.key)]
+    if bad:
+        raise RuntimeError(f"a solver kernel or eigh ran: {bad}")
+
+
+def fs_render_checks(trender, psd, gpmod, counters, scene, what, spp,
+                     card_line):
+    """A function-space render on the card under torch.profiler and the sync
+    counter, with the launch counts at 0 just before: K8 alone, no solver
+    kernel, K8's device time and share; returns (K8 launches, wall, host
+    syncs, peak GiB)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        syncs = host_syncs(lambda: trender.render(scene, spp, device="cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = check_counts(counters, ("K8",), what)
+    no_solver_kernels(prof)
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    k8 = sum(e.self_device_time_total for e in dev_ev
+             if "jacobi_eigh_kernel" in e.key) / 1e3
+    if k8 <= 0.0:
+        raise RuntimeError(f"{what}: the profiler saw no K8 device time")
+    print(f"{what} under the profiler, {spp} spp: {wall:.3f} s (profiled), "
+          f"K8 launches {counts['K8']}, largest launch {psd.MOST_MATRICES} "
+          f"matrices, host syncs {syncs}, peak device memory {peak:.2f} GiB; "
+          f"device time {total:.1f} ms, K8 {k8:.1f} ms; no cuSOLVER kernel "
+          f"and no eigh ({card_line})", flush=True)
+    return counts["K8"], wall, syncs, peak
+
+
+class EighCapture:
+    """Wraps K8's wrapper and the function-space solve, as the medium calls
+    them, to keep the first `most` matrices of each size (and the
+    normal's cross covariances with its conditioning blocks) that a render
+    hands them; the launches stay the render's."""
+
+    def __init__(self, psd, gpmod, most):
+        self.psd, self.gpmod, self.most = psd, gpmod, most
+        self.mats, self.pairs = {}, []
+        self.eigh, self.solve = psd.eigh, gpmod.psd_solve
+
+    def __enter__(self):
+        def eigh(a, sweeps=False):
+            n = a.shape[-1]
+            have = sum(x.shape[0] for x in self.mats.get(n, []))
+            if have < self.most:
+                self.mats.setdefault(n, []).append(
+                    a.reshape(-1, n, n)[:self.most - have].clone())
+            return self.eigh(a, sweeps)
+
+        def solve(a, b):
+            have = sum(x[0].shape[0] for x in self.pairs)
+            if have < self.most:
+                self.pairs.append((a[:self.most - have].clone(),
+                                   b[:self.most - have].clone()))
+            return self.solve(a, b)
+
+        self.psd.eigh, self.gpmod.psd_solve = eigh, solve
+        return self
+
+    def __exit__(self, *exc):
+        self.psd.eigh, self.gpmod.psd_solve = self.eigh, self.solve
+
+    def sets(self):
+        """{size: [B, n, n]} and the normal's (blocks, cross covariances)."""
+        mats = {n: torch.cat(v)[:self.most] for n, v in self.mats.items()}
+        a = torch.cat([x[0] for x in self.pairs])[:self.most]
+        b = torch.cat([x[1] for x in self.pairs])[:self.most]
+        return mats, (a.contiguous(), b.contiguous())
+
+
+def k8_library(a, k8_ms, card_line, what):
+    """torch.linalg.eigh, the library call K8 stands beside, on a [B, n, n]
+    on the card: (ms, kernel launches per call), printed beside K8's device
+    time on the same input, k8_ms.  At n > 32 the library loops over the
+    matrices, some 10^5 launches a call: the launches are counted from the
+    profiler's raw device events of one warm call (its Python event table
+    would take minutes to build), after every profile of K8."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    lib_ms = median_ms(lambda: torch.linalg.eigh(a), reps=3)
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.linalg.eigh(a)
+        torch.cuda.synchronize()
+    ran = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ran[e.name()] = ran.get(e.name(), 0) + 1
+    copies = sum(c for k, c in ran.items() if k.startswith("Mem"))
+    calls = sum(ran.values()) - copies
+    print(f"{what}: torch.linalg.eigh {lib_ms:.3f} ms (median of 3, CUDA "
+          f"events), {calls} kernel launches and {copies} memory copies a "
+          "call: " + ", ".join(f"{k[:50]} x{c}" for k, c in sorted(
+              ran.items(), key=lambda kv: -kv[1])[:6])
+          + f"; K8 {k8_ms:.3f} ms device ({card_line})", flush=True)
+    return lib_ms, calls
+
+
+def launch_counters(noise3d, noise1d, wst, psd):
     """{kernel: (module, name of its launch counter)} of every kernel."""
     return {"K1": (noise3d, "LAUNCHES"), "K1b": (noise3d, "K1B_LAUNCHES"),
             "K2": (noise3d, "K2_LAUNCHES"), "K2b": (noise3d, "K2B_LAUNCHES"),
             "K3": (noise1d, "LAUNCHES"),
             "K3b": (noise1d, "K3B_LAUNCHES"), "K5": (wst, "MARCH_LAUNCHES"),
-            "K4": (wst, "TRACE_LAUNCHES")}
+            "K4": (wst, "TRACE_LAUNCHES"), "K8": (psd, "LAUNCHES")}
 
 
 def read_counts(counters):
@@ -1734,9 +2046,10 @@ def main():
     from tungsten_tpu_torch import convert, entry
     from tungsten_tpu_torch import render as trender
     from tungsten_tpu_torch.io.image import read_pfm
-    from tungsten_tpu_torch.kernels import noise1d, noise3d, sass
+    from tungsten_tpu_torch.kernels import noise1d, noise3d, psd, sass
     from tungsten_tpu_torch.kernels import ws_trace as wst
     from tungsten_tpu_torch.models import media as md
+    from tungsten_tpu_torch.ops import gp as gpmod
     from tungsten_tpu_torch.scene.parse import load_scene, scene_from_dict
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1745,16 +2058,16 @@ def main():
     def done(t0):
         print(f"-- {time.perf_counter() - t0:.1f} s", flush=True)
 
-    phase("build K1/K2, K3 and K5/K4, in parallel")
+    phase("build K1/K2, K3, K5/K4 and K8, in parallel")
     t0 = time.perf_counter()
 
     def build(mod):
         t = time.perf_counter()
         return mod.build(), time.perf_counter() - t
 
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         jobs = {mod: pool.submit(build, mod)
-                for mod in (noise3d, noise1d, wst)}
+                for mod in (noise3d, noise1d, wst, psd)}
     for mod, job in jobs.items():
         log, secs = job.result()
         print(f"built {os.path.relpath(mod.SOURCE, ROOT)} for sm_90a in "
@@ -1767,6 +2080,18 @@ def main():
         print(f"{name} per point at K = 3, from its SASS: {n_bytes} bytes; "
               + ", ".join(f"{c} {v:.1f}" for c, v in counts.items()),
               flush=True)
+    from tungsten_tpu_torch.kernels.nvcc import compile_library, sass_listing
+    jacobi = sass.jacobi_counts(
+        sass_listing(compile_library(psd.SOURCE)[0]),
+        "jacobi_eigh_kernelILi128")
+    for name, counts in zip(("rows", "columns"), jacobi):
+        print(f"K8 per element of its {name} loop, from its SASS: "
+              + ", ".join(f"{c} {v}" for c, v in counts.items()), flush=True)
+    print("K8 per pair-element, both loops: the SASS issues "
+          f"{jacobi[0]['issue'] + jacobi[1]['issue']} instructions, a "
+          f"rotation needs {K8_PER_ELEMENT['issue']} (the bound's count: "
+          + ", ".join(f"{c} {v}" for c, v in K8_PER_ELEMENT.items())
+          + ")", flush=True)
     done(t0)
 
     phase("K1 against its plain twin")
@@ -2000,7 +2325,84 @@ def main():
               f" GiB ({card_line})", flush=True)
         done(t0)
 
-    counters = launch_counters(noise3d, noise1d, wst)
+        counters = launch_counters(noise3d, noise1d, wst, psd)
+        fs_k8 = {}
+        for what, (path, _) in FS_SCENES.items():
+            phase(f"{what} (128x128, 8 spp) through the CLI")
+            t0 = time.perf_counter()
+            zero_counts(counters)
+            psd.MOST_MATRICES = 0
+            img, wall, peak = render_cli(trender, path, 8, tmp,
+                                         os.path.basename(path)[:-5])
+            counts = check_counts(counters, ("K8",), what)
+            fs_k8[what] = counts["K8"]
+            lum = check_image(img, what)
+            print(f"mean luminance {lum:.4f}, K8 launches {counts['K8']}, "
+                  f"largest launch {psd.MOST_MATRICES} matrices; {wall:.2f} "
+                  f"s with scene load ({128 * 128 * 8 / wall / 1e3:.2f} "
+                  f"Ksamples/s), peak device memory {peak / 2 ** 30:.2f} GiB"
+                  f" ({card_line})", flush=True)
+            done(t0)
+
+    phase("K8 against its twin: the matrices of config 4b's pass and "
+          f"{K8_RANDOM} random conditioning blocks")
+    t0 = time.perf_counter()
+    fs_scene = load_scene(FS_SCENES["config 4b"][0], device=dev)[0]
+    fs_cov = fs_scene.media[0].gp.cov
+    with EighCapture(psd, gpmod, K8_CAPTURE) as cap:
+        trender.render(fs_scene, 8, device=dev)
+    mats, (s11, s12) = cap.sets()
+    k8_err = 0.0
+    for n, a in sorted(mats.items()):
+        if n != s11.shape[-1]:  # those are the normal solves' blocks
+            e, _, _ = k8_against_twin(psd, gpmod, a, None,
+                                      f"config 4b's pass, n = {n}")
+            k8_err = max(k8_err, e)
+    e, _, _ = k8_against_twin(psd, gpmod, s11, s12,
+                              "config 4b's pass, the normal solves' blocks")
+    k8_err = max(k8_err, e)
+    blocks, cross = fs_blocks(gpmod, fs_cov, K8_RANDOM, 32, dev, 8)
+    e, total, _ = k8_against_twin(psd, gpmod, blocks, cross,
+                                     "random conditioning blocks")
+    k8_err = max(k8_err, e)
+    k8_all_ms = median_ms(lambda: psd.eigh(blocks), reps=5)
+    b_ms, _, b_cls = bound_ms(*k8_work(34, total, K8_RANDOM))
+    check_bound(f"K8 at {K8_RANDOM} matrices", k8_all_ms, b_ms)
+    print(f"K8 on {K8_RANDOM} 34x34 blocks: {k8_all_ms:.3f} ms (median of 5,"
+          f" CUDA events), bound {b_ms:.3f} ms ({b_cls}; {total} sweeps in "
+          f"all), {b_ms / k8_all_ms:.3f} of it ({card_line})", flush=True)
+    line_a = blocks[:K8_LINE].contiguous()
+    line_sweeps = psd.eigh(line_a, sweeps=True)[2]
+    line_sets = {33: fs_blocks(gpmod, fs_cov, K8_LINE, 31, dev, 9)[0],
+                 34: line_a}
+    k8_dev = {n: kernel_device_ms(lambda: psd.eigh(a), "jacobi_eigh_kernel",
+                                  reps=5) for n, a in line_sets.items()}
+    lib = {n: k8_library(a, k8_dev[n], card_line,
+                         f"[{K8_LINE}, {n}, {n}] conditioning blocks")
+           for n, a in line_sets.items()}
+    lib_ms, k8_ms = lib[34][0], k8_dev[34]
+    plain_ms = median_ms(lambda: psd.eigh_ref(line_a), reps=1)
+    b_ms, b_by, b_cls = bound_ms(*k8_work(34, int(line_sweeps.sum()),
+                                          K8_LINE))
+    check_bound(f"K8 at {K8_LINE} matrices", k8_ms, b_ms)
+    k8_numbers = {"max_abs_err": k8_err, "ms": k8_ms, "plain_ms": plain_ms,
+                  "bound_ms": b_ms, "bound_by": b_by, "bound_class": b_cls,
+                  "library_ms": lib_ms}
+    print(f"K8 at [{K8_LINE}, 34, 34]: device {k8_ms:.4f} ms, twin "
+          f"{plain_ms:.3f} ms, torch.linalg.eigh {lib_ms:.3f} ms; bound "
+          f"{b_ms:.4f} ms ({b_cls}; {int(line_sweeps.sum())} sweeps in "
+          f"all), {b_ms / k8_ms:.3f} of it", flush=True)
+    del blocks, cross, mats, s11, s12, cap
+    done(t0)
+
+    for what, (path, _) in FS_SCENES.items():
+        phase(f"{what} (128x128, 8 spp): host syncs, peak memory and the "
+              "kernels under torch.profiler")
+        t0 = time.perf_counter()
+        fs_render_checks(trender, psd, gpmod, counters,
+                         load_scene(path, device=dev)[0], what, 8, card_line)
+        done(t0)
+
     phase("config 1's medium-level gradient: card against FD and the CPU")
     t0 = time.perf_counter()
     grad_checks(md, convert, entry, load_scene, dev, "config 1", SCENE)
@@ -2094,7 +2496,7 @@ def main():
                   + " and the CPU")
             t0 = time.perf_counter()
             grad_checks(md, convert, entry, load_scene, dev, what, path,
-                        fd_gate=gate, cpu_rtol=WS_MEDIUM_CPU_RTOL)
+                        fd_gate=gate, lanes=True)
             done(t0)
 
         phase("config 4a's image-level gradient against FD (24x24, 16 "
@@ -2155,7 +2557,9 @@ def main():
             ("config 5", load_scene(HERO_SCENE, res_override=(64, 64),
                                     device=dev)[0], HERO_GOLDEN, True),
             ("config 2", load_scene(ENS_SCENE, res_override=(64, 64),
-                                    device=dev)[0], ENS_GOLDEN, True)):
+                                    device=dev)[0], ENS_GOLDEN, True),
+            *((what, load_scene(path, res_override=(64, 64), device=dev)[0],
+               gold, True) for what, (path, gold) in FS_SCENES.items())):
         ours = (trender.render(sc, 48, device=dev) / 48).cpu().numpy()
         ratio, frac_bad = golden_bucket_test(ours, read_pfm(gold), 48)
         print(f"{what}: energy ratio {ratio:.4f} (0.9-1.1), frac_bad "
@@ -2254,6 +2658,11 @@ def main():
             "source": "tungsten_tpu_torch/csrc/ws_trace.cu",
             "replaces": f"tungsten_tpu/ops/ws_trace_pallas.py:{line}",
             "launches": launched, **ws_numbers[name], "library_ms": None})
+    kernels.append({
+        "name": "K8 jacobi_eigh", "route": "cuda",
+        "source": "tungsten_tpu_torch/csrc/psd.cu",
+        "replaces": "tungsten_tpu/ops/gp.py:127,148 jnp.linalg.eigh",
+        "launches": sum(fs_k8.values()), **k8_numbers})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

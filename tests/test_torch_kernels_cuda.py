@@ -1,7 +1,9 @@
-"""Kernels K1, K1b, K2, K2b, K3, K3b, K5 and K4 on the card, against their
-plain PyTorch twins, the config-1, config-4a, config-3 and hero renders on
-the card against the same renders on the CPU, and the training steps of
-configs 1, 3 and 5 on the card against the same steps on the CPU.
+"""Kernels K1, K1b, K2, K2b, K3, K3b, K5, K4 and K8 on the card, against
+their plain PyTorch twins, the config-1, config-4a, config-3 and hero
+renders on the card against the same renders on the CPU, the
+function-space renders (config 4b and its CSG union) through K8 alone,
+and the training steps of configs 1, 3 and 5 on the card against the same
+steps on the CPU.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they are
 marked `cuda` and skip without one.  They import no JAX, so they run on a
@@ -437,3 +439,72 @@ def _render_on_the_card_matches_cpu(cuda, path, kernel):
     ok = (np.abs(got - ref) <= 1e-3 * (1.0 + np.abs(ref))).all(axis=-1)
     assert ok.mean() >= 0.97, ok.mean()
     assert abs(got.mean() - ref.mean()) <= 0.01 * abs(ref.mean())
+
+
+def _k8_blocks(n, B, seed):
+    """B symmetric PSD n x n squared-exponential covariances of n points
+    along random segments (sigma 0.06, l 0.12: near-singular, as the
+    function-space chunks' are)."""
+    r = np.random.default_rng(seed)
+    ts = np.linspace(0.0, 1.0, n)[None] * r.uniform(0.2, 1.6, (B, 1))
+    d = ts[:, :, None] - ts[:, None, :]
+    return torch.from_numpy((0.0036 * np.exp(-d * d / 0.0288)).astype(
+        np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 33, 34])
+def test_k8_kernel_matches_twin_on_the_card(cuda, n):
+    """K8 against torch.linalg.eigh with chip_smoke.py's limits (the
+    root's is tests/test_torch_gp.py's): V diag(W) V^T within 1e-5 max|w| of A, V^T V
+    within 1e-5 of I, W within 1e-5 max|w|, the symmetric root within
+    2e-3 sqrt(max|w|)."""
+    from tungsten_tpu_torch.kernels import psd
+    a = _k8_blocks(n, 2048, n) if n > 3 else torch.from_numpy(
+        np.random.default_rng(3).normal(size=(2048, 3, 3)).astype(
+            np.float32))
+    before = psd.LAUNCHES
+    w, v, sweeps = psd.eigh(a.to(cuda), sweeps=True)
+    torch.cuda.synchronize()
+    assert psd.LAUNCHES == before + 1
+    assert int(sweeps.max()) <= psd.MAX_SWEEPS
+    tw, _ = psd.eigh_ref(a)
+    wmax = tw.abs().amax(-1, keepdim=True).double()
+    w64, v64 = w.cpu().double(), v.cpu().double()
+    a64 = (0.5 * (a + a.transpose(1, 2))).double()
+    recon = (v64 * w64[:, None, :]) @ v64.transpose(1, 2)
+    assert ((recon - a64).abs().amax(-1) <= 1e-5 * wmax).all()
+    assert ((v64.transpose(1, 2) @ v64 - torch.eye(n, dtype=torch.float64))
+            .abs().max() <= 1e-5)
+    assert ((w64 - tw.double()).abs() <= 1e-5 * wmax).all()
+    root = psd.sqrt_psd(a.to(cuda)).cpu()
+    twin = psd.sqrt_psd(a, eigh_fn=psd.eigh_ref)
+    assert ((root - twin).abs().amax((1, 2))
+            <= 2e-3 * wmax[:, 0].sqrt().float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stem", ["function-space", "csg"])
+def test_fs_render_on_the_card_goes_through_k8_alone(cuda, stem):
+    """A 16x16, 1-spp function-space render on the card: finite, K8
+    launched and no other kernel, and no torch.linalg.eigh called."""
+    from tungsten_tpu_torch.kernels import psd
+    scene, _ = load_scene(os.path.join(ROOT, "scenes", f"gpis-{stem}.json"),
+                          res_override=(16, 16), device="cuda")
+    before = (psd.LAUNCHES, noise3d.LAUNCHES, noise1d.LAUNCHES,
+              wst.MARCH_LAUNCHES, wst.TRACE_LAUNCHES)
+    eigh = torch.linalg.eigh
+
+    def refused(*args, **kw):
+        raise AssertionError("torch.linalg.eigh ran in a card render")
+
+    torch.linalg.eigh = refused
+    try:
+        img = trender.render(scene, 1, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        torch.linalg.eigh = eigh
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+    assert psd.LAUNCHES > before[0]
+    assert (noise3d.LAUNCHES, noise1d.LAUNCHES, wst.MARCH_LAUNCHES,
+            wst.TRACE_LAUNCHES) == before[1:]

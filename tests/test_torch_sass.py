@@ -168,3 +168,49 @@ def test_split_counts_needs_the_loops_it_is_given():
                           1, 1.0)
     with pytest.raises(ValueError, match="kernels match"):
         sass.split_counts(SPLIT_LISTING, "no_such_kernel", 1, 1.0)
+
+
+# K8's shape: a load loop (LDG, STS, FMUL), two rolled element loops that
+# rotate in shared memory (LDS, FMUL, FADD, STS; the second also DMUL), a
+# reduction loop without a store, and an output loop (STG).
+JACOBI = """
+        code for sm_90a
+                Function : _ZN12_GLOBAL__N_118jacobi_eigh_kernelILi128EEEvPKfPfS3_Pii
+        .headerflags    @"EF_CUDA_SM90"
+        /*0000*/                   LDG.E R1, desc[UR4][R2.64] ;
+        /*0010*/                   FMUL R1, R1, 0.5 ;
+        /*0020*/                   STS [R3], R1 ;
+        /*0030*/                   ISETP.GE.AND P0, PT, R3, 0x10, PT ;
+        /*0040*/              @!P0 BRA 0x0 ;
+        /*0050*/                   LDS R4, [R5] ;
+        /*0060*/                   FMUL R6, R4, R7 ;
+        /*0070*/                   FADD R6, R6, R8 ;
+        /*0080*/                   STS [R5], R6 ;
+        /*0090*/                   IADD3 R5, R5, 0x4, RZ ;
+        /*00a0*/                   ISETP.GE.AND P1, PT, R5, R9, PT ;
+        /*00b0*/              @!P1 BRA 0x50 ;
+        /*00c0*/                   LDS R4, [R5] ;
+        /*00d0*/                   FMUL R6, R4, R7 ;
+        /*00e0*/                   DMUL R10, R12, R14 ;
+        /*00f0*/                   STS [R5], R6 ;
+        /*0100*/                   ISETP.GE.AND P2, PT, R5, R9, PT ;
+        /*0110*/              @!P2 BRA 0xc0 ;
+        /*0120*/                   LDS R4, [R5] ;
+        /*0130*/                   FMUL R6, R4, R4 ;
+        /*0140*/                   ISETP.GE.AND P3, PT, R5, R9, PT ;
+        /*0150*/              @!P3 BRA 0x120 ;
+        /*0160*/                   LDS R4, [R5] ;
+        /*0170*/                   STG.E desc[UR4][R2.64], R4 ;
+        /*0180*/                   ISETP.GE.AND P4, PT, R5, R9, PT ;
+        /*0190*/              @!P4 BRA 0x160 ;
+        /*01a0*/                   EXIT ;
+"""
+
+
+def test_jacobi_counts():
+    rows, cols = sass.jacobi_counts(JACOBI, "jacobi_eigh_kernelILi128")
+    assert rows == {"issue": 7, "fma": 2, "fmaheavy": 0, "alu": 2, "xu": 0}
+    assert cols == {"issue": 6, "fma": 1, "fmaheavy": 0, "alu": 1, "xu": 0}
+    with pytest.raises(ValueError, match="element loops"):
+        sass.jacobi_counts(JACOBI.replace("STS [R5], R6", "NOP"),
+                           "jacobi_eigh_kernelILi128")

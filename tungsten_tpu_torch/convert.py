@@ -87,6 +87,20 @@ def _cov(tree, c, t):
         kernel_scale=tree[c + "kernel_scale"])
 
 
+def _gp(tree, g, t):
+    """The GP (mean and covariance) at path prefix `g`; a CSG union's
+    additional min-mean, which only its function-space children leave
+    unread, is dropped."""
+    mean_type = tree[g + "mean.__type__"]
+    if mean_type == "SphericalMean":
+        mean = SphericalMean(center=t(g + "mean.center"),
+                             radius=t(g + "mean.radius"))
+    else:
+        _require(mean_type == "HomogeneousMean", f"a {mean_type}")
+        mean = HomogeneousMean(offset=t(g + "mean.offset"))
+    return sc.GP(mean=mean, cov=_cov(tree, g + "cov.", t))
+
+
 def scene_from_numpy(tree, device="cuda"):
     """This package's Scene from a flattened JAX Scene (see `flatten`)."""
     device = check_device(device)
@@ -128,7 +142,8 @@ def scene_from_numpy(tree, device="cuda"):
     for i in range(tree["media.__len__"]):
         m = f"media.{i}."
         kind = tree[m + "kind"]
-        _require(kind in (md.GPIS_SPARSE_CONV, md.GPIS_WEIGHT_SPACE)
+        _require(kind in (md.GPIS_SPARSE_CONV, md.GPIS_WEIGHT_SPACE,
+                          md.GPIS_FUNCTION_SPACE)
                  and tree[m + "phase_kind"] == "brdf"
                  and tree[m + "normal_method"] == "conditioned_gaussian"
                  and tree[m + "law"] is None, "this medium configuration")
@@ -152,35 +167,48 @@ def scene_from_numpy(tree, device="cuda"):
                  or not cfg.one_d or cfg.ctxt == sc.CTXT_RENEWAL_PLUS,
                  "renewal conditioning of 1D realizations")
         g = m + "gp."
+        fs_kind = kind == md.GPIS_FUNCTION_SPACE
+        csg = tree[g + "csg_right.__type__"] if (
+            g + "csg_right.__type__") in tree else None
+        _require(fs_kind or csg is None, "a CSG union outside function "
+                 "space")
+        _require(csg is not None
+                 or g + "mean_additional.__type__" not in tree,
+                 "an additional mean outside a CSG union")
         _require(all(tree[g + k] is None for k in (
-            "mean_additional", "csg_right", "global_cond", "color_field",
-            "emission_field")), "a CSG, conditioned or colored GP")
-        cov = _cov(tree, g + "cov.", t)
+            "global_cond", "color_field", "emission_field")),
+            "a conditioned or colored GP")
+        gp = _gp(tree, g, t)
+        if csg is not None:
+            gp = dataclasses.replace(gp, csg_right=_gp(tree, g + "csg_right.",
+                                                       t))
+        cov = gp.cov
+        _require(csg is None or gp.csg_right.cov.is_stationary,
+                 "a nonstationary covariance in a CSG union")
         _require(cov.is_stationary or (
             kind == md.GPIS_SPARSE_CONV
             and not (cfg.one_d or cfg.activate_conditioning
                      or cfg.isotropic_3d)),
-            "a nonstationary covariance in weight space, with 1D or "
-            "isotropic sampling or with conditioning")
+            "a nonstationary covariance in weight or function space, with "
+            "1D or isotropic sampling or with conditioning")
         _require(float(tree[c + "base"]) == sc.MULTI_RES_BASE,
                  "another multi-resolution base")
-        mean_type = tree[g + "mean.__type__"]
-        if mean_type == "SphericalMean":
-            mean = SphericalMean(center=t(g + "mean.center"),
-                                 radius=t(g + "mean.radius"))
-        else:
-            _require(mean_type == "HomogeneousMean", f"a {mean_type}")
-            mean = HomogeneousMean(offset=t(g + "mean.offset"))
+        _require(not fs_kind or (
+            cfg.ctxt in (sc.CTXT_RENEWAL, sc.CTXT_RENEWAL_PLUS)
+            and tree[m + "skip_space"] == 0.0),
+            "a function-space medium under the Global or None context or "
+            "with skip_space")
         bounds = (None if tree[m + "bounds"] is None
                   else t(m + "bounds"))
         media.append(md.Medium(
             sigma_a=t(m + "sigma_a"), sigma_s=t(m + "sigma_s"),
             density=t(m + "density"), step_size=t(m + "step_size"),
-            cfg=cfg, gp=sc.GP(mean=mean, cov=cov), bounds=bounds,
+            cfg=cfg, gp=gp, bounds=bounds,
             phase_bsdf=tree[m + "phase_bsdf"], min_step=tree[m + "min_step"],
             max_march_steps=tree[m + "max_march_steps"], kind=kind,
             basis_functions=tree[m + "basis_functions"],
-            ws_sphere_trace=tree[m + "ws_sphere_trace"]))
+            ws_sphere_trace=tree[m + "ws_sphere_trace"],
+            sample_points=tree[m + "sample_points"]))
 
     camera = Camera(transform=t("camera.transform"),
                     fov_deg=t("camera.fov_deg"), res_x=tree["camera.res_x"],

@@ -33,8 +33,10 @@ reach.  K1b splits its walk into a test loop that appends the impulses
 within reach to a ring in shared memory and a drain loop that works them
 off: `split_counts` counts the test loop's short path for every
 iteration, the append and one drained entry for each expected impulse
-within reach, and the loops around them.  The listing comes from
-`nvcc.sass_listing`.
+within reach, and the loops around them.  K8's Jacobi sweeps apply each
+rotation one pair-element per iteration of two rolled loops (A's rows; A's
+and V's columns): `jacobi_counts` counts one iteration of each.  The
+listing comes from `nvcc.sass_listing`.
 """
 from __future__ import annotations
 
@@ -318,3 +320,24 @@ def split_counts(text, kernel, iters, hits, around=0):
             n += around * _around(cfg, outer, test, cls)
         out[cls] = n
     return out
+
+
+def jacobi_counts(text, kernel):
+    """Per-class instructions of one iteration of each of K8's two element
+    loops (the rows, then the columns, of a round's rotations): the
+    innermost loops that store to and compute in shared memory (STS and
+    FMUL) without touching device memory (LDG, STG), in address order."""
+    cfg = _kernel_cfg(text, kernel)
+    heads = []
+    for h, (body, _) in sorted(cfg.loops.items()):
+        blocks = [cfg.blocks[s] for s in body]
+        if any(g != h and cfg.loops[g][0] < body for g in cfg.loops):
+            continue  # not innermost
+        if (any(b.has("STS") for b in blocks)
+                and any(b.has("FMUL") for b in blocks)
+                and not any(b.has("LDG") or b.has("STG") for b in blocks)):
+            heads.append(h)
+    if len(heads) != 2:
+        raise ValueError(f"{kernel}: {len(heads)} element loops, not 2")
+    return [{cls: _loop_iteration(cfg, h, cls) for cls in CLASSES}
+            for h in heads]

@@ -1,5 +1,5 @@
-"""GPIS media batched over rays: the sparse-convolution and weight-space
-branches of tungsten_tpu/models/media.py.
+"""GPIS media batched over rays: the sparse-convolution, weight-space and
+function-space branches of tungsten_tpu/models/media.py.
 
 `sample_distance` marches each ray to the first sign change of its GP
 realization, refines the crossing and samples the surface normal there;
@@ -24,6 +24,13 @@ the basis on chip and returns the crossing with the value and gradient
 there; see kernels/ws_trace.py.  Only the active rays are gathered into
 these calls (the results of the others are masked anyway).
 
+Function space (models/fs_medium.py): each active ray draws its segment
+in chunks of jointly conditioned points and samples the normal at the
+first sign change by a dense conditional solve; a CSG union marches the
+min of two children and carries each child's value and gradient
+(MediumState.fs_val2, fs_grad2 for the right one).  Its eigensolves are
+K8 (kernels/psd.py).  Visibility skips the normal's solve.
+
 Gradients (the JAX package's detached-sampling estimator): the marches
 and visibility record no graph; a sparse-conv crossing is reattached to
 the GP hyperparameters by the implicit function theorem and its normal is
@@ -43,6 +50,7 @@ import dataclasses
 import torch
 
 from ..kernels import ws_trace as wst
+from . import fs_medium as fs
 from ..ops import sparse_conv as sc
 from ..ops import sparse_conv_fast as fast
 from ..ops import weight_space as ws
@@ -50,12 +58,14 @@ from ..utils.vecmath import dot, mat_vec
 
 GPIS_SPARSE_CONV = "sparse_conv_noise"
 GPIS_WEIGHT_SPACE = "weight_space"
+GPIS_FUNCTION_SPACE = "function_space"
 
 
 @dataclasses.dataclass(frozen=True)
 class Medium:
-    """A sparse-conv or weight-space GPIS medium with a BRDF phase
-    function.  `cfg` carries the realization seeding of both."""
+    """A sparse-conv, weight-space or function-space GPIS medium with a
+    BRDF phase function.  `cfg` carries the realization seeding of the
+    first two and the correlation context of all three."""
     sigma_a: torch.Tensor  # [3]
     sigma_s: torch.Tensor  # [3]
     density: torch.Tensor  # scalar
@@ -69,6 +79,7 @@ class Medium:
     kind: str = GPIS_SPARSE_CONV
     basis_functions: int = 300  # weight space: RFF basis size n
     ws_sphere_trace: bool = False  # weight space with step_size == 0
+    sample_points: int = 32  # function space: points per chunk
     # "brdf" (the phase_bsdf row) or "isotropic" (the JAX package's
     # isotropic phase, which its image-level gradient checks put in place)
     phase_kind: str = "brdf"
@@ -84,8 +95,10 @@ class MediumState:
     (first_scatter), the last sampled normal and the field value at the
     last segment end (the targets of renewal conditioning), the path length
     through media so far (info_t), the 1D sampling scheme at the last
-    crossing, and the 1D and 3D conditioning coefficients of the current
-    segment."""
+    crossing, the 1D and 3D conditioning coefficients of the current
+    segment, and a function-space CSG union's right child's value and
+    gradient (fs_val2, fs_grad2; last_val and last_aniso then carry the
+    left child's)."""
     first_scatter: torch.Tensor  # [R] bool
     last_aniso: torch.Tensor  # [R, 3]
     last_val: torch.Tensor  # [R]
@@ -93,6 +106,8 @@ class MediumState:
     scheme: torch.Tensor  # [R] int64
     coeff1: sc.Coeffs
     coeff3: sc.Coeffs
+    fs_val2: torch.Tensor  # [R]
+    fs_grad2: torch.Tensor  # [R, 3]
 
     @staticmethod
     def make(n, device):
@@ -104,7 +119,8 @@ class MediumState:
             last_aniso=aniso, last_val=zeros, info_t=zeros,
             scheme=torch.zeros(n, dtype=torch.int64, device=device),
             coeff1=sc.Coeffs.zeros(n, device),
-            coeff3=sc.Coeffs.zeros(n, device))
+            coeff3=sc.Coeffs.zeros(n, device),
+            fs_val2=zeros, fs_grad2=aniso)
 
     def reset_where(self, mask):
         """Fresh state on rays that cross a boundary; the path length
@@ -388,6 +404,66 @@ def _reattach_crossing(value_at, t, hit, f_at_t):
     return t - torch.where(ift_ok, corr, 0.0)
 
 
+def _fs_march(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
+              active, want_grad=True):
+    """models/fs_medium.py's march with the carries the state holds: the
+    value and along-ray derivative of the last normal (a CSG union's left
+    child), and fs_val2, fs_grad2 (its right child)."""
+    carries = [(state.last_val, dot(state.last_aniso, rd))]
+    if med.gp.csg_right is not None:
+        carries.append((state.fs_val2, dot(state.fs_grad2, rd)))
+    return fs.sample_distance_fs(med, scene_seed, ro, rd, near, far,
+                                 state.first_scatter, carries,
+                                 ~state.first_scatter, pss, u_jitter, active,
+                                 want_grad)
+
+
+def _sample_distance_fs(med, scene_seed, ro, rd, near, far, state, pss,
+                        u_jitter, active):
+    """sample_distance of a function-space medium (the JAX package's
+    `_sample_distance_fs`): the sampled normal is the attaining child's;
+    a plain GP carries its sanitized normal and, where it hit, the value 0,
+    a CSG union each child's own value and gradient."""
+    if torch.is_grad_enabled() and requires_grad(med, ro, rd):
+        raise NotImplementedError(
+            "the function-space medium is forward-only: its chunked march "
+            "has no gradient in the JAX package either (jax.grad fails on "
+            "its lax.while_loop)")
+    res = _fs_march(med, scene_seed, ro, rd, near, far, state, pss,
+                    u_jitter, active)
+    hit, t, grad = res["hit"], res["t"], res["grad"]
+    grad_ok = torch.isfinite(grad.sum(dim=-1))
+    wrong_side = hit & (dot(grad, rd) > 0.0)
+    zero_grad = hit & (dot(grad, grad) < 1e-7)
+    failed = active & (wrong_side | zero_grad | ~grad_ok)
+    fallback = torch.zeros_like(grad)
+    fallback[:, 0] = 1.0
+    grad = torch.where((grad_ok & ~zero_grad)[:, None], grad, fallback)
+    sig_s = med.sigma_s * med.density
+    sig_t = torch.clamp(med.sigma_t, min=1e-9)
+    weight = torch.where(hit[:, None], (sig_s / sig_t).expand(ro.shape), 1.0)
+    is_csg = med.gp.csg_right is not None
+    carry_grad = res["grads"][0] if is_csg else grad
+    carry_val = (res["vals"][0] if is_csg
+                 else torch.where(hit, 0.0, res["vals"][0]))
+    a3 = active[:, None]
+    new_state = dataclasses.replace(
+        state,
+        first_scatter=torch.where(active, False, state.first_scatter),
+        last_aniso=torch.where(a3, carry_grad, state.last_aniso),
+        last_val=torch.where(active, carry_val, state.last_val),
+        info_t=torch.where(active, state.info_t + t - near, state.info_t),
+        scheme=torch.where(active, sc.SCHEME_UNI, state.scheme))
+    if is_csg:
+        new_state = dataclasses.replace(
+            new_state,
+            fs_val2=torch.where(active, res["vals"][1], state.fs_val2),
+            fs_grad2=torch.where(a3, res["grads"][1], state.fs_grad2))
+    return ({"exited": ~hit, "t": t, "weight": weight, "aniso": grad,
+             "gp_id": res["gp_id"], "scheme": torch.zeros_like(res["gp_id"]),
+             "failed": failed}, new_state)
+
+
 def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
                     u_jitter, active):
     """Batched Medium::sampleDistance.
@@ -403,8 +479,13 @@ def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
     implicit function theorem (`_reattach_crossing`) and the normal is
     sampled at the reattached point, so it carries d(normal)/dtheta.  The
     weight-space search (K5/K4) runs on the detached medium and rays, and
-    `_ws_reattach` reattaches its crossing and normal."""
+    `_ws_reattach` reattaches its crossing and normal.  The
+    function-space medium (models/fs_medium.py) is forward-only, as in the
+    JAX package: it raises when a parameter or ray requires grad."""
     far_eff = _far_eff(med, ro, rd, near, far)
+    if med.kind == GPIS_FUNCTION_SPACE:
+        return _sample_distance_fs(med, scene_seed, ro, rd, near, far_eff,
+                                   state, pss, u_jitter, active)
     if med.kind == GPIS_WEIGHT_SPACE:
         hit, t, grad, end_val, gp_id = _crossing_ws(
             detach(med), scene_seed, ro.detach(), rd.detach(), near.detach(),
@@ -456,7 +537,11 @@ def transmittance(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
     crosses no surface, and on inactive rays): a discrete event, so it
     records no graph."""
     far_eff = _far_eff(med, ro, rd, near, far)
-    if med.kind == GPIS_WEIGHT_SPACE:
+    if med.kind == GPIS_FUNCTION_SPACE:
+        # the crossing alone: no gradient solve
+        hit = _fs_march(med, scene_seed, ro, rd, near, far_eff, state, pss,
+                        u_jitter, active, want_grad=False)["hit"]
+    elif med.kind == GPIS_WEIGHT_SPACE:
         hit = torch.zeros_like(active)
         idx = torch.nonzero(active).squeeze(1)
         if idx.numel():

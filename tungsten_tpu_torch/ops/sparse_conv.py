@@ -59,9 +59,11 @@ _LOG_BASE = float(torch.log(torch.tensor(MULTI_RES_BASE,
 
 @dataclasses.dataclass(frozen=True)
 class GP:
-    """Mean + covariance."""
+    """Mean + covariance; a CSG union (function-space media only) holds
+    its right child's GP in `csg_right` and is its left child otherwise."""
     mean: object
     cov: object
+    csg_right: GP | None = None
 
     def mean_and_id(self, p):
         """Mean value and the id of the GP that supplies it (always 0: a

@@ -1,8 +1,9 @@
 """Tungsten JSON scene -> Scene (the subset of tungsten_tpu/scene/parse.py
-that BASELINE config 1, `scenes/gpis-sphere-box.json`, config 4a,
-`scenes/gpis-weight-space.json`, configs 3 and 3b,
-`scenes/gpis-mirror-1d{,-corrxy}.json`, and config 5, the hero
-`scenes/gpis-hero.json`, use).
+that BASELINE config 1, `scenes/gpis-sphere-box.json`, config 2,
+`scenes/gpis-ensemble.json`, config 4a, `scenes/gpis-weight-space.json`,
+configs 3 and 3b, `scenes/gpis-mirror-1d{,-corrxy}.json`, config 4b,
+`scenes/gpis-function-space.json` and its CSG union `scenes/gpis-csg.json`,
+and config 5, the hero `scenes/gpis-hero.json`, use).
 
 Host-side numpy, computed as the JAX package computes it, then moved to
 `device` (the card unless the caller asks for the CPU; asking for `cuda`
@@ -20,6 +21,7 @@ import torch
 
 from ..models import bsdfs as bs
 from ..models import media as md
+from ..kernels import psd
 from ..kernels import ws_trace as wst
 from ..models import primitives as pr
 from ..models.camera import Camera
@@ -204,6 +206,13 @@ def parse_cov(c: dict, device):
 
 def parse_gp(g: dict, device) -> sc.GP:
     t = g.get("type", "standard")
+    if t == "csg":
+        # the union of two GPs: the left child's, holding the right one
+        left, right = parse_gp(g["left"], device), parse_gp(g["right"],
+                                                            device)
+        if left.csg_right is not None or right.csg_right is not None:
+            raise _unsupported("a nested CSG union")
+        return dataclasses.replace(left, csg_right=right)
     if t != "standard":
         raise _unsupported(f"gaussian_process type {t!r}")
     if "conditioning_data" in g:
@@ -221,7 +230,31 @@ _SCHEME = {"uni": sc.SCHEME_UNI, "nee": sc.SCHEME_NEE, "mis": sc.SCHEME_MIS,
 
 _MEDIUM_KINDS = {"sparse_conv_noise": md.GPIS_SPARSE_CONV,
                  "weight_space_gaussian_process": md.GPIS_WEIGHT_SPACE,
-                 "weight_space": md.GPIS_WEIGHT_SPACE}
+                 "weight_space": md.GPIS_WEIGHT_SPACE,
+                 "function_space_gaussian_process": md.GPIS_FUNCTION_SPACE,
+                 "function_space": md.GPIS_FUNCTION_SPACE,
+                 "gaussian_process": md.GPIS_FUNCTION_SPACE}
+
+
+def _check_function_space(gp, ctxt, m):
+    """Refuse what the ported function-space medium does not run."""
+    for child in (gp, gp.csg_right):
+        if child is not None and not isinstance(child.cov,
+                                                SquaredExponentialCov):
+            raise _unsupported("a function-space medium over a covariance "
+                               "other than the squared exponential")
+    if ctxt not in (sc.CTXT_RENEWAL, sc.CTXT_RENEWAL_PLUS):
+        # the JAX package's _sample_chunk (the Global ring, the None
+        # context's constrained sampler)
+        raise _unsupported(f"the {ctxt!r} correlation context of a "
+                           "function-space medium")
+    if float(m.get("skip_space", 0.0)) > 0.0:
+        raise _unsupported("function-space option 'skip_space'")
+    n = int(m.get("sample_points", 32))
+    if not 2 <= n <= psd.MAX_N - 2:
+        raise _unsupported(f"sample_points {n} (K8 solves at most "
+                           f"{psd.MAX_N}-square systems: 2 to "
+                           f"{psd.MAX_N - 2} points)")
 
 
 def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
@@ -233,7 +266,7 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
         raise _unsupported("medium option 'surf_vol_phase_separate'")
     one_d = bool(m.get("1D_sampling", False))
     if one_d and kind != md.GPIS_SPARSE_CONV:
-        raise _unsupported("1D sampling of a weight-space medium")
+        raise _unsupported(f"1D sampling of a {kind} medium")
     scheme = m.get("1D_sampling_scheme", "uni")
     if scheme not in _SCHEME:
         raise _unsupported(f"1D_sampling_scheme {scheme!r}")
@@ -254,7 +287,12 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
         correlation_xy=bool(m.get("1D_gradient_correlationXY", False)),
         isotropic_3d=bool(m.get("isotropic_3D_sampling", False)))
     gp = parse_gp(m.get("gaussian_process", {}), device)
-    if kind == md.GPIS_WEIGHT_SPACE:
+    if gp.csg_right is not None and kind != md.GPIS_FUNCTION_SPACE:
+        # the JAX package's additional min-mean (`mean_additional`)
+        raise _unsupported(f"a CSG union on a {kind} medium")
+    if kind == md.GPIS_FUNCTION_SPACE:
+        _check_function_space(gp, cfg.ctxt, m)
+    elif kind == md.GPIS_WEIGHT_SPACE:
         # a weight-space realization is drawn fresh per segment and
         # conditions nothing, whatever the context
         if not wst.supports(gp):
@@ -284,7 +322,8 @@ def parse_medium(m: dict, phase_bsdf: int, device) -> md.Medium:
         cfg=cfg, gp=gp, bounds=None, phase_bsdf=phase_bsdf,
         min_step=int(m.get("min_step", 8)), kind=kind,
         basis_functions=int(m.get("basis_functions", 300)),
-        ws_sphere_trace=kind == md.GPIS_WEIGHT_SPACE and step_size == 0.0)
+        ws_sphere_trace=kind == md.GPIS_WEIGHT_SPACE and step_size == 0.0,
+        sample_points=int(m.get("sample_points", 32)))
 
 
 # ---------------------------------------------------------------------------
