@@ -61,8 +61,8 @@ and read just after:
 - BASELINE config 4b (scenes/gpis-function-space.json) and its CSG union
   (scenes/gpis-csg.json), function space, renewal+, K8 alone: 128x128,
   8 spp through the CLI, then under torch.profiler with host syncs, peak
-  memory and the check that no cuSOLVER kernel and no torch.linalg.eigh
-  ran;
+  memory, K8's device time split by n (one kernel instance per size) and
+  the check that no cuSOLVER kernel and no torch.linalg.eigh ran;
 - config 4a's hyperparameter gradient (K5/K4 search, the realization
   rebuilt in the graph): the medium-level gradient on 32 rays against
   central FD (K5; K4's printed) and, per lane with the card's crossing
@@ -98,6 +98,7 @@ import argparse
 import concurrent.futures
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1641,33 +1642,56 @@ def fs_blocks(gpmod, cov, B, n, dev, seed):
     return a.contiguous(), b.contiguous()
 
 
-# K8: what one pair-element of a round's rotations needs, read off
-# csrc/psd.cu as K5's and K4's operations are: A's row pair and column
-# pair, each 2 float32 loads, 4 FMUL and 2 FADD and 2 stores, and V's
-# column pair in float64, 2 loads, 4 DMUL and 2 DADD and 2 stores; 64 bytes
-# of shared memory.  The pair's rotation, once a pair, and the sweep's
-# off-diagonal norm, n^2 reads a sweep, are left out.  The SASS issues more
-# per pair-element (the pair's c, s, p and q reloaded, the addresses, the
-# wrap and the branch): printed beside, from sass.jacobi_counts.
-K8_PER_ELEMENT = {"issue": 30, "fma": 12, "fp64": 6, "shared": 64}
+# K8: what a round of its fused pass needs, read off csrc/psd.cu as K5's
+# and K4's operations are, per real pair (p, q) (n // 2 of them; for odd n
+# the pair holding the padding index rotates nothing), each float32 or
+# float64 operation and each shared-memory access counted as issued:
+# - an off-diagonal 2x2 block of A between two pairs: 4 float32 entries
+#   read and written once (A is kept as its upper triangle), 32 bytes; the
+#   row and the column rotation, 8 FMUL and 4 FADD each;
+# - for odd n, the unpaired index's 2 entries with a pair: one rotation,
+#   16 bytes, 4 FMUL and 2 FADD;
+# - a row of V against a pair: 2 float64 entries read and written, 32
+#   bytes; 4 DMUL and 2 DADD;
+# - the pair's rotation and diagonal block: a_pp, a_qq, a_pq read and
+#   written, 24 bytes; tau, t, c, s and the two diagonal entries in
+#   float64, 16 operations with each divide and square root as one.
+# The earlier design (separate row and column passes over A, each entry
+# of A read and written twice a round) counted 64 bytes, 30 issued, 12
+# FP32 and 6 FP64 operations per pair-element (a pair and one of the n
+# indices); this one, at n = 34, (4,760 + 18,496) / 578 = 40.2 bytes,
+# 18.2 issued, 5.6 FP32 and 6.5 FP64.  The SASS issues more (the addresses,
+# the guards, the rotation parameters' loads): printed beside, from
+# sass.jacobi_counts.
+K8_BLOCK = {"issue": 8 + 24, "fma": 24, "shared": 32}
+K8_EDGE = {"issue": 4 + 6, "fma": 6, "shared": 16}
+K8_V_UNIT = {"issue": 4 + 6, "fp64": 6, "shared": 32}
+K8_ROTATION = {"issue": 6 + 16, "fp64": 16, "shared": 24}
 
 
 def k8_work(n, sweeps, batch):
     """(bytes, {class: operations}) of K8 on `batch` matrices of size n
-    that took `sweeps` sweeps in all: each sweep m - 1 rounds of floor(n/2)
-    pairs of n elements, at K8_PER_ELEMENT each."""
-    m = n + (n & 1)
-    elements = sweeps * (m - 1) * (n // 2) * n
-    return (batch * (8 * n * n + 4 * n + 4),
-            {c: elements * k for c, k in K8_PER_ELEMENT.items()})
+    that took `sweeps` sweeps in all: each sweep m - 1 rounds (m = n
+    rounded up to even), each round n // 2 pairs, their off-diagonal
+    blocks, V's rows against them and, for odd n, the unpaired index's
+    entries, at K8_BLOCK, K8_V_UNIT, K8_ROTATION and K8_EDGE."""
+    m, pairs = n + (n & 1), n // 2
+    rounds = sweeps * (m - 1)
+    parts = ((K8_BLOCK, pairs * (pairs - 1) // 2), (K8_EDGE, pairs * (n & 1)),
+             (K8_V_UNIT, n * pairs), (K8_ROTATION, pairs))
+    work = {}
+    for cost, count in parts:
+        for c, k in cost.items():
+            work[c] = work.get(c, 0) + rounds * count * k
+    return batch * (8 * n * n + 4 * n + 4), work
 
 
 def k8_against_twin(psd, gpmod, a, b, what):
     """K8 on the card against its twin (torch.linalg.eigh, run on the CPU)
     on matrices a [B, n, n] (and, given b [B, n, k], the product
     b^T pinv(a) b the conditioning subtracts), with the limits of
-    tests/test_torch_gp.py.  Returns (max |w - twin's|, total sweeps, max
-    sweeps)."""
+    tests/test_torch_gp.py.  Returns (max |w - twin's|, total sweeps, mean
+    sweeps, max sweeps)."""
     n = a.shape[-1]
     w, v, sw = psd.eigh(a, sweeps=True)
     a_cpu = a.cpu()
@@ -1711,7 +1735,8 @@ def k8_against_twin(psd, gpmod, a, b, what):
     print(line, flush=True)
     if bad or not bool(torch.isfinite(w).all()):
         raise RuntimeError(f"K8 disagrees with its twin on {what}")
-    return float(err_w.max()), int(sw.sum()), int(sw.max())
+    return (float(err_w.max()), int(sw.sum()), float(sw.float().mean()),
+            int(sw.max()))
 
 
 def no_solver_kernels(prof):
@@ -1752,11 +1777,22 @@ def fs_render_checks(trender, psd, gpmod, counters, scene, what, spp,
              if "jacobi_eigh_kernel" in e.key) / 1e3
     if k8 <= 0.0:
         raise RuntimeError(f"{what}: the profiler saw no K8 device time")
+    by_n = {}
+    for e in dev_ev:
+        inst = re.search(r"jacobi_eigh_kernel(?:<|ILi)(\d+)", e.key)
+        if inst:
+            n = int(inst.group(1)) or "other"
+            ms, launches = by_n.get(n, (0.0, 0))
+            by_n[n] = (ms + e.self_device_time_total / 1e3, launches + e.count)
+    if not by_n:
+        raise RuntimeError(f"{what}: no K8 instance named by its n")
     print(f"{what} under the profiler, {spp} spp: {wall:.3f} s (profiled), "
           f"K8 launches {counts['K8']}, largest launch {psd.MOST_MATRICES} "
           f"matrices, host syncs {syncs}, peak device memory {peak:.2f} GiB; "
-          f"device time {total:.1f} ms, K8 {k8:.1f} ms; no cuSOLVER kernel "
-          f"and no eigh ({card_line})", flush=True)
+          f"device time {total:.1f} ms, K8 {k8:.1f} ms ("
+          + ", ".join(f"n = {n}: {ms:.1f} ms over {c} launches"
+                      for n, (ms, c) in sorted(by_n.items(), key=str))
+          + f"); no cuSOLVER kernel and no eigh ({card_line})", flush=True)
     return counts["K8"], wall, syncs, peak
 
 
@@ -2081,17 +2117,21 @@ def main():
               + ", ".join(f"{c} {v:.1f}" for c, v in counts.items()),
               flush=True)
     from tungsten_tpu_torch.kernels.nvcc import compile_library, sass_listing
-    jacobi = sass.jacobi_counts(
+    a_block, v_unit = sass.jacobi_counts(
         sass_listing(compile_library(psd.SOURCE)[0]),
-        "jacobi_eigh_kernelILi128")
-    for name, counts in zip(("rows", "columns"), jacobi):
-        print(f"K8 per element of its {name} loop, from its SASS: "
+        "jacobi_eigh_kernelILi34ELi128")
+    for name, counts in (("A block", a_block), ("V unit", v_unit)):
+        print(f"K8 at n = 34, one {name} of a round, from its SASS: "
               + ", ".join(f"{c} {v}" for c, v in counts.items()), flush=True)
-    print("K8 per pair-element, both loops: the SASS issues "
-          f"{jacobi[0]['issue'] + jacobi[1]['issue']} instructions, a "
-          f"rotation needs {K8_PER_ELEMENT['issue']} (the bound's count: "
-          + ", ".join(f"{c} {v}" for c, v in K8_PER_ELEMENT.items())
-          + ")", flush=True)
+    blocks, units = 17 * 16 // 2, 34 * 17  # a round's, at n = 34
+    per_sweep = k8_work(34, 1, 1)[1]
+    print(f"K8 per pair-element at n = 34 (a round's {blocks} blocks and "
+          f"{units} V units over its {units} pair-elements): the SASS issues "
+          f"{(blocks * a_block['issue'] + units * v_unit['issue']) / units:.1f}"
+          " instructions, the bound counts "
+          + ", ".join(f"{c} {v / 33 / units:.1f}"
+                      for c, v in per_sweep.items())
+          + " (the rotations' step included)", flush=True)
     done(t0)
 
     phase("K1 against its plain twin")
@@ -2352,19 +2392,23 @@ def main():
     with EighCapture(psd, gpmod, K8_CAPTURE) as cap:
         trender.render(fs_scene, 8, device=dev)
     mats, (s11, s12) = cap.sets()
-    k8_err = 0.0
+    k8_err, k8_sweeps = 0.0, {}
     for n, a in sorted(mats.items()):
         if n != s11.shape[-1]:  # those are the normal solves' blocks
-            e, _, _ = k8_against_twin(psd, gpmod, a, None,
-                                      f"config 4b's pass, n = {n}")
-            k8_err = max(k8_err, e)
-    e, _, _ = k8_against_twin(psd, gpmod, s11, s12,
-                              "config 4b's pass, the normal solves' blocks")
-    k8_err = max(k8_err, e)
+            e, _, mean, most = k8_against_twin(psd, gpmod, a, None,
+                                               f"config 4b's pass, n = {n}")
+            k8_err, k8_sweeps[f"pass, n = {n}"] = max(k8_err, e), (mean, most)
+    e, _, mean, most = k8_against_twin(
+        psd, gpmod, s11, s12, "config 4b's pass, the normal solves' blocks")
+    n = s11.shape[-1]
+    k8_err, k8_sweeps[f"pass, n = {n}"] = max(k8_err, e), (mean, most)
     blocks, cross = fs_blocks(gpmod, fs_cov, K8_RANDOM, 32, dev, 8)
-    e, total, _ = k8_against_twin(psd, gpmod, blocks, cross,
-                                     "random conditioning blocks")
+    e, total, mean, most = k8_against_twin(psd, gpmod, blocks, cross,
+                                           "random conditioning blocks")
     k8_err = max(k8_err, e)
+    k8_sweeps[f"random, n = 34, {K8_RANDOM} matrices"] = (mean, most)
+    print("K8 sweeps per matrix (mean, max): " + "; ".join(
+        f"{k} {m:.3f}, {x}" for k, (m, x) in k8_sweeps.items()), flush=True)
     k8_all_ms = median_ms(lambda: psd.eigh(blocks), reps=5)
     b_ms, _, b_cls = bound_ms(*k8_work(34, total, K8_RANDOM))
     check_bound(f"K8 at {K8_RANDOM} matrices", k8_all_ms, b_ms)
@@ -2387,7 +2431,8 @@ def main():
     check_bound(f"K8 at {K8_LINE} matrices", k8_ms, b_ms)
     k8_numbers = {"max_abs_err": k8_err, "ms": k8_ms, "plain_ms": plain_ms,
                   "bound_ms": b_ms, "bound_by": b_by, "bound_class": b_cls,
-                  "library_ms": lib_ms}
+                  "library_ms": lib_ms,
+                  "sweeps": {k: [m, x] for k, (m, x) in k8_sweeps.items()}}
     print(f"K8 at [{K8_LINE}, 34, 34]: device {k8_ms:.4f} ms, twin "
           f"{plain_ms:.3f} ms, torch.linalg.eigh {lib_ms:.3f} ms; bound "
           f"{b_ms:.4f} ms ({b_cls}; {int(line_sweeps.sum())} sweeps in "

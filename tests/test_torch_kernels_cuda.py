@@ -453,15 +453,18 @@ def _k8_blocks(n, B, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [3, 33, 34])
+@pytest.mark.parametrize("n", [1, 2, 3, 8, 9, 17, 33, 34, 64])
 def test_k8_kernel_matches_twin_on_the_card(cuda, n):
     """K8 against torch.linalg.eigh with chip_smoke.py's limits (the
     root's is tests/test_torch_gp.py's): V diag(W) V^T within 1e-5 max|w| of A, V^T V
     within 1e-5 of I, W within 1e-5 max|w|, the symmetric root within
-    2e-3 sqrt(max|w|)."""
+    2e-3 sqrt(max|w|).  The path's sizes (3, 33, 34) have instances of
+    their own; 1, 2 and 8 take the generic 32-thread one, 9 (the first
+    size above it), 17 (odd: a padding pair each round) and 64 (above 48 KB
+    of shared memory) the generic 128-thread one."""
     from tungsten_tpu_torch.kernels import psd
     a = _k8_blocks(n, 2048, n) if n > 3 else torch.from_numpy(
-        np.random.default_rng(3).normal(size=(2048, 3, 3)).astype(
+        np.random.default_rng(n).normal(size=(2048, n, n)).astype(
             np.float32))
     before = psd.LAUNCHES
     w, v, sweeps = psd.eigh(a.to(cuda), sweeps=True)

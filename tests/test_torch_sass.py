@@ -170,47 +170,130 @@ def test_split_counts_needs_the_loops_it_is_given():
         sass.split_counts(SPLIT_LISTING, "no_such_kernel", 1, 1.0)
 
 
-# K8's shape: a load loop (LDG, STS, FMUL), two rolled element loops that
-# rotate in shared memory (LDS, FMUL, FADD, STS; the second also DMUL), a
-# reduction loop without a store, and an output loop (STG).
+# K8's shape: a load loop (LDG, STS, FMUL); the round loop: the rotation's
+# step (LDS, MUFU.RCP64H, DMUL, F2F, STS), a barrier, an A block's body
+# (LDS, FMUL, FADD, STS) and a V unit's body (LDS.64, DMUL, DADD, STS.64),
+# each behind a guard, and a barrier; a reduction loop without a store; and
+# an output loop (STG).
 JACOBI = """
         code for sm_90a
-                Function : _ZN12_GLOBAL__N_118jacobi_eigh_kernelILi128EEEvPKfPfS3_Pii
+                Function : _ZN12_GLOBAL__N_118jacobi_eigh_kernelILi34ELi128EEEvPKfPfS3_Pii
         .headerflags    @"EF_CUDA_SM90"
         /*0000*/                   LDG.E R1, desc[UR4][R2.64] ;
         /*0010*/                   FMUL R1, R1, 0.5 ;
         /*0020*/                   STS [R3], R1 ;
         /*0030*/                   ISETP.GE.AND P0, PT, R3, 0x10, PT ;
         /*0040*/              @!P0 BRA 0x0 ;
-        /*0050*/                   LDS R4, [R5] ;
-        /*0060*/                   FMUL R6, R4, R7 ;
-        /*0070*/                   FADD R6, R6, R8 ;
-        /*0080*/                   STS [R5], R6 ;
-        /*0090*/                   IADD3 R5, R5, 0x4, RZ ;
-        /*00a0*/                   ISETP.GE.AND P1, PT, R5, R9, PT ;
-        /*00b0*/              @!P1 BRA 0x50 ;
-        /*00c0*/                   LDS R4, [R5] ;
-        /*00d0*/                   FMUL R6, R4, R7 ;
-        /*00e0*/                   DMUL R10, R12, R14 ;
-        /*00f0*/                   STS [R5], R6 ;
-        /*0100*/                   ISETP.GE.AND P2, PT, R5, R9, PT ;
-        /*0110*/              @!P2 BRA 0xc0 ;
-        /*0120*/                   LDS R4, [R5] ;
-        /*0130*/                   FMUL R6, R4, R4 ;
-        /*0140*/                   ISETP.GE.AND P3, PT, R5, R9, PT ;
-        /*0150*/              @!P3 BRA 0x120 ;
-        /*0160*/                   LDS R4, [R5] ;
-        /*0170*/                   STG.E desc[UR4][R2.64], R4 ;
-        /*0180*/                   ISETP.GE.AND P4, PT, R5, R9, PT ;
-        /*0190*/              @!P4 BRA 0x160 ;
-        /*01a0*/                   EXIT ;
+        /*0050*/                   ISETP.GT.AND P1, PT, R0, 0x10, PT ;
+        /*0060*/               @P1 BRA 0xb0 ;
+        /*0070*/                   LDS R4, [R5] ;
+        /*0080*/                   MUFU.RCP64H R7, R5 ;
+        /*0090*/                   DMUL R8, R6, R6 ;
+        /*00a0*/                   F2F.F32.F64 R9, R8 ;
+        /*00b0*/                   STS [R5], R9 ;
+        /*00c0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00d0*/               @P1 BRA 0x130 ;
+        /*00e0*/                   LDS R4, [R5] ;
+        /*00f0*/                   FMUL R6, R4, R7 ;
+        /*0100*/                   IMAD R10, R4, 0x29, R6 ;
+        /*0110*/                   FADD R6, R6, R8 ;
+        /*0120*/                   STS [R5], R6 ;
+        /*0130*/               @P1 BRA 0x190 ;
+        /*0140*/                   LDS.64 R10, [R5] ;
+        /*0150*/                   DMUL R12, R10, R14 ;
+        /*0160*/                   DADD R12, R12, R16 ;
+        /*0170*/                   LEA R5, R5, R9, 0x3 ;
+        /*0180*/                   STS.64 [R5], R12 ;
+        /*0190*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*01a0*/                   ISETP.GE.AND P2, PT, R5, R9, PT ;
+        /*01b0*/              @!P2 BRA 0x50 ;
+        /*01c0*/                   LDS R4, [R5] ;
+        /*01d0*/                   FMUL R6, R4, R4 ;
+        /*01e0*/                   ISETP.GE.AND P3, PT, R5, R9, PT ;
+        /*01f0*/              @!P3 BRA 0x1c0 ;
+        /*0200*/                   LDS R4, [R5] ;
+        /*0210*/                   STG.E desc[UR4][R2.64], R4 ;
+        /*0220*/                   ISETP.GE.AND P4, PT, R5, R9, PT ;
+        /*0230*/              @!P4 BRA 0x200 ;
+        /*0240*/                   EXIT ;
 """
 
 
 def test_jacobi_counts():
-    rows, cols = sass.jacobi_counts(JACOBI, "jacobi_eigh_kernelILi128")
-    assert rows == {"issue": 7, "fma": 2, "fmaheavy": 0, "alu": 2, "xu": 0}
-    assert cols == {"issue": 6, "fma": 1, "fmaheavy": 0, "alu": 1, "xu": 0}
-    with pytest.raises(ValueError, match="element loops"):
-        sass.jacobi_counts(JACOBI.replace("STS [R5], R6", "NOP"),
-                           "jacobi_eigh_kernelILi128")
+    a_block, v_unit = sass.jacobi_counts(JACOBI, "jacobi_eigh_kernelILi34")
+    assert a_block == {"issue": 5, "fma": 3, "fmaheavy": 1, "alu": 0,
+                       "xu": 0}
+    assert v_unit == {"issue": 5, "fma": 0, "fmaheavy": 0, "alu": 1,
+                      "xu": 0}
+    with pytest.raises(ValueError, match="round loops"):
+        sass.jacobi_counts(JACOBI.replace("BAR.SYNC.DEFER_BLOCKING 0x0",
+                                          "NOP"), "jacobi_eigh_kernelILi34")
+    with pytest.raises(ValueError, match="V unit"):
+        sass.jacobi_counts(JACOBI.replace("DADD R12, R12, R16", "F2F R12, R12"),
+                           "jacobi_eigh_kernelILi34")
+
+
+# JACOBI with a second A block's body in the round loop (LDS, FMUL, three
+# ALU instructions, STS: more issued and fewer FMA-pipe instructions than
+# the first)
+JACOBI_TWO_BODIES = """
+        code for sm_90a
+                Function : _ZN12_GLOBAL__N_118jacobi_eigh_kernelILi34ELi128EEEvPKfPfS3_Pii
+        .headerflags    @"EF_CUDA_SM90"
+        /*0000*/                   LDG.E R1, desc[UR4][R2.64] ;
+        /*0010*/                   FMUL R1, R1, 0.5 ;
+        /*0020*/                   STS [R3], R1 ;
+        /*0030*/                   ISETP.GE.AND P0, PT, R3, 0x10, PT ;
+        /*0040*/              @!P0 BRA 0x0 ;
+        /*0050*/                   ISETP.GT.AND P1, PT, R0, 0x10, PT ;
+        /*0060*/               @P1 BRA 0xb0 ;
+        /*0070*/                   LDS R4, [R5] ;
+        /*0080*/                   MUFU.RCP64H R7, R5 ;
+        /*0090*/                   DMUL R8, R6, R6 ;
+        /*00a0*/                   F2F.F32.F64 R9, R8 ;
+        /*00b0*/                   STS [R5], R9 ;
+        /*00c0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00d0*/               @P1 BRA 0x130 ;
+        /*00e0*/                   LDS R4, [R5] ;
+        /*00f0*/                   FMUL R6, R4, R7 ;
+        /*0100*/                   IMAD R10, R4, 0x29, R6 ;
+        /*0110*/                   FADD R6, R6, R8 ;
+        /*0120*/                   STS [R5], R6 ;
+        /*0130*/               @P1 BRA 0x1a0 ;
+        /*0140*/                   LDS R4, [R5] ;
+        /*0150*/                   FMUL R6, R4, R7 ;
+        /*0160*/                   LOP3.LUT R10, R4, 0xff, RZ, 0xc0, !PT ;
+        /*0170*/                   SHF.R.U32.HI R11, RZ, 0x8, R4 ;
+        /*0180*/                   IADD3 R10, R10, R11, RZ ;
+        /*0190*/                   STS [R10], R6 ;
+        /*01a0*/               @P1 BRA 0x200 ;
+        /*01b0*/                   LDS.64 R10, [R5] ;
+        /*01c0*/                   DMUL R12, R10, R14 ;
+        /*01d0*/                   DADD R12, R12, R16 ;
+        /*01e0*/                   LEA R5, R5, R9, 0x3 ;
+        /*01f0*/                   STS.64 [R5], R12 ;
+        /*0200*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0210*/                   ISETP.GE.AND P2, PT, R5, R9, PT ;
+        /*0220*/              @!P2 BRA 0x50 ;
+        /*0230*/                   LDS R4, [R5] ;
+        /*0240*/                   STG.E desc[UR4][R2.64], R4 ;
+        /*0250*/                   ISETP.GE.AND P4, PT, R5, R9, PT ;
+        /*0260*/              @!P4 BRA 0x230 ;
+        /*0270*/                   EXIT ;
+"""
+
+
+def test_jacobi_counts_are_one_body():
+    # the counts are the first A body's, the one that issues fewer, not a
+    # mix of the two bodies' smallest counts by class (fma 1, alu 0)
+    a_block, _ = sass.jacobi_counts(JACOBI_TWO_BODIES,
+                                    "jacobi_eigh_kernelILi34")
+    assert a_block == {"issue": 5, "fma": 3, "fmaheavy": 1, "alu": 0,
+                       "xu": 0}
+    # two more IMADs in the first body: the second now issues fewer
+    longer = JACOBI_TWO_BODIES.replace(
+        "IMAD R10, R4, 0x29, R6", "IMAD R10, R4, 0x29, R6 ;\n"
+        "        /*0104*/                   IMAD R10, R4, 0x29, R6 ;\n"
+        "        /*0108*/                   IMAD R10, R4, 0x29, R6")
+    assert sass.jacobi_counts(longer, "jacobi_eigh_kernelILi34")[0] == {
+        "issue": 6, "fma": 1, "fmaheavy": 0, "alu": 3, "xu": 0}

@@ -33,10 +33,10 @@ reach.  K1b splits its walk into a test loop that appends the impulses
 within reach to a ring in shared memory and a drain loop that works them
 off: `split_counts` counts the test loop's short path for every
 iteration, the append and one drained entry for each expected impulse
-within reach, and the loops around them.  K8's Jacobi sweeps apply each
-rotation one pair-element per iteration of two rolled loops (A's rows; A's
-and V's columns): `jacobi_counts` counts one iteration of each.  The
-listing comes from `nvcc.sass_listing`.
+within reach, and the loops around them.  K8's Jacobi rounds rotate A's 2x2
+blocks and V's (row, pair) units in guarded, unrolled bodies inside the
+round loop: `jacobi_counts` counts one body of each.  The listing comes
+from `nvcc.sass_listing`.
 """
 from __future__ import annotations
 
@@ -323,21 +323,41 @@ def split_counts(text, kernel, iters, hits, around=0):
 
 
 def jacobi_counts(text, kernel):
-    """Per-class instructions of one iteration of each of K8's two element
-    loops (the rows, then the columns, of a round's rotations): the
-    innermost loops that store to and compute in shared memory (STS and
-    FMUL) without touching device memory (LDG, STG), in address order."""
+    """Per-class instructions of one A block and of one V unit of K8's
+    round, from its SASS.  The round loop is the innermost loop that holds
+    a barrier (BAR), a float64 multiply (DMUL) and a shared-memory store
+    (STS), without device memory (LDG, STG).  In it, an A block's body is
+    a basic block that loads, multiplies in float32 (FMUL) and stores to
+    shared memory without float64 work; a V unit's body one that loads,
+    multiplies in float64 (DMUL) and stores, without MUFU or F2F (those
+    are the rotation's own step).  Returns (A block, V unit): each the
+    per-class counts of one body, the one of each kind that issues the
+    fewest instructions; the 3-instruction guard around each body is not
+    counted."""
     cfg = _kernel_cfg(text, kernel)
-    heads = []
-    for h, (body, _) in sorted(cfg.loops.items()):
+    rounds = []
+    for h, (body, _) in cfg.loops.items():
         blocks = [cfg.blocks[s] for s in body]
-        if any(g != h and cfg.loops[g][0] < body for g in cfg.loops):
-            continue  # not innermost
-        if (any(b.has("STS") for b in blocks)
-                and any(b.has("FMUL") for b in blocks)
+        if (any(b.has("BAR") for b in blocks)
+                and any(b.has("DMUL") for b in blocks)
+                and any(b.has("STS") for b in blocks)
                 and not any(b.has("LDG") or b.has("STG") for b in blocks)):
-            heads.append(h)
-    if len(heads) != 2:
-        raise ValueError(f"{kernel}: {len(heads)} element loops, not 2")
-    return [{cls: _loop_iteration(cfg, h, cls) for cls in CLASSES}
-            for h in heads]
+            rounds.append(h)
+    rounds = [h for h in rounds
+              if not any(g != h and cfg.loops[g][0] < cfg.loops[h][0]
+                         for g in rounds)]
+    if len(rounds) != 1:
+        raise ValueError(f"{kernel}: {len(rounds)} round loops, not 1")
+    blocks = [cfg.blocks[s] for s in sorted(cfg.loops[rounds[0]][0])]
+
+    def bodies(need, avoid):
+        return [b for b in blocks if all(b.has(op) for op in need)
+                and not any(b.has(op) for op in avoid)]
+
+    a = bodies(("LDS", "FMUL", "STS"), ("DMUL", "MUFU", "F2F"))
+    v = bodies(("LDS", "DMUL", "STS"), ("MUFU", "F2F", "FMUL"))
+    if not a or not v:
+        raise ValueError(f"{kernel}: {len(a)} A block and {len(v)} V unit "
+                         "bodies in the round loop")
+    return tuple({cls: min(found, key=lambda b: b.count("issue")).count(cls)
+                  for cls in CLASSES} for found in (a, v))
