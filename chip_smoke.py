@@ -72,6 +72,24 @@ and read just after:
   central FD in sigma and l; 3 training steps at 128x128, 8 spp (K5) and
   one with step_size 0 (K4), each launching the kernel as often as the
   forward render.
+- the distribution layer (parallel/mesh.py): the hero at its own
+  1920x1080, 1 spp, sharded over two gloo ranks that share the card
+  (parallel/launch.py spawns them after every library is built; each
+  renders its 540 rows in bands and all-gathers the film), both films bit
+  for bit the single-process CLI frame, K2 launched in each rank, each
+  rank's render wall, peak memory and gather time printed; config 1 at
+  128x128, 4 spp through render.render(sharded=True) in an NCCL group of
+  one rank, bit for bit render.render; config 1's training step
+  (128x128, 4 spp) sharded over two gloo ranks, twice, within 1e-5
+  relative of entry.train_step and bit for bit the same over the runs,
+  K1b launched in each rank;
+- the render driver's options through the CLI on config 1 at 128x128:
+  --checkpoint-interval 2 to 2 spp then --resume to 4 (within
+  1e-6 (1 + |x|) of 4 uninterrupted), --aovs (four finite buffers, the
+  image bit for bit the plain one) with --serve 0 (/status, /framebuffer)
+  and --profile, -o *.exr (read back), --adaptive 4 on 8 spp (some pixels
+  take the extra samples), --data-dump-pixel 64,64, and --sampler sobol at
+  64x64, 48 spp against config 1's golden.
 It checks each image, shows that every weight-space search was one launch
 with no host sync inside, prints config 4a's host syncs, realization
 synthesis and peak memory beside the earlier design's recorded numbers,
@@ -2066,6 +2084,216 @@ def profile_grad(entry, mod, fns, lattice, load_scene, what, path, dev,
           + f"; table in {table}", flush=True)
 
 
+def hero_sharded(single, card_line):
+    """The hero at its own 1920x1080, 1 spp, sharded over two gloo ranks
+    that share the card (parallel/launch.py spawns them; each renders its
+    540 rows in render.render's bands and all-gathers the film): both
+    ranks' films must equal the single-process CLI frame `single` bit for
+    bit, and each rank must launch K2 and not K1."""
+    from tungsten_tpu_torch.parallel import jobs, launch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t0 = time.perf_counter()
+    ranks = launch.spawn(jobs.sharded_render, 2, HERO_SCENE, None, 1,
+                         "cuda:0", backend="gloo")
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        film = out["film"]
+        differ = int((film != single).any(axis=-1).sum())
+        print(f"rank {r}: rows {out['rows'][0]}-{out['rows'][1]}, K2 "
+              f"launches {out['k2']}, K1 launches {out['k1']}; render "
+              f"{out['wall']:.2f} s, peak device memory "
+              f"{out['peak'] / 2 ** 30:.2f} GiB, one gather of its shard "
+              f"{out['gather_s'] * 1e3:.1f} ms; pixels differing from the "
+              f"single-process frame {differ} (max |diff| "
+              f"{float(np.abs(film - single).max()):.3g})", flush=True)
+        if differ:
+            raise RuntimeError(f"rank {r}'s gathered hero differs from the "
+                               "single-process frame")
+        if out["k2"] <= 0 or out["k1"]:
+            raise RuntimeError(f"rank {r} did not render through K2 alone")
+    print(f"two ranks, spawn to exit (process start, CUDA set-up and scene "
+          f"load included): {wall:.2f} s ({card_line})", flush=True)
+    return [out["k2"] for out in ranks]
+
+
+def nccl_world_one(trender, noise3d, load_scene, dev, card_line):
+    """Config 1 at 128x128, 4 spp through render.render(sharded=True) in an
+    NCCL process group of one rank on the card (broadcast_scene and the
+    film's all-gather run through NCCL): bit for bit render.render."""
+    import torch.distributed as dist
+    from tungsten_tpu_torch.parallel import launch, mesh
+    scene, _ = load_scene(SCENE, res_override=(128, 128), device=dev)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{launch.free_port()}", rank=0, world_size=1)
+    try:
+        shared = mesh.broadcast_scene(scene)
+        noise3d.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = trender.render(shared, 4, sharded=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = noise3d.LAUNCHES
+    finally:
+        dist.destroy_process_group()
+    ref = trender.render(scene, 4, device=dev)
+    equal = bool(torch.equal(got, ref))
+    print(f"backend nccl, world 1: K1 launches {k1}, {wall:.3f} s, "
+          f"bit-equal to render.render: {equal} ({card_line})", flush=True)
+    if not equal or k1 <= 0:
+        raise RuntimeError("the NCCL world-1 render is not render.render's")
+
+
+def sharded_step_phase(card_line):
+    """entry.train_step_sharded of config 1 at 128x128, 4 spp, over two
+    gloo ranks on the card, twice from the same parameters: within 1e-5
+    relative of entry.train_step in this process, the two runs and the two
+    ranks bit for bit the same, K1b launched in each rank."""
+    from tungsten_tpu_torch.parallel import jobs, launch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(jobs.sharded_steps, 2, SCENE, (128, 128), 4,
+                         "cuda:0", 2, backend="gloo")
+    wall = time.perf_counter() - t0
+    single = jobs.single_step(SCENE, (128, 128), 4, "cuda")
+    names = ("loss", "sigma", "l", "dsigma", "dl")
+    print("single process: " + ", ".join(
+        f"{n} {v:.8g}" for n, v in zip(names, single)), flush=True)
+    for r, out in enumerate(ranks):
+        steps = out["steps"]
+        rel = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(steps[0], single))
+        print(f"rank {r}: " + ", ".join(
+            f"{n} {v:.8g}" for n, v in zip(names, steps[0]))
+            + f"; largest relative difference {rel:.2e}; K1 launches "
+            f"{out['k1']}, K1b {out['k1b']} over {len(steps)} steps",
+            flush=True)
+        if rel > 1e-5 or steps[1] != steps[0] or steps != ranks[0]["steps"]:
+            raise RuntimeError(f"rank {r}'s sharded step is not the single "
+                               "step or not reproducible")
+        if out["k1b"] <= 0:
+            raise RuntimeError(f"rank {r}'s step did not launch K1b")
+    print(f"two ranks, spawn to exit: {wall:.2f} s ({card_line})",
+          flush=True)
+
+
+def quiet_cli(trender, args):
+    """trender.main(args) with its progress lines kept out of the log;
+    returns (its return value, the lines it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = trender.main([*args, "--device", "cuda"])
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    print(f"  {' '.join(os.path.basename(a) for a in args)}: "
+          f"{time.perf_counter() - t0:.2f} s; {lines[-1] if lines else ''}",
+          flush=True)
+    return ret, lines
+
+
+def driver_options(trender, read_pfm, noise3d, tmp, card_line):
+    """The render driver's options through the CLI on config 1 at 128x128
+    (the Sobol sampler at 64x64, 48 spp, against the golden)."""
+    import urllib.request
+    from tungsten_tpu_torch.io.exr import read_exr
+
+    def out(name):
+        return os.path.join(tmp, name)
+
+    def pfm(name):
+        return read_pfm(out(name))
+
+    base = [SCENE, "--res", "128x128"]
+    quiet_cli(trender, base + ["--spp", "4", "-o", out("full.png")])
+    full = pfm("full.pfm")
+    quiet_cli(trender, base + ["--spp", "2", "--checkpoint-interval", "2",
+                               "-o", out("r.png")])
+    _, lines = quiet_cli(trender, base + ["--spp", "2", "--resume",
+                                          "--checkpoint-interval", "2",
+                                          "-o", out("r.png")])
+    err = float((np.abs(pfm("r.pfm") - full) / (1 + np.abs(full))).max())
+    print(f"resume (2 + 2 spp) against 4 spp: max |diff| / (1 + |x|) "
+          f"{err:.3g} (1e-6)", flush=True)
+    if "resumed at spp=2" not in lines or err > 1e-6:
+        raise RuntimeError("--resume did not continue the samples")
+
+    srv, _ = quiet_cli(trender, base + [
+        "--spp", "4", "--aovs", "--serve", "0", "--profile",
+        out("prof"), "-o", out("opt.png")])
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        status = json.loads(urllib.request.urlopen(url + "/status").read())
+        png = urllib.request.urlopen(url + "/framebuffer").read()
+    finally:
+        srv.shutdown()
+    aovs = {k: pfm(f"opt.{k}.pfm") for k in ("depth", "normal", "albedo",
+                                              "visibility")}
+    plain_equal = bool(np.array_equal(pfm("opt.pfm"), full))
+    trace_bytes = os.path.getsize(os.path.join(out("prof"),
+                                               "render_trace.json"))
+    print(f"--aovs: image bit-equal to the plain render: {plain_equal}; "
+          + ", ".join(f"{k} mean {float(v.mean()):.4f}"
+                      for k, v in aovs.items())
+          + f"; --serve: /status spp_done {status['spp_done']}, state "
+          f"{status['state']}, /framebuffer {len(png)} bytes; --profile: "
+          f"trace {trace_bytes} bytes", flush=True)
+    if (not plain_equal or status["spp_done"] != 4
+            or png[:8] != b"\x89PNG\r\n\x1a\n"
+            or not all(np.isfinite(v).all() for v in aovs.values())):
+        raise RuntimeError("--aovs, --serve or --profile failed")
+
+    quiet_cli(trender, base + ["--spp", "4", "--tonemap", "filmic", "-o",
+                               out("e.exr")])
+    exr = read_exr(out("e.exr"))[..., :3]
+    if not np.array_equal(exr, full.astype(np.float16).astype(np.float32)):
+        raise RuntimeError("-o *.exr does not read back as the render")
+
+    adaptive_fn, seen = trender.render_adaptive, []
+
+    def counted(*a, **k):  # the CLI's render_adaptive, its counts kept
+        seen.append(adaptive_fn(*a, **k))
+        return seen[-1]
+
+    trender.render_adaptive = counted
+    try:
+        quiet_cli(trender, base + ["--spp", "8", "--adaptive", "4", "-o",
+                                   out("ad.png")])
+    finally:
+        trender.render_adaptive = adaptive_fn
+    counts = seen[0][1].cpu().numpy()
+    adaptive = pfm("ad.pfm")
+    print(f"--adaptive 4 on 8 spp: {int((counts > 8).sum())} of "
+          f"{counts.size} pixels took the extra samples; image finite "
+          f"{bool(np.isfinite(adaptive).all())}", flush=True)
+    if not (counts > 8).any() or not np.isfinite(adaptive).all():
+        raise RuntimeError("--adaptive added no sample or is not finite")
+
+    quiet_cli(trender, base + ["--data-dump-pixel", "64,64", "-o",
+                               out("d.png")])
+    with open(out("d.dump_64_64.json")) as f:
+        dump = json.load(f)
+    if len(dump["f"]) != 512 or not np.isfinite(dump["f"]).all():
+        raise RuntimeError("--data-dump-pixel wrote no finite values")
+    print(f"--data-dump-pixel 64,64: 512 values, f in "
+          f"[{min(dump['f']):.4f}, {max(dump['f']):.4f}]", flush=True)
+
+    noise3d.LAUNCHES = 0
+    quiet_cli(trender, [SCENE, "--res", "64x64", "--spp", "48", "--sampler",
+                        "sobol", "-o", out("sobol.png")])
+    ratio, frac_bad = golden_bucket_test(pfm("sobol.pfm"), read_pfm(GOLDEN),
+                                         48)
+    print(f"--sampler sobol, 64x64, 48 spp against the golden: energy ratio "
+          f"{ratio:.4f} (0.9-1.1), frac_bad {frac_bad:.4f} (< 0.08), K1 "
+          f"launches {noise3d.LAUNCHES} ({card_line})", flush=True)
+    if not (0.9 < ratio < 1.1 and frac_bad < 0.08) or noise3d.LAUNCHES <= 0:
+        raise RuntimeError("the Sobol render failed the golden bucket test")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2327,6 +2555,8 @@ def main():
             raise RuntimeError("the hero render did not go through K2 alone")
         check_k2_points(noise3d, "the hero")
         done(t0)
+
+        hero_frame = read_pfm(os.path.join(tmp, "hero.pfm"))
 
         phase("config 2, the ensemble (256x256, 16 spp, in 4 batches of 4 "
               "spp) through the CLI")
@@ -2667,6 +2897,36 @@ def main():
                 profile_ws_step(entry, searches, load_scene, what, path, dev,
                                 card_line, name)
         done(t0)
+
+    # the phases that start processes on the card come last, after every
+    # torch.profiler measurement
+    phase("config 5, the hero (1920x1080, 1 spp), sharded over two gloo "
+          "ranks on the card: each rank's 540 rows in bands, the film "
+          "all-gathered")
+    t0 = time.perf_counter()
+    hero_sharded(hero_frame, card_line)
+    done(t0)
+
+    phase("config 1 (128x128, 4 spp) through render.render(sharded=True) in "
+          "an NCCL process group of one rank")
+    t0 = time.perf_counter()
+    nccl_world_one(trender, noise3d, load_scene, dev, card_line)
+    done(t0)
+
+    phase("config 1's training step (128x128, 4 spp) sharded over two gloo "
+          "ranks on the card: entry.train_step_sharded, twice")
+    t0 = time.perf_counter()
+    sharded_step_phase(card_line)
+    done(t0)
+
+    phase("the render driver's options through the CLI (config 1, "
+          "128x128): --checkpoint-interval/--resume, --aovs, --serve, "
+          "--profile, -o *.exr, --adaptive, --data-dump-pixel, --sampler "
+          "sobol (64x64, 48 spp, against the golden)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        driver_options(trender, read_pfm, noise3d, tmp, card_line)
+    done(t0)
 
     if "jax" in sys.modules or "tungsten_tpu" in sys.modules:
         raise RuntimeError("the port imported jax or the JAX package")

@@ -2,8 +2,10 @@
 their plain PyTorch twins, the config-1, config-4a, config-3 and hero
 renders on the card against the same renders on the CPU, the
 function-space renders (config 4b and its CSG union) through K8 alone,
-and the training steps of configs 1, 3 and 5 on the card against the same
-steps on the CPU.
+the training steps of configs 1, 3 and 5 on the card against the same
+steps on the CPU, a render sharded over two gloo ranks that share the
+card against the single-process render, and `dryrun_multichip` on the
+card.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they are
 marked `cuda` and skip without one.  They import no JAX, so they run on a
@@ -511,3 +513,30 @@ def test_fs_render_on_the_card_goes_through_k8_alone(cuda, stem):
     assert psd.LAUNCHES > before[0]
     assert (noise3d.LAUNCHES, noise1d.LAUNCHES, wst.MARCH_LAUNCHES,
             wst.TRACE_LAUNCHES) == before[1:]
+
+
+@pytest.mark.cuda
+def test_sharded_render_of_two_gloo_ranks_on_the_card_is_the_single_one(
+        cuda):
+    """Config 1 at 64x64, 2 spp, sharded over two gloo ranks that share the
+    card: both gathered films bit for bit render.render's in this
+    process, K1 launched in each rank."""
+    from tungsten_tpu_torch.parallel import jobs, launch
+    noise3d.build()  # before the ranks start
+    scene, _ = load_scene(SCENE, res_override=(64, 64), device=cuda)
+    ref = trender.render(scene, 2, device=cuda).cpu().numpy()
+    ranks = launch.spawn(jobs.sharded_render, 2, SCENE, (64, 64), 2,
+                         "cuda:0", backend="gloo")
+    for out in ranks:
+        np.testing.assert_array_equal(out["film"], ref)
+        assert out["k1"] > 0
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_runs_on_the_card(cuda):
+    """entry.dryrun_multichip(2) on its default device: nccl with a card
+    a rank where there are two, else two gloo ranks sharing the card;
+    a finite loss and a step that moved sigma and l."""
+    from tungsten_tpu_torch import entry
+    loss, ds, dl = entry.dryrun_multichip(2)
+    assert np.isfinite([loss, ds, dl]).all() and ds != 0.0 and dl != 0.0

@@ -19,6 +19,12 @@ and 3b).  A weight-space medium (config 4a) searches with K5 or K4 on
 detached parameters and differentiates through its realization in
 PyTorch (models/media.py `_ws_reattach`).
 
+`train_step_sharded` is the same step over the ranks of a process group
+(each rank's rows, the loss and gradient all-reduced: the psum of
+`dryrun_multichip`'s shard_map step), and `dryrun_multichip(n)` runs one
+such step of config 1 at 16x16 in n processes on the card (or, with
+`device="cpu"`, in n gloo processes on the CPU).
+
 The CLI loads `--scene` (config 1, `scenes/gpis-sphere-box.json`, by
 default) at its own resolution (or `--res WxH`), spp (or `--spp`) and
 depth (config 1: 128x128, 4 spp; config 2: 256x256, 16 spp; configs 3
@@ -27,7 +33,9 @@ and 3b: 128x128, 16 spp; config 4a: 128x128, 8 spp; the hero: 1920x1080,
 target, printing each step's loss, parameters and gradient.  A step of
 at most `render.MAX_RAYS` rays renders all its samples in one ray batch;
 a larger one in render.render's groups of samples or, above MAX_RAYS
-pixels (the hero's), its row bands (see train_step).
+pixels (the hero's), its row bands (see train_step).  With `--sharded`
+under `python -m torch.distributed.run --nproc_per_node N -m
+tungsten_tpu_torch.entry --sharded`, each step is train_step_sharded.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import time
 import torch
 
 from . import convert, render
+from .kernels import noise3d
 from .models.integrator import render_pass
 from .scene.parse import check_device, load_scene
 
@@ -69,6 +78,56 @@ def fwd_bwd(scene, spp_idx):
     return img.detach(), grads
 
 
+def _loss_grad(scene, target, spp_idx, rows=None):
+    """(sigma, l, loss, dsigma, dl): the leaves holding (sigma, l), and the
+    part of train_step's loss that the rows range(*rows) of the image
+    make (all rows by default), normalised by the WHOLE image's size, with
+    its gradient in (sigma, l).  The parts of disjoint row ranges sum to
+    the whole image's loss and gradient.  See train_step for the ray
+    batches."""
+    sigma, l = _leaves(scene)
+    samples = torch.as_tensor(spp_idx).reshape(-1)
+    spp = samples.numel()
+    pscene = convert.set_params(scene, sigma, l)
+    W = scene.camera.res_x
+    r0, r1 = rows if rows is not None else (0, scene.camera.res_y)
+    part = target[r0:r1]
+    n = part.shape[0] * W
+    if n == 0:  # a rank of more ranks than rows
+        zero = torch.zeros((), device=sigma.device)
+        return sigma.detach(), l.detach(), zero, zero, zero
+    if n * spp <= render.MAX_RAYS:
+        img = render_pass(pscene, spp_idx, (r0, r1)) / spp
+        loss = ((img - part) ** 2).sum() / target.numel()
+        gs, gl = torch.autograd.grad(loss, (sigma, l))
+    elif n <= render.MAX_RAYS:
+        per = render.MAX_RAYS // n
+        groups = [samples[i:i + per] for i in range(0, spp, per)]
+        with torch.no_grad():
+            img = sum(render_pass(pscene, g, (r0, r1)) for g in groups) / spp
+        resid = img - part
+        loss = (resid ** 2).sum() / target.numel()
+        d_img = resid * (2.0 / (target.numel() * spp))
+        gs = gl = 0.0
+        for g in groups:
+            d_s, d_l = torch.autograd.grad(render_pass(pscene, g, (r0, r1)),
+                                           (sigma, l), grad_outputs=d_img)
+            gs, gl = gs + d_s, gl + d_l
+    else:
+        band_rows = max(1, render.MAX_RAYS // W)
+        loss = gs = gl = 0.0
+        for b0 in range(r0, r1, band_rows):
+            b1 = min(b0 + band_rows, r1)
+            band = 0.0
+            for s in samples.tolist():
+                band = band + render_pass(pscene, s, (b0, b1))
+            band_loss = ((band / spp - target[b0:b1]) ** 2).sum() \
+                / target.numel()
+            d_s, d_l = torch.autograd.grad(band_loss, (sigma, l))
+            loss, gs, gl = loss + band_loss.detach(), gs + d_s, gl + d_l
+    return sigma.detach(), l.detach(), loss.detach(), gs, gl
+
+
 def train_step(scene, target, spp_idx, lr=1e-3):
     """One SGD step on (sigma, l) against the L2 loss of a render pass:
     returns (new sigma, new l, loss, (dsigma, dl)), the first three as the
@@ -95,41 +154,78 @@ def train_step(scene, target, spp_idx, lr=1e-3):
     own with the loss's gradient in its image, and the groups' gradients
     are summed.  Either way the loss and gradient are the single batch's
     (to rounding), and the peak memory is one band's or group's graph."""
-    sigma, l = _leaves(scene)
-    samples = torch.as_tensor(spp_idx).reshape(-1)
-    spp = samples.numel()
-    pscene = convert.set_params(scene, sigma, l)
-    H, W = scene.camera.res_y, scene.camera.res_x
-    if H * W * spp <= render.MAX_RAYS:
-        img = render_pass(pscene, spp_idx) / spp
-        loss = ((img - target) ** 2).mean()
-        gs, gl = torch.autograd.grad(loss, (sigma, l))
-    elif H * W <= render.MAX_RAYS:
-        per = render.MAX_RAYS // (H * W)
-        groups = [samples[i:i + per] for i in range(0, spp, per)]
-        with torch.no_grad():
-            img = sum(render_pass(pscene, g) for g in groups) / spp
-        resid = img - target
-        loss = (resid ** 2).mean()
-        d_img = resid * (2.0 / (target.numel() * spp))
-        gs = gl = 0.0
-        for g in groups:
-            d_s, d_l = torch.autograd.grad(render_pass(pscene, g), (sigma, l),
-                                           grad_outputs=d_img)
-            gs, gl = gs + d_s, gl + d_l
+    sigma, l, loss, gs, gl = _loss_grad(scene, target, spp_idx)
+    return sigma - lr * gs, l - lr * gl, loss, (gs, gl)
+
+
+def train_step_sharded(scene, target, spp_idx, lr=1e-3):
+    """train_step over the ranks of the process group (the port's
+    counterpart of dryrun_multichip's shard_map step): each rank takes the
+    loss part and gradient of its rows (parallel/mesh.row_shards), each
+    normalised by the whole image's size, the three are all-reduced (SUM)
+    and every rank takes the same SGD step.  The result is train_step's
+    on the whole image, to the rounding of the sums' order."""
+    from .parallel import mesh
+    rank, world = mesh.rank_world()
+    rows = mesh.row_shards(scene.camera.res_y, world)[rank]
+    sigma, l, loss, gs, gl = _loss_grad(scene, target, spp_idx, rows)
+    parts = mesh.all_reduce_sum(torch.stack([
+        torch.as_tensor(x, dtype=torch.float32, device=sigma.device)
+        for x in (loss, gs, gl)]))
+    loss, gs, gl = parts.unbind()
+    return sigma - lr * gs, l - lr * gl, loss, (gs, gl)
+
+
+def _dryrun_rank(rank, world, device):
+    """One rank of dryrun_multichip: config 1 at 16x16, depth 2, 1 spp,
+    a zero target; returns (loss, new sigma - sigma, new l - l) as floats."""
+    from .parallel import mesh
+    device = mesh.rank_device(device)
+    scene, _ = load_scene(SCENE, res_override=(16, 16), device=device)
+    scene = mesh.broadcast_scene(scene)
+    target = torch.zeros(16, 16, 3, device=device)
+    sigma0, l0 = params(scene)
+    sigma, l, loss, _ = train_step_sharded(scene, target, 0)
+    return float(loss), float(sigma - sigma0), float(l - l0)
+
+
+def dryrun_multichip(n_devices, device="cuda"):
+    """The port's counterpart of the JAX package's dryrun_multichip: one
+    inverse-rendering step (config 1 at 16x16, depth 2, 1 spp, against a
+    zero target) sharded over n_devices processes, the loss and gradient
+    all-reduced.  On "cuda": an nccl group with one card a rank
+    (cuda:LOCAL_RANK) when the machine has n_devices cards or more, else
+    a gloo group whose ranks share cuda:0 (or the card named); on the CPU
+    a gloo group.  Raises unless the loss is finite and the step moved
+    sigma and l; returns (loss, dsigma step, dl step) as rank 0 saw
+    them."""
+    from .parallel import launch
+    device = check_device(device)
+    if device.type != "cuda":
+        backend, device = "gloo", str(device)
+    elif device.index is None and n_devices <= torch.cuda.device_count():
+        backend, device = "nccl", "cuda"
     else:
-        rows = max(1, render.MAX_RAYS // W)
-        loss = gs = gl = 0.0
-        for r0 in range(0, H, rows):
-            r1 = min(r0 + rows, H)
-            band = 0.0
-            for s in samples.tolist():
-                band = band + render_pass(pscene, s, (r0, r1))
-            part = ((band / spp - target[r0:r1]) ** 2).sum() / target.numel()
-            d_s, d_l = torch.autograd.grad(part, (sigma, l))
-            loss, gs, gl = loss + part.detach(), gs + d_s, gl + d_l
-    return (sigma.detach() - lr * gs, l.detach() - lr * gl, loss.detach(),
-            (gs, gl))
+        backend, device = "gloo", str(torch.device("cuda", device.index or 0))
+    if device.startswith("cuda"):
+        noise3d.build()  # once, before the ranks start
+    results = launch.spawn(_dryrun_rank, n_devices, device, backend=backend,
+                           threads=1 if device == "cpu" else 0)
+    loss, ds, dl = results[0]
+    if any(r != results[0] for r in results):
+        raise RuntimeError(f"the ranks took different steps: {results}")
+    if not math.isfinite(loss):
+        raise RuntimeError("dry-run loss is not finite")
+    if not (math.isfinite(ds) and math.isfinite(dl)):
+        raise RuntimeError("the step is not finite")
+    if ds == 0.0:
+        raise RuntimeError("dsigma == 0: hyperparameter gradient chain "
+                           "severed")
+    if dl == 0.0:
+        raise RuntimeError("dl == 0: hyperparameter gradient chain severed")
+    print(f"dryrun_multichip({n_devices}): loss={loss:.6f} dsigma={ds:.2e} "
+          f"dl={dl:.2e}")
+    return loss, ds, dl
 
 
 def main(argv=None):
@@ -148,14 +244,27 @@ def main(argv=None):
     ap.add_argument("--spp", type=int, default=None,
                     help="samples per pixel of a step (the scene's by "
                          "default)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="split the rows over the ranks of "
+                         "torch.distributed.run (nccl on cuda, gloo on cpu); "
+                         "rank 0 prints")
     args = ap.parse_args(argv)
 
-    device = check_device(args.device)
+    rank = 0
+    if args.sharded:
+        from .parallel import mesh
+        rank, _ = mesh.init_distributed(args.device)
+        device = mesh.rank_device(args.device)
+    else:
+        device = check_device(args.device)
+    step_fn = train_step_sharded if args.sharded else train_step
     res = None
     if args.res:
         w, h = args.res.lower().split("x")
         res = (int(w), int(h))
     scene, rdoc = load_scene(args.scene, res_override=res, device=device)
+    if args.sharded:
+        scene = mesh.broadcast_scene(scene)
     spp = args.spp or int(rdoc.get("spp", 4))
     spp_idx = torch.arange(spp, device=device)
     H, W = scene.camera.res_y, scene.camera.res_x
@@ -170,11 +279,13 @@ def main(argv=None):
         rows = max(1, render.MAX_RAYS // W)
         batches = (f"in {-(-H // rows)} bands of {rows} rows, one sample at "
                    "a time")
-    print(f"{os.path.basename(args.scene)}: {W}x{H}, {spp} spp {batches}, "
-          f"max_bounces {scene.max_bounces}, on {device}", flush=True)
+    if rank == 0:
+        print(f"{os.path.basename(args.scene)}: {W}x{H}, {spp} spp "
+              f"{batches}, max_bounces {scene.max_bounces}, on {device}",
+              flush=True)
     for step in range(args.steps):
         t0 = time.perf_counter()
-        sigma, l, loss, (gs, gl) = train_step(scene, target, spp_idx)
+        sigma, l, loss, (gs, gl) = step_fn(scene, target, spp_idx)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
@@ -185,10 +296,14 @@ def main(argv=None):
                                f"{float(gs)}, dl {float(gl)}: the "
                                "hyperparameter gradient is severed or not "
                                "finite")
-        print(f"step {step}: loss {float(loss):.6f} sigma {float(sigma):.6f}"
-              f" l {float(l):.6f} dsigma {float(gs):.6e} dl {float(gl):.6e}"
-              f" ({wall:.2f} s)", flush=True)
+        if rank == 0:
+            print(f"step {step}: loss {float(loss):.6f} sigma "
+                  f"{float(sigma):.6f} l {float(l):.6f} dsigma "
+                  f"{float(gs):.6e} dl {float(gl):.6e} ({wall:.2f} s)",
+                  flush=True)
         scene = convert.set_params(scene, sigma, l)
+    if args.sharded and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

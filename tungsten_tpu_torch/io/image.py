@@ -1,5 +1,6 @@
-"""Image output: PNG (own encoder over zlib, gamma tonemap) and PFM (linear
-float), byte for byte as tungsten_tpu/io/image.py writes them.
+"""Image output: PNG (own encoder over zlib, with the linear, gamma,
+Reinhard and filmic tone curves) and PFM (linear float), byte for byte as
+tungsten_tpu/io/image.py writes them.
 
 Kept in the port so that it loads nothing of the JAX package.
 """
@@ -16,10 +17,33 @@ def tonemap_gamma(img, exposure=1.0, gamma=2.2):
     return np.clip(x ** (1.0 / gamma), 0.0, 1.0)
 
 
-def write_png(path, img):
-    """img: [H, W, 3] linear float, gamma-tonemapped to 8-bit RGB."""
-    a = (np.clip(tonemap_gamma(img), 0, 1) * 255.0 + 0.5).astype(np.uint8)
+def tonemap_reinhard(img, exposure=1.0, gamma=2.2):
+    x = np.clip(np.asarray(img, np.float64) * exposure, 0.0, None)
+    return np.clip((x / (1.0 + x)) ** (1.0 / gamma), 0.0, 1.0)
+
+
+def tonemap_filmic(img, exposure=1.0):
+    """Hejl-Burgess-Dawson filmic curve (the reference Tonemap::Filmic)."""
+    x = np.maximum(np.asarray(img, np.float64) * exposure - 0.004, 0.0)
+    return np.clip((x * (6.2 * x + 0.5)) / (x * (6.2 * x + 1.7) + 0.06),
+                   0.0, 1.0)
+
+
+CURVES = {"linear": lambda x: np.clip(x, 0, 1), "gamma": tonemap_gamma,
+          "reinhard": tonemap_reinhard, "filmic": tonemap_filmic}
+
+
+def write_png(path, img, tonemap=True, curve="gamma"):
+    """img: [H, W, 3] (or [H, W]) linear float, tone-mapped by `curve`
+    (unless `tonemap` is false) to 8-bit RGB; or uint8, written as is."""
+    a = np.asarray(img)
+    if a.dtype != np.uint8:
+        if tonemap:
+            a = CURVES.get(curve, tonemap_gamma)(a)
+        a = (np.clip(a, 0, 1) * 255.0 + 0.5).astype(np.uint8)
     h, w = a.shape[:2]
+    if a.ndim == 2:
+        a = np.repeat(a[:, :, None], 3, axis=2)
     raw = b"".join(b"\x00" + a[y].tobytes() for y in range(h))
 
     def chunk(tag, data):

@@ -4,12 +4,16 @@ interface, for loading with ctypes.
 Each library lands in `tungsten_tpu_torch/_build/` under a name that hashes
 the source, the headers beside it (`csrc/*.cuh`), `NVCC_FLAGS` and
 `nvcc --version`, so a change to any of them rebuilds it and an unchanged
-one is built once.  Building happens at a
+one is built once.  The build holds an exclusive file lock
+(`fcntl.flock` on `<library>.lock`), so processes started together (the
+ranks of a sharded render) do not compile one library at once: the first
+builds it and the others load what it built.  Building happens at a
 kernel's first use, never at import: the CPU tests import every module on
 machines without nvcc.
 """
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -42,13 +46,17 @@ def compile_library(source):
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{res.stdout}"
-                           f"{res.stderr}")
-    os.replace(tmp, lib)
+    with open(lib.with_name(lib.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():  # another process built it while this one waited
+            return lib, ""
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                              str(source)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{res.stdout}"
+                               f"{res.stderr}")
+        os.replace(tmp, lib)
     return lib, res.stdout + res.stderr
 
 

@@ -33,7 +33,7 @@ import dataclasses
 import torch
 
 from ..ops import sparse_conv as sc
-from ..utils import rng
+from ..utils import rng, sobol
 from ..utils.vecmath import (dot, frame_to_local, frame_to_world,
                              safe_normalize, tangent_frame)
 from . import bsdfs as bs
@@ -295,13 +295,43 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
     return c1 + c2
 
 
-def trace(scene, px, py, spp_idx):
+def _make_draw(key, key_pix, qmc, spp):
+    """draw(bounce [R], slot) -> a uniform [R] per ray.  Without `qmc`,
+    the hash stream of the ray's key; with Sobol points (qmc [DIMS], the
+    point of every ray, or [N, DIMS], row s the point of sample s, each ray
+    taking row spp), the first QMC_BOUNCES bounces take the point's
+    dimension bounce * SLOTS + slot, rotated (Cranley-Patterson) by an
+    offset fixed per pixel and dimension from key_pix, and deeper bounces
+    the hash stream (the JAX package's `_make_draw`)."""
+    def draw(bounce, slot):
+        h = rng.uniform(key, (bounce * 64 + slot) & rng.MASK32)
+        if qmc is None:
+            return h
+        off = rng.uniform(key_pix, (bounce * sobol.SLOTS + slot) & rng.MASK32)
+        dim = torch.clamp(bounce, max=sobol.QMC_BOUNCES - 1) * sobol.SLOTS \
+            + slot
+        q = qmc[spp, dim] if qmc.dim() == 2 else qmc[dim]
+        return torch.where(bounce < sobol.QMC_BOUNCES,
+                           torch.fmod(q + off, 1.0), h)
+
+    return draw
+
+
+def trace(scene, px, py, spp_idx, want_aovs=False, qmc=None):
     """One sample for each ray of the flat batch px, py [R] (int64) at
     sample index spp_idx (an int, or an [R] tensor: several samples in one
     batch give the same values as one batch each).  Returns radiance [R, 3],
     differentiable in the scene's parameters that require grad (the
     detached-sampling estimator: discrete events and sampling densities
-    are held, the integrand follows the parameters)."""
+    are held, the integrand follows the parameters).
+
+    With `want_aovs`, returns (radiance, aovs): the feature buffers at each
+    path's first scattering vertex, depth [R], normal [R, 3], albedo [R, 3]
+    and NEE visibility [R] (0 where the path scatters nowhere).  `qmc`
+    draws the first bounces low-discrepancy from utils/sobol.py's points:
+    [DIMS], the point of the sample spp_idx (an int then), or [N, DIMS],
+    the points of samples 0 .. N - 1 (`_make_draw`).  Neither option
+    changes the radiance computed without them."""
     R = px.shape[0]
     dev = px.device
     # the reattachment ratios are 1 in value: a render without gradient
@@ -309,9 +339,12 @@ def trace(scene, px, py, spp_idx):
     ad = torch.is_grad_enabled() and md.requires_grad(scene)
     spp = torch.as_tensor(spp_idx, dtype=torch.int64, device=dev).expand(R)
     key = rng.xxhash32_4(px, py, spp, scene.scene_seed ^ 0x5F356495)
-
-    def draw(bounce, slot):
-        return rng.uniform(key, (bounce * 64 + slot) & rng.MASK32)
+    key_pix = None
+    if qmc is not None:
+        key_pix = rng.xxhash32_4(px, py, 0x51CB0113,
+                                 scene.scene_seed ^ 0xC9A01E77)
+        qmc = torch.as_tensor(qmc, dtype=torch.float32, device=dev)
+    draw = _make_draw(key, key_pix, qmc, spp)
 
     bounce = torch.zeros(R, dtype=torch.int64, device=dev)
     uf = torch.stack([draw(bounce, 0), draw(bounce, 1)], dim=-1)
@@ -326,6 +359,10 @@ def trace(scene, px, py, spp_idx):
     med_state = md.MediumState.make(R, dev)
     zeros = torch.zeros(R, dtype=torch.float32, device=dev)
     prims = scene.prims
+    if want_aovs:
+        aov_depth, aov_vis = zeros, zeros
+        aov_normal = aov_albedo = torch.zeros_like(throughput)
+        aov_seen = torch.zeros_like(active)
 
     # forward hops don't consume bounces
     for _ in range(scene.max_bounces + 4):
@@ -395,6 +432,20 @@ def trace(scene, px, py, spp_idx):
                        sh_normal, tfr, bfr, wi_local, bsdf_idx, med_idx,
                        med_state, pss_next, draw, bounce, gate, ad)
         emission = emission + _where3(gate, throughput * c, 0.0)
+
+        if want_aovs:
+            first = (surf_event | vol_event) & ~aov_seen
+            aov_depth = torch.where(first, torch.where(
+                vol_event, med_t, torch.where(did_hit, isect["t"], 0.0)),
+                aov_depth)
+            aov_normal = _where3(first, _where3(
+                vol_event, safe_normalize(med_aniso), sh_normal), aov_normal)
+            aov_albedo = _where3(first, _where3(
+                vol_event, med_weight, scene.bsdfs.albedo[bsdf_idx]),
+                aov_albedo)
+            aov_vis = torch.where(first, (c.sum(dim=-1) > 0.0).to(
+                torch.float32), aov_vis)
+            aov_seen = aov_seen | first
 
         # ---- volume scattering --------------------------------------------
         new_rd = rd
@@ -467,22 +518,45 @@ def trace(scene, px, py, spp_idx):
         active = active & (bounce < scene.max_bounces)
         active = active & torch.isfinite(throughput.sum(dim=-1)
                                          + rd.sum(dim=-1))
-    return torch.where(torch.isfinite(emission), emission, 0.0)
+    emission = torch.where(torch.isfinite(emission), emission, 0.0)
+    if want_aovs:
+        return emission, {"depth": aov_depth, "normal": aov_normal,
+                          "albedo": aov_albedo, "visibility": aov_vis}
+    return emission
 
 
-def render_pass(scene, spp_idx, rows=None):
+def _pixels(scene, rows):
+    """(px, py) [n] int64 of the rows range(*rows), row-major."""
+    W = scene.camera.res_x
+    r0, r1 = rows if rows is not None else (0, scene.camera.res_y)
+    dev = scene.lights.device
+    py, px = torch.meshgrid(torch.arange(r0, r1, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    return px.reshape(-1), py.reshape(-1)
+
+
+def render_pass(scene, spp_idx, rows=None, qmc=None):
     """One sample (or one per entry of an [S] tensor of sample indices)
     for every pixel of the rows range(*rows) (all rows by default);
     returns [rows, W, 3] (summed over the S samples).  A pixel's value
     depends on its own words only, so a band of rows renders what the
-    whole frame renders there."""
+    whole frame renders there.  `qmc`: Sobol points (see trace)."""
     W = scene.camera.res_x
-    r0, r1 = rows if rows is not None else (0, scene.camera.res_y)
-    dev = scene.lights.device
-    spp = torch.as_tensor(spp_idx, dtype=torch.int64, device=dev).reshape(-1)
-    py, px = torch.meshgrid(torch.arange(r0, r1, device=dev),
-                            torch.arange(W, device=dev), indexing="ij")
+    px, py = _pixels(scene, rows)
+    spp = torch.as_tensor(spp_idx, dtype=torch.int64,
+                          device=px.device).reshape(-1)
     n = px.numel()
-    c = trace(scene, px.reshape(-1).repeat(len(spp)),
-              py.reshape(-1).repeat(len(spp)), spp.repeat_interleave(n))
-    return c.reshape(len(spp), r1 - r0, W, 3).sum(dim=0)
+    c = trace(scene, px.repeat(len(spp)), py.repeat(len(spp)),
+              spp.repeat_interleave(n), qmc=qmc)
+    return c.reshape(len(spp), n // W, W, 3).sum(dim=0)
+
+
+def render_aovs(scene, spp_idx):
+    """One sample per pixel and its feature buffers: (image [H, W, 3],
+    {"depth": [H, W], "normal": [H, W, 3], "albedo": [H, W, 3],
+    "visibility": [H, W]}), as the JAX package's render_aovs."""
+    H, W = scene.camera.res_y, scene.camera.res_x
+    px, py = _pixels(scene, None)
+    c, aovs = trace(scene, px, py, spp_idx, want_aovs=True)
+    return c.reshape(H, W, 3), {k: v.reshape(H, W, *v.shape[1:])
+                                for k, v in aovs.items()}
