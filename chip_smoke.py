@@ -89,7 +89,20 @@ and read just after:
   image bit for bit the plain one) with --serve 0 (/status, /framebuffer)
   and --profile, -o *.exr (read back), --adaptive 4 on 8 spp (some pixels
   take the extra samples), --data-dump-pixel 64,64, and --sampler sobol at
-  64x64, 48 spp against config 1's golden.
+  64x64, 48 spp against config 1's golden;
+- the rest of the GP layer: K5 and K4 for the rational quadratic (a =
+  1.5) and Matern (nu = 1.5) covariances (each a template instance with
+  its own spectral draw) against their twins on 131,072 rays;
+  config 4a with its covariance swapped for each, at 8 spp, through K5
+  and, with step_size 0, through K4; config 4b with Matern nu = 2.5
+  through K8 (its matrices against the twin); config 1 with a procedural
+  knob mean, with a mesh mean baked from a sphere written at run time,
+  with GGX normals and as a CSG union (the additional mean), each through
+  K1; config 4a with a linear mean, which takes the plain weight-space
+  fallback (no kernel, as in the JAX package).  Each 128x128 image is held
+  by 8x8 bucket means against the port's own CPU render of the same scene
+  at 32x32 and the same spp, rendered in spawned one-thread processes
+  from the start of the run (this phase comes last).
 It checks each image, shows that every weight-space search was one launch
 with no host sync inside, prints config 4a's host syncs, realization
 synthesis and peak memory beside the earlier design's recorded numbers,
@@ -117,6 +130,7 @@ import concurrent.futures
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -312,16 +326,58 @@ K4_FLT_STEP = 4 + 2 * OPS_COSF + 4 * 3 + 4 + 18 + 6
 # bytes per ray: keys (8), ro and rd (24), near and far (8), K5's step,
 # u_jitter and absorb (9), and the [8] float output (32)
 K5_BYTES_RAY, K4_BYTES_RAY = 8 + 24 + 8 + 9 + 32, 8 + 24 + 8 + 32
+# The spectral draws beside the squared exponential's, per basis function,
+# read off csrc/ws_trace.cu (a precise logf ~12).  RQ: d and c (a subtract,
+# a multiply, sqrtf, a divide); per proposal the normal (2 hashed
+# uniforms, their conversions, log1pf, sqrtf, cosf, 4 products) and the
+# uniform (a hash, a conversion), the counters (3), x and v (4), the
+# floor, 2 compares, logf(u), the bound (6) with logf(vf), the candidate
+# and 2 selects; then the fallback select, mean_rate and tau (2 divides,
+# 2 more ops) and l_eff (sqrtf, a divide), omega by 3 divides where the
+# SE's takes 3 divides and 3 products.  Matern: the uniform at 5i + 1 (a
+# hash, its counter, a conversion), chi2 (log1pf, a negate, 2 products),
+# 2 nu, the floor, a divide and sqrtf; omega's 3 products and 3 divides
+# replace the SE's.
+OPS_LOGF = 12
+WS_DRAW_EXTRA = {
+    "se": 0,
+    "rq": (2 + OPS_SQRT + OPS_DIV
+           + 4 * (3 * (OPS_HASH2 + 1) + 3 + 3 + 4 + 1 + OPS_LOG1P
+                  + OPS_SQRT + OPS_COSF + 4 + 4 + 1 + 2 + OPS_LOGF + 6
+                  + OPS_LOGF + 1 + 2)
+           + 1 + 2 * OPS_DIV + 2 + OPS_SQRT + OPS_DIV - 3),
+    "matern": OPS_HASH2 + 1 + 2 + 1 + OPS_LOG1P + 3 + 1 + 1 + OPS_DIV
+    + OPS_SQRT,
+}
+# the covariances whose K5/K4 instances the run checks beside the SE's,
+# as config 4a's covariance (scene file entries)
+WS_TAG_COVS = {
+    "rq": {"type": "rational_quadratic", "sigma": 0.06, "lengthScale": 0.12,
+           "a": 1.5},
+    "matern": {"type": "matern", "sigma": 0.06, "lengthScale": 0.12,
+               "v": 1.5}}
+WS_TAG_RAYS = (131072,)  # past the most rays a variant render launches on
+# the GP layer's variant renders: 8x8 bucket means of the card's 128x128
+# image against the port's CPU render of the same scene at 32x32 and the
+# same spp (fewer samples shift the image's energy: the samples of a
+# pixel are stratified together), one sample a pass; the CPU renders run
+# in VARIANT_CPU_WORKERS one-thread processes from the start of the run,
+# beside the card's phases
+VARIANT_CPU_RES = 32
+VARIANT_CPU_WORKERS = 6
+VARIANT_BUCKETS = 8
 
 
-def ws_work(name, n, rays, rays_eval, steps, refined):
+def ws_work(name, n, rays, rays_eval, steps, refined, tag="se"):
     """(bytes, {class: instructions}) of K5 or K4 (`name`) over `rays` rays
     of n basis functions that took `steps` march steps or iterations in
     all, `rays_eval` of them evaluating their end point and `refined` of
     them (K5) refining a crossing: one synthesis of the basis per ray (the
     function needs no second one: the end point's phase is the held
-    a + slope t, its gradient needs omega), all ops counted as issued."""
-    ops = (n * (WS_SYNTH_INT + WS_SYNTH_FLT + WS_HOIST_FLT) * rays
+    a + slope t, its gradient needs omega), with covariance `tag`'s
+    spectral draw, all ops counted as issued."""
+    ops = (n * (WS_SYNTH_INT + WS_SYNTH_FLT + WS_HOIST_FLT
+                + WS_DRAW_EXTRA[tag]) * rays
            + n * WS_EVAL_FLT * rays_eval)
     if name == "K5":  # f0, the steps and 6 Illinois steps per crossing
         ops += n * K5_FLT_STEP * (rays + steps + 6 * refined)
@@ -485,15 +541,17 @@ def host_syncs(fn):
                for w in caught)
 
 
-def ws_doc(step_size=None, res=None):
-    """Config 4a's scene dict, optionally with another step_size or
-    resolution."""
+def ws_doc(step_size=None, res=None, cov=None):
+    """Config 4a's scene dict, optionally with another step_size,
+    resolution or covariance."""
     with open(WS_SCENE) as f:
         doc = json.load(f)
     if step_size is not None:
         doc["media"][0]["step_size"] = step_size
     if res is not None:
         doc["camera"]["resolution"] = list(res)
+    if cov is not None:
+        doc["media"][0]["gaussian_process"]["covariance"] = cov
     return doc
 
 
@@ -529,17 +587,19 @@ def ws_args(med, R, seed, dev, name):
 WS_FNS = {"K5": "fixed_march_batch", "K4": "sphere_trace_batch"}
 
 
-def ws_kernel_checks(wst, med, dev, card_line):
-    """K5 and K4 against their plain twins, one whole search of WS_RAYS rays
-    of config 4a at n = 1024 each: hit, sign0 and the step count, then t,
-    the value and the gradient at the end point.  Returns {kernel: numbers
-    at WS_LINE_RAYS} for the kernels line."""
+def ws_kernel_checks(wst, med, dev, card_line, rays=WS_RAYS, tag="se",
+                     twin_reps=3):
+    """K5 and K4 against their plain twins, one whole search of each of
+    `rays` rays of config 4a (with covariance `tag`) at n = 1024: hit,
+    sign0 and the step count, then t, the value and the gradient at the
+    end point.  Returns {kernel: numbers at WS_LINE_RAYS} for the kernels
+    line (the twin's time the median of `twin_reps`)."""
     n = med.basis_functions
     out = {}
     for name, fn in WS_FNS.items():
         kern, twin = getattr(wst, fn), getattr(wst, fn + "_ref")
         max_err = 0.0
-        for R in WS_RAYS:
+        for R in rays:
             args = ws_args(med, R, R, dev, name)
             got = kern(*args)
             torch.cuda.synchronize()
@@ -560,7 +620,8 @@ def ws_kernel_checks(wst, med, dev, card_line):
             share = n_bad / R
             steps, hits = float(got["steps"].sum()), int(got["hit"].sum())
             t_k = median_ms(lambda: kern(*args))
-            print(f"{name} R={R} n={n}: {100 * hits / R:.2f}% of rays hit, "
+            print(f"{name} ({tag}) R={R} n={n}: {100 * hits / R:.2f}% of "
+                  "rays hit, "
                   f"{steps:.0f} ray-steps; rays whose hit, sign0 or step count"
                   f" or t, value or gradient differ {n_bad} ({share:.2e}, "
                   f"limit {WS_MAX_SHARE}); max |kernel - twin| on the others "
@@ -571,12 +632,14 @@ def ws_kernel_checks(wst, med, dev, card_line):
                 raise RuntimeError(f"{name} disagrees with its twin on "
                                    f"{n_bad} of {R} rays")
             if R == WS_LINE_RAYS:
-                t_p = median_ms(lambda: twin(*args), reps=3)
+                t_p = median_ms(lambda: twin(*args), reps=twin_reps)
                 b_ms, b_by, b_cls = bound_ms(*ws_work(
-                    name, n, R, R, steps, hits if name == "K5" else 0))
-                check_bound(f"{name} R={R}", t_k, b_ms)
-                print(f"{name} R={R}: twin {t_p:.4f} ms per search (median "
-                      f"of 3); bound {b_ms:.4f} ms ({b_cls}), the kernel at "
+                    name, n, R, R, steps, hits if name == "K5" else 0, tag))
+                check_bound(f"{name} ({tag}) R={R}", t_k, b_ms)
+                print(f"{name} ({tag}) R={R}: twin {t_p:.4f} ms per search "
+                      "(median "
+                      f"of {twin_reps}); bound {b_ms:.4f} ms ({b_cls}), the "
+                      "kernel at "
                       f"{b_ms / t_k:.3f} of it", flush=True)
                 out[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
                              "bound_by": b_by, "bound_class": b_cls}
@@ -637,19 +700,19 @@ class WsSearches:
         return (*bound_ms(*ws_work(name, n, rays, rays_eval, steps, refined)),
                 rays, steps)
 
-    def check(self, name, what):
+    def check(self, name, what, limit=max(WS_RAYS)):
         """The render's searches each launched the kernel once, with no host
-        sync inside, on at most the rays the twin check covers."""
+        sync inside, on at most the rays the twin check covers (`limit`)."""
         launches = getattr(self.wst, "MARCH_LAUNCHES" if name == "K5"
                            else "TRACE_LAUNCHES")
         print(f"{what}: {self.calls[name]} {name} searches, {launches} "
               f"launches, {self.syncs[name]} host syncs inside them, at most "
               f"{self.most[name]} rays per launch (checked against its twin "
-              f"up to {max(WS_RAYS)})", flush=True)
+              f"up to {limit})", flush=True)
         if launches != self.calls[name] or self.syncs[name]:
             raise RuntimeError(f"{what}: {name} made other than one launch "
                                "and no host sync per search")
-        if self.most[name] > max(WS_RAYS):
+        if self.most[name] > limit:
             raise RuntimeError(f"{what} launched {name} on {self.most[name]} "
                                "rays, more than the twin check covers")
 
@@ -681,6 +744,134 @@ def check_image(img, what, shape=(128, 128, 3)):
     if lum <= 0.01:
         raise RuntimeError(f"{what} is black: mean luminance {lum}")
     return lum
+
+
+def bucket_compare(card_img, cpu_img, n=VARIANT_BUCKETS):
+    """n x n bucket means of the card's image against the CPU's render of
+    the same scene at another resolution: (energy ratio, share of bad
+    buckets).  A bucket is bad when the means differ by more than 3
+    standard errors of both (each from its pixels' spread) plus 0.02."""
+    def stats(img):
+        h, w, _ = img.shape
+        b = img.reshape(n, h // n, n, w // n, 3)
+        m = b.mean(axis=(1, 3))
+        se = np.sqrt(b.var(axis=(1, 3)) / (h // n * w // n))
+        return m, se
+    mc, sc = stats(card_img)
+    mp, sp = stats(cpu_img)
+    ratio = (mc.mean() + 1e-6) / (mp.mean() + 1e-6)
+    bad = float((np.abs(mc - mp) > 3.0 * (sc + sp) + 0.02).mean())
+    return float(ratio), bad
+
+
+# the kernels each GP-layer variant (tools/gp_variants.py) goes through,
+# and its K5/K4 tag
+VARIANT_KERNELS = {
+    "ws-rq": (("K5",), "rq"), "ws-rq-trace": (("K4",), "rq"),
+    "ws-matern": (("K5",), "matern"), "ws-matern-trace": (("K4",), "matern"),
+    "fs-matern": (("K8",), None), "box-knob": (("K1",), None),
+    "box-mesh": (("K1",), None), "box-ggx": (("K1",), None),
+    "box-csg": (("K1",), None), "ws-linear": ((), None)}
+
+
+def variant_docs(tmp):
+    """The GP layer's variant scenes: {label: (scene dict, spp, the kernels
+    the render goes through, the K5/K4 tag)}."""
+    from tungsten_tpu_torch.tools.gp_variants import variant_docs as docs
+    return {label: (doc, spp, *VARIANT_KERNELS[name])
+            for name, (label, doc, spp) in docs(tmp).items()}
+
+
+def cpu_reference(doc, spp):
+    """The port's CPU render of scene dict `doc` at VARIANT_CPU_RES, spp
+    samples one a pass, as a mean image (numpy), and its wall seconds: run
+    in a process of its own, on one thread."""
+    torch.set_num_threads(1)
+    sys.path.insert(0, ROOT)
+    from tungsten_tpu_torch.models.integrator import render_pass
+    from tungsten_tpu_torch.scene.parse import scene_from_dict
+    t0 = time.perf_counter()
+    doc = json.loads(json.dumps(doc))
+    doc["camera"]["resolution"] = [VARIANT_CPU_RES] * 2
+    scene, _ = scene_from_dict(doc, device="cpu")
+    img = sum(render_pass(scene, s) for s in range(spp)) / spp
+    return img.numpy(), time.perf_counter() - t0
+
+
+_POOLS = []  # the process pools main() starts
+
+
+def start_cpu_references(tmp):
+    """(variant_docs(tmp), a spawned process pool, {name: future of
+    cpu_reference}): the variants' CPU renders, started at once."""
+    import multiprocessing
+    docs = variant_docs(tmp)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        VARIANT_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    return docs, pool, {what: pool.submit(cpu_reference, doc, spp)
+                        for what, (doc, spp, _, _) in docs.items()}
+
+
+def gp_layer_variants(trender, scene_from_dict, wst, searches, counters,
+                      psd, gpmod, dev, docs, cpu_refs, tmp, card_line):
+    """The GP layer's variant renders (variant_docs) through the CLI at
+    128x128, each with the launch counts set to 0 just before and read just
+    after, held by bucket means against the port's CPU render at 32x32
+    (`cpu_refs`: futures of cpu_reference); config 4b's Matern matrices
+    against K8's twin.  Returns {(kernel, tag): launches} of the K5/K4 tag
+    renders."""
+    tag_launches = {}
+    for what, (doc, spp, used, tag) in docs.items():
+        phase(f"{what} (128x128, {spp} spp) through the CLI, against the "
+              f"CPU at {VARIANT_CPU_RES}x{VARIANT_CPU_RES}")
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "variant.json")
+        with open(path, "w") as fh:
+            json.dump(doc, fh)
+        zero_counts(counters)
+        wst.LAUNCHES_BY_TAG.clear()
+        searches.reset()
+        img, wall, peak = render_cli(trender, path, spp, tmp, "variant")
+        counts = check_counts(counters, used, what)
+        for name in used:
+            if name in WS_FNS:
+                searches.check(name, what, max(WS_TAG_RAYS))
+                key = ({"K5": "ws_march", "K4": "ws_trace"}[name], tag)
+                tag_launches[(name, tag)] = wst.LAUNCHES_BY_TAG.get(key, 0)
+                if set(wst.LAUNCHES_BY_TAG) != {key}:
+                    raise RuntimeError(f"{what} launched other instances: "
+                                       f"{wst.LAUNCHES_BY_TAG}")
+        lum = check_image(img, what)
+        t1 = time.perf_counter()
+        cpu_img, cpu_s = cpu_refs[what].result()
+        waited = time.perf_counter() - t1
+        ratio, bad = bucket_compare(img, cpu_img)
+        print(f"mean luminance {lum:.4f}; launches {counts}; {wall:.2f} s "
+              f"with scene load, peak device memory {peak / 2 ** 30:.2f} GiB"
+              f" ({card_line}); against the CPU's {VARIANT_CPU_RES}x"
+              f"{VARIANT_CPU_RES}, {spp}-spp render ({cpu_s:.1f} s in its "
+              f"process, {waited:.1f} s waited for): energy ratio "
+              f"{ratio:.4f} (0.9-1.1), {VARIANT_BUCKETS}x{VARIANT_BUCKETS} "
+              f"buckets bad {bad:.4f} (< 0.08)", flush=True)
+        if not (0.9 < ratio < 1.1 and bad < 0.08):
+            raise RuntimeError(f"{what} disagrees with the CPU render")
+        if "K8" in used:
+            scene = scene_from_dict(doc, device=dev)[0]
+            with EighCapture(psd, gpmod, K8_CAPTURE) as cap:
+                trender.render(scene, spp, device=dev)
+            mats, (s11, s12) = cap.sets()
+            for n, a in sorted(mats.items()):
+                if n != s11.shape[-1]:
+                    k8_against_twin(psd, gpmod, a, None, f"{what}, n = {n}")
+            k8_against_twin(psd, gpmod, s11, s12,
+                            f"{what}, the normal solves' blocks",
+                            schur_gate=False)
+        done_print(t0)
+    return tag_launches
+
+
+def done_print(t0):
+    print(f"-- {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def k3_checks(noise1d, work, dev, card_line):
@@ -1704,11 +1895,15 @@ def k8_work(n, sweeps, batch):
     return batch * (8 * n * n + 4 * n + 4), work
 
 
-def k8_against_twin(psd, gpmod, a, b, what):
+def k8_against_twin(psd, gpmod, a, b, what, schur_gate=True):
     """K8 on the card against its twin (torch.linalg.eigh, run on the CPU)
     on matrices a [B, n, n] (and, given b [B, n, k], the product
     b^T pinv(a) b the conditioning subtracts), with the limits of
-    tests/test_torch_gp.py.  Returns (max |w - twin's|, total sweeps, mean
+    tests/test_torch_gp.py.  Without `schur_gate` (Matern's blocks, whose
+    spectra decay slowly through the pseudo-inverse's 1e-6 cutoff, so that
+    in float32 the product is ill-posed for any eigensolver) the product
+    is printed beside the twin's, each against float64 eigh of the same
+    matrices, and not held.  Returns (max |w - twin's|, total sweeps, mean
     sweeps, max sweeps)."""
     n = a.shape[-1]
     w, v, sw = psd.eigh(a, sweeps=True)
@@ -1749,7 +1944,21 @@ def k8_against_twin(psd, gpmod, a, b, what):
                      / want.abs().amax((1, 2)).clamp(min=1e-30)).max()
         line += (f", max |b^T pinv(A) b - twin's| / max|twin's| "
                  f"{float(err_schur):.3e} ({K8_SCHUR_RTOL})")
-        bad = bad or err_schur > K8_SCHUR_RTOL
+        if schur_gate:
+            bad = bad or err_schur > K8_SCHUR_RTOL
+        else:
+            a64 = a64.cpu()
+            w64, v64 = torch.linalg.eigh(a64)
+            ref = torch.matmul(b_cpu.double().transpose(1, 2), torch.matmul(
+                psd.pseudo_inverse(a64, eigh_fn=lambda _: (w64, v64)),
+                b_cpu.double()))
+
+            def med(x):
+                return float(((x.double() - ref).abs().amax((1, 2))
+                              / ref.abs().amax((1, 2)).clamp(min=1e-30))
+                             .median())
+            line += (f" not held: against float64 eigh, median relative "
+                     f"error K8 {med(got):.3e}, twin {med(want):.3e}")
     print(line, flush=True)
     if bad or not bool(torch.isfinite(w).all()):
         raise RuntimeError(f"K8 disagrees with its twin on {what}")
@@ -2362,6 +2571,11 @@ def main():
           + " (the rotations' step included)", flush=True)
     done(t0)
 
+    # the GP layer variants' CPU renders, in processes beside the card
+    variant_tmp = tempfile.mkdtemp()
+    variant_docs_, cpu_pool, cpu_refs = start_cpu_references(variant_tmp)
+    _POOLS.append(cpu_pool)
+
     phase("K1 against its plain twin")
     t0 = time.perf_counter()
     scene, _ = load_scene(SCENE, device=dev)
@@ -2445,6 +2659,16 @@ def main():
     ws_numbers = ws_kernel_checks(wst, ws_scene_full.media[0], dev,
                                   card_line)
     done(t0)
+
+    ws_tag_numbers = {}
+    for tag, cov in WS_TAG_COVS.items():
+        phase(f"K5 and K4, the {tag} instances, against their plain twins "
+              "(config 4a rays, n=1024)")
+        t0 = time.perf_counter()
+        tag_med = scene_from_dict(ws_doc(cov=cov), device=dev)[0].media[0]
+        ws_tag_numbers[tag] = ws_kernel_checks(wst, tag_med, dev, card_line,
+                                               WS_TAG_RAYS, tag, twin_reps=1)
+        done(t0)
 
     searches = WsSearches(wst)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2613,6 +2837,7 @@ def main():
                   f"Ksamples/s), peak device memory {peak / 2 ** 30:.2f} GiB"
                   f" ({card_line})", flush=True)
             done(t0)
+
 
     phase("K8 against its twin: the matrices of config 4b's pass and "
           f"{K8_RANDOM} random conditioning blocks")
@@ -2928,6 +3153,19 @@ def main():
         driver_options(trender, read_pfm, noise3d, tmp, card_line)
     done(t0)
 
+    # last, so that the variants' CPU renders, started after the build, are
+    # done by now
+    t_variants = time.perf_counter()
+    try:
+        tag_launches = gp_layer_variants(
+            trender, scene_from_dict, wst, searches, counters, psd, gpmod,
+            dev, variant_docs_, cpu_refs, variant_tmp, card_line)
+    finally:
+        cpu_pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(variant_tmp, ignore_errors=True)
+    print(f"the GP layer's variants in "
+          f"{time.perf_counter() - t_variants:.1f} s", flush=True)
+
     if "jax" in sys.modules or "tungsten_tpu" in sys.modules:
         raise RuntimeError("the port imported jax or the JAX package")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
@@ -2963,6 +3201,15 @@ def main():
             "source": "tungsten_tpu_torch/csrc/ws_trace.cu",
             "replaces": f"tungsten_tpu/ops/ws_trace_pallas.py:{line}",
             "launches": launched, **ws_numbers[name], "library_ms": None})
+    for tag, numbers in ws_tag_numbers.items():
+        for name, fn, line in (("K5", "ws_march", 169),
+                               ("K4", "ws_trace", 45)):
+            kernels.append({
+                "name": f"{name} {fn} ({tag})", "route": "cuda",
+                "source": "tungsten_tpu_torch/csrc/ws_trace.cu",
+                "replaces": f"tungsten_tpu/ops/ws_trace_pallas.py:{line}",
+                "launches": tag_launches[(name, tag)], **numbers[name],
+                "library_ms": None})
     kernels.append({
         "name": "K8 jacobi_eigh", "route": "cuda",
         "source": "tungsten_tpu_torch/csrc/psd.cu",
@@ -2975,4 +3222,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        # a failed phase leaves no CPU render behind
+        for pool in _POOLS:
+            pool.shutdown(wait=True, cancel_futures=True)

@@ -228,10 +228,12 @@ def _doc(path, **medium):
     ({"correlation_context": "none"}, "'none' correlation context"),
     ({"skip_space": 0.1}, "skip_space"),
     ({"sample_points": 64}, "sample_points 64"),
-    ({"type": "sparse_conv_noise"}, "CSG union on a sparse_conv_noise"),
-    ({"type": "weight_space"}, "CSG union on a weight_space"),
+    ({"surf_vol_phase_separate": True}, "surf_vol_phase_separate"),
+    ({"transmittance": {"type": "linear"}}, "transmittance"),
 ])
 def test_unported_options_are_refused_by_name(medium, what):
+    # (a CSG union on a sparse-conv or weight-space medium is ported: the
+    # right child's mean is the additional mean there)
     path = SCENES["csg" if "CSG" in what else "fs"]
     with pytest.raises(NotImplementedError, match=what):
         scene_from_dict(_doc(path, **medium), device="cpu")

@@ -386,8 +386,9 @@ def test_tiled_render_equals_untiled(monkeypatch):
     (lambda m, c: c.update(multiResolutionGrid=False), "brute-force"),
     (lambda m, c: m.update({"1D_sampling": True}), "1D sampling"),
     (lambda m, c: m.update(correlation_context="renewal+"), "renewal"),
-    (lambda m, c: c["ls"].update(noise="sandstone"), "sandstone"),
-    (lambda m, c: c.update(var={"type": "sdf"}), "sdf"),
+    (lambda m, c: c.update(cov={"type": "rational_quadratic"}),
+     "RationalQuadraticCov"),
+    (lambda m, c: m.update(isotropic_3D_sampling=True), "isotropic"),
 ])
 def test_parser_refuses_what_the_slice_does_not_port(edit, what):
     with open(SCENE) as fh:

@@ -48,7 +48,7 @@ from tungsten_tpu_torch import render as trender
 from tungsten_tpu_torch.kernels import noise1d, noise3d
 from tungsten_tpu_torch.kernels import ws_trace as wst
 from tungsten_tpu_torch.models import media as md
-from tungsten_tpu_torch.scene.parse import load_scene
+from tungsten_tpu_torch.scene.parse import load_scene, scene_from_dict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = os.path.join(ROOT, "scenes", "gpis-sphere-box.json")
@@ -354,10 +354,18 @@ def test_k3_kernel_matches_twin_on_the_card(cuda, K):
                                atol=1e-5)
 
 
-def _ws_start(kernel, device, n, R=4096):
-    """R rays of config 4a in its bounding cube with their realization keys,
-    and the rest of K5's or K4's arguments: (function, arguments)."""
-    scene, _ = load_scene(WS_SCENE, device=device)
+def _ws_start(kernel, device, n, R=4096, cov=None):
+    """R rays of config 4a (with covariance `cov`, a scene file entry, if
+    given) in its bounding cube with their realization keys, and the rest
+    of K5's or K4's arguments: (function, arguments)."""
+    if cov is None:
+        scene, _ = load_scene(WS_SCENE, device=device)
+    else:
+        import json
+        with open(WS_SCENE) as f:
+            doc = json.load(f)
+        doc["media"][0]["gaussian_process"]["covariance"] = cov
+        scene, _ = scene_from_dict(doc, device=device)
     med = scene.media[0]
     r = np.random.default_rng(13)
     u = r.normal(size=(R, 3))
@@ -396,6 +404,42 @@ def test_ws_kernel_matches_twin_on_the_card(cuda, kernel, n):
     decided = ((got["hit"] != want["hit"]) | (got["sign0"] != want["sign0"])
                | (got["steps"] != want["steps"]))
     off = decided.clone()
+    for k in ("t", "val", "grad"):
+        err = (got[k] - want[k]).abs() > 1e-5 * (1.0 + want[k].abs())
+        off |= err if err.dim() == 1 else err.any(dim=1)
+    assert 0.1 < float(want["hit"].float().mean()) < 0.99
+    assert int(off.sum()) <= 0.001 * off.shape[0], int(off.sum())
+
+
+# one covariance per K5/K4 instance beside the squared exponential's
+WS_TAG_COVS = {
+    "rq": {"type": "rational_quadratic", "sigma": 0.06, "lengthScale": 0.12,
+           "a": 1.5},
+    "matern": {"type": "matern", "sigma": 0.06, "lengthScale": 0.12,
+               "v": 1.5},
+    "gabor_aniso": {"type": "gabor_aniso", "sigma": 0.06, "a_inv": 0.3,
+                    "f_inv": 0.3},
+    "gabor_iso": {"type": "gabor_iso", "sigma": 0.06, "a_inv": 0.3,
+                  "f_inv": 0.3}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["march", "trace"])
+@pytest.mark.parametrize("tag", sorted(WS_TAG_COVS))
+def test_ws_kernel_instances_match_twin_on_the_card(cuda, tag, kernel):
+    """Each covariance's K5/K4 instance (its own spectral draw) against the
+    twin, which draws with the covariance's sample_spectral_3d, with the
+    gates of chip_smoke.py."""
+    name, args = _ws_start(kernel, cuda, 1024, cov=WS_TAG_COVS[tag])
+    wst.LAUNCHES_BY_TAG.clear()
+    got = getattr(wst, name)(*args)
+    torch.cuda.synchronize()
+    want = getattr(wst, name + "_ref")(*args)
+    assert set(wst.LAUNCHES_BY_TAG.values()) == {1}
+    assert [k for k, _ in wst.LAUNCHES_BY_TAG] == [
+        "ws_march" if kernel == "march" else "ws_trace"]
+    off = ((got["hit"] != want["hit"]) | (got["sign0"] != want["sign0"])
+           | (got["steps"] != want["steps"]))
     for k in ("t", "val", "grad"):
         err = (got[k] - want[k]).abs() > 1e-5 * (1.0 + want[k].abs())
         off |= err if err.dim() == 1 else err.any(dim=1)

@@ -356,9 +356,12 @@ def test_load_scene_equals_converted_jax_scene(tmp_path, step_size):
 
 
 def test_unsupported_weight_space_gp_raises():
+    # a linear mean takes the plain weight-space path now; a dot-product
+    # covariance has no amplitude in the JAX package, which then fails
     doc = _doc()
-    doc["media"][0]["gaussian_process"]["mean"] = {"type": "linear"}
-    with pytest.raises(NotImplementedError, match="linear"):
+    doc["media"][0]["gaussian_process"]["covariance"] = {
+        "type": "dot_product"}
+    with pytest.raises(NotImplementedError, match="DotProductCov"):
         scene_from_dict(doc, device="cpu")
 
 

@@ -121,7 +121,7 @@ def _box_muller(key, c):
 def synth_hoisted_ref(key, key2, ro, rd, params, n):
     """One ray's basis as csrc/ws_trace.cu synthesises it, in numpy uint32
     and float32: key, key2 uint32; ro, rd [3] float32; params the kernels'
-    [13] constants.  Returns dict(a, slope, amp [n], uniforms [n, 7] (the
+    [14] constants (the squared exponential's draw).  Returns dict(a, slope, amp [n], uniforms [n, 7] (the
     variates behind omega's two pairs, the offset and the weight's pair),
     offset [n])."""
     l, sa, scale, sqrt2n = params[0], params[1:4], params[4], params[5]
@@ -158,7 +158,7 @@ def test_synth_hoisted_ref_matches_sample_realization(n):
     np.testing.assert_array_equal(keys[:, 1], (key.numpy() + 0x9E3779B9)
                                   .astype(np.uint32))
     params = twst.search_params(med.gp, n, "cpu").numpy()
-    assert params.dtype == np.float32 and params.shape == (13,)
+    assert params.dtype == np.float32 and params.shape == (14,)
     real = tws.realization_from_key(med.gp.cov, n, key)
     h = twst._hoisted_params(real, med.gp, _t(ro), _t(rd))
     ctr = torch.arange(n, dtype=torch.int64)

@@ -8,6 +8,8 @@ stay as they are, and each dataclass adds a "<path>__type__" entry with its
 class name.  `scene_from_numpy(tree)` builds this package's Scene from such
 a dict, so both renderers compute from the same parameters; every tensor
 of it is a leaf of its own, which a caller may mark `requires_grad`.
+`gp_from_numpy` does the same for one object of the GP layer (a GP, a
+covariance, a mean or a field).
 `set_params(scene, sigma, l)` puts other GP hyperparameters into a scene,
 as the JAX package's gradient checks do; `coeffs_from_numpy` carries
 conditioning coefficients across.
@@ -24,12 +26,12 @@ from .models import media as md
 from .models import primitives as pr
 from .models.camera import Camera
 from .models.integrator import Scene
+from .ops import covariance as cv
+from .ops import means as mn
+from .ops import nonstationary as ns
 from .ops import sparse_conv as sc
-from .ops.covariance import SquaredExponentialCov
-from .ops.fields import RAMPS, Field
-from .ops.means import HomogeneousMean, SphericalMean
-from .ops.nonstationary import ProceduralNonstationaryCov
-from .scene.parse import check_device
+from .ops.fields import Field
+from .scene.parse import check_cov, check_device
 
 
 def flatten(obj, prefix=""):
@@ -57,48 +59,58 @@ def _require(cond, what):
                                   "tungsten_tpu_torch")
 
 
-def _field(tree, f, t):
-    """The Field at path prefix `f` (a constant or a log-space ramp)."""
-    kind, noise = tree[f + "kind"], tree[f + "noise"]
-    _require(not tree[f + "is_vector"]
-             and (kind == "constant" or (kind == "noise" and noise in RAMPS)),
-             f"a {'vector ' if tree[f + 'is_vector'] else ''}{kind} field"
-             + (f" {noise!r}" if kind == "noise" else ""))
-    return Field(**{k: t(f + k) for k in (
-        "value", "mn", "mx", "start", "end", "mn2", "mx2", "start2",
-        "end2")}, kind=kind, noise=noise)
+# the port's class of each GP-layer class of the JAX package, by name;
+# their fields have the JAX package's names
+_GP_CLASSES = {c.__name__: c for c in (
+    cv.SquaredExponentialCov, cv.RationalQuadraticCov, cv.MaternCov,
+    cv.GaborAnisoCov, cv.GaborIsoCov, cv.PeriodicCov, cv.ThinPlateCov,
+    cv.DotProductCov, ns.ProceduralNonstationaryCov,
+    ns.MeanGradNonstationaryCov, ns.NeuralNonstationaryCov,
+    mn.HomogeneousMean, mn.SphericalMean, mn.LinearMean, mn.ProceduralMean,
+    mn.TabulatedMean, mn.NeuralMean, Field, sc.GP)}
+# Field leaves that only their kind reads (None otherwise, as parsed)
+_FIELD_LEAVES = {"grid": ("grid", "bounds_min", "bounds_max"),
+                 "sdf": ("offset", "scale")}
 
 
-def _cov(tree, c, t):
-    """The covariance at path prefix `c`: squared-exponential, or procedural
-    nonstationary over one in multi-resolution mode."""
-    if tree[c + "__type__"] == "ProceduralNonstationaryCov":
-        _require(tree[c + "use_multi_res_grid"],
-                 "brute-force nonstationary sampling")
-        return ProceduralNonstationaryCov(
-            base=_cov(tree, c + "base.", t),
-            var_field=_field(tree, c + "var_field.", t),
-            ls_field=_field(tree, c + "ls_field.", t),
-            max_ls=tree[c + "max_ls"])
-    _require(tree[c + "__type__"] == "SquaredExponentialCov"
-             and not tree[c + "use_aniso_mtx"], "this covariance")
-    return SquaredExponentialCov(
-        sigma=t(c + "sigma"), l=t(c + "l"), aniso=t(c + "aniso"),
-        kernel_scale=tree[c + "kernel_scale"])
+def _leaf(tree, key, t):
+    """The leaf at `key`: a nested GP-layer object, a tuple, a tensor (an
+    array) or a Python value."""
+    if key + ".__type__" in tree:
+        return _gp_obj(tree, key + ".", t)
+    if key + ".__len__" in tree:
+        return tuple(_leaf(tree, f"{key}.{i}", t)
+                     for i in range(tree[key + ".__len__"]))
+    v = tree[key]
+    return t(key) if isinstance(v, np.ndarray) else v
 
 
-def _gp(tree, g, t):
-    """The GP (mean and covariance) at path prefix `g`; a CSG union's
-    additional min-mean, which only its function-space children leave
-    unread, is dropped."""
-    mean_type = tree[g + "mean.__type__"]
-    if mean_type == "SphericalMean":
-        mean = SphericalMean(center=t(g + "mean.center"),
-                             radius=t(g + "mean.radius"))
-    else:
-        _require(mean_type == "HomogeneousMean", f"a {mean_type}")
-        mean = HomogeneousMean(offset=t(g + "mean.offset"))
-    return sc.GP(mean=mean, cov=_cov(tree, g + "cov.", t))
+def _gp_obj(tree, prefix, t):
+    """The GP, covariance, mean or field at path prefix `prefix`."""
+    name = tree[prefix + "__type__"]
+    _require(name in _GP_CLASSES, f"a {name}")
+    cls = _GP_CLASSES[name]
+    skip = set()
+    if cls is Field:
+        kind = tree[prefix + "kind"]
+        skip = {k for kk, ks in _FIELD_LEAVES.items() if kk != kind
+                for k in ks}
+    elif cls is cv.SquaredExponentialCov and not tree[prefix
+                                                      + "use_aniso_mtx"]:
+        skip = {"aniso_mtx"}
+    elif cls is sc.GP:
+        _require(tree[prefix + "global_cond"] is None, "a conditioned GP")
+    return cls(**{f.name: (None if f.name in skip
+                           else _leaf(tree, prefix + f.name, t))
+                  for f in dataclasses.fields(cls)})
+
+
+def gp_from_numpy(tree, device="cuda"):
+    """This package's GP, covariance, mean or field from the flattened
+    (`flatten`) object of the JAX package's GP layer."""
+    device = check_device(device)
+    return _gp_obj(tree, "", lambda key: torch.as_tensor(
+        np.array(tree[key]), dtype=torch.float32, device=device))
 
 
 def scene_from_numpy(tree, device="cuda"):
@@ -145,7 +157,7 @@ def scene_from_numpy(tree, device="cuda"):
         _require(kind in (md.GPIS_SPARSE_CONV, md.GPIS_WEIGHT_SPACE,
                           md.GPIS_FUNCTION_SPACE)
                  and tree[m + "phase_kind"] == "brdf"
-                 and tree[m + "normal_method"] == "conditioned_gaussian"
+                 and tree[m + "normal_method"] in md.NORMAL_METHODS
                  and tree[m + "law"] is None, "this medium configuration")
         c = m + "cfg."
         _require(not (tree[c + "surf_vol_phase_separate"] or (
@@ -166,31 +178,21 @@ def scene_from_numpy(tree, device="cuda"):
         _require(kind == md.GPIS_WEIGHT_SPACE or not cfg.activate_conditioning
                  or not cfg.one_d or cfg.ctxt == sc.CTXT_RENEWAL_PLUS,
                  "renewal conditioning of 1D realizations")
-        g = m + "gp."
         fs_kind = kind == md.GPIS_FUNCTION_SPACE
-        csg = tree[g + "csg_right.__type__"] if (
-            g + "csg_right.__type__") in tree else None
-        _require(fs_kind or csg is None, "a CSG union outside function "
-                 "space")
-        _require(csg is not None
-                 or g + "mean_additional.__type__" not in tree,
-                 "an additional mean outside a CSG union")
-        _require(all(tree[g + k] is None for k in (
-            "global_cond", "color_field", "emission_field")),
-            "a conditioned or colored GP")
-        gp = _gp(tree, g, t)
-        if csg is not None:
-            gp = dataclasses.replace(gp, csg_right=_gp(tree, g + "csg_right.",
-                                                       t))
+        gp = _gp_obj(tree, m + "gp.", t)
+        _require(gp.csg_right is None or gp.csg_right.csg_right is None,
+                 "a nested CSG union")
+        for child in (gp, gp.csg_right):
+            if child is not None:
+                check_cov(child.cov, kind, tree[m + "normal_method"])
         cov = gp.cov
-        _require(csg is None or gp.csg_right.cov.is_stationary,
-                 "a nonstationary covariance in a CSG union")
-        _require(cov.is_stationary or (
-            kind == md.GPIS_SPARSE_CONV
+        _require(cov.is_stationary or kind != md.GPIS_SPARSE_CONV or (
+            isinstance(cov, ns.ProceduralNonstationaryCov)
+            and cov.use_multi_res_grid
             and not (cfg.one_d or cfg.activate_conditioning
                      or cfg.isotropic_3d)),
-            "a nonstationary covariance in weight or function space, with "
-            "1D or isotropic sampling or with conditioning")
+            "brute-force nonstationary sampling, or a nonstationary "
+            "covariance with 1D or isotropic sampling or with conditioning")
         _require(float(tree[c + "base"]) == sc.MULTI_RES_BASE,
                  "another multi-resolution base")
         _require(not fs_kind or (
@@ -208,7 +210,8 @@ def scene_from_numpy(tree, device="cuda"):
             max_march_steps=tree[m + "max_march_steps"], kind=kind,
             basis_functions=tree[m + "basis_functions"],
             ws_sphere_trace=tree[m + "ws_sphere_trace"],
-            sample_points=tree[m + "sample_points"]))
+            sample_points=tree[m + "sample_points"],
+            normal_method=tree[m + "normal_method"]))
 
     camera = Camera(transform=t("camera.transform"),
                     fov_deg=t("camera.fov_deg"), res_x=tree["camera.res_x"],

@@ -21,9 +21,22 @@
 //
 // Each ray's basis is synthesised here from its two stream keys, with the
 // counters and operation order of the plain PyTorch path
-// (ops/weight_space.py, ops/covariance.py, utils/rng.py) in native uint32:
-//   omega_i = (normal2(key, 3i).{cos, sin}, normal2(key, 3i+1).cos) / l
-//             * sqrt(aniso);
+// (ops/weight_space.py, ops/covariance.py, utils/rng.py) in native uint32.
+// With g_i = (normal2(key, 3i).{cos, sin}, normal2(key, 3i+1).cos), each
+// covariance draws its spectral sample omega_i in its own way, one
+// template instance per covariance (kCov, the tags of kernels/ws_trace.py):
+//   kSE: g_i / l * sqrt(aniso);
+//   kRQ: g_i / l_eff with 1 / l_eff^2 = Gamma(a) / (a l^2), Gamma by
+//        Marsaglia-Tsang with four proposals (proposal k: the normal
+//        normal2(key, 16 + 16i + k).cos and the uniform
+//        uniform(key, 97 + 16i + k); the first accepted, else the mode);
+//   kMatern: g_i sqrt(2 nu / chi2) / l, chi2 = -2 nu log1p(-uniform(key,
+//        5i + 1)) floored at 1e-6;
+//   kGabor: g_i (both Gabor covariances);
+//   kPeriodic: g_i / max(|g_i|, 1e-9) * 2 pi / period;
+//   kThinPlate: g_i / R.
+// (The counters overlap those of g_i and of the offsets as the JAX
+// package's draws overlap them.)  Then
 //   offset_i = uniform(key, 1000000 + i) * 2 pi;
 //   w_i = normal2(key2, 2000000 + i/2).{cos if i even, sin if odd};
 //   freq_i = sqrt(max(omega_i . omega_i, 1e-20)), dir_i = omega_i / freq_i;
@@ -37,7 +50,9 @@
 // precise cosf and 4 other flops, K4 2 cosf, 4 divides by 2 pi (3 ops
 // each), 4 floors and ~24 other flops; the synthesis costs ~7 xxhash32
 // (integer) and 3 log1pf, 4 cosf/sinf, 6 divides and ~40 other flops per
-// basis function, twice per ray.  Device memory sees only the per-ray
+// basis function, twice per ray (the SE's; RQ's adds 12 xxhash32, 4 log1pf,
+// 4 cosf, 8 logf, 3 divides and ~40 flops, Matern's 1 xxhash32, 1 log1pf,
+// 2 divides and a sqrtf).  Device memory sees only the per-ray
 // inputs and the [R, 8] output.
 //
 // Design: one warp per ray; warps take rays from a counter, so a warp whose
@@ -56,11 +71,14 @@
 // refinement and the evaluation run without leaving the kernel.  Precise
 // cosf, sinf, log1pf and sqrtf, IEEE-rounded divides, no fast math, built
 // with -fmad=false, so each term rounds as in the plain PyTorch twins
-// (kernels/ws_trace.py); only the order of the n-term sums differs.
+// (kernels/ws_trace.py); only the order of the n-term sums differs, and
+// beside the SE they run in float64 and round once, so they agree too.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -92,13 +110,19 @@ enum {
   kMOff,      // homogeneous mean: offset
   kLipM,      // the mean's Lipschitz constant (K4)
   kMinStep,   // K4's shortest step
+  kCovA,      // the covariance's constant: RQ's a, Matern's nu, Periodic's
+              // period, ThinPlate's R
   kNumParams
 };
+
+// the covariance tags (kernels/ws_trace.py COV_TAGS)
+enum { kSE, kRQ, kMatern, kGabor, kPeriodic, kThinPlate };
 
 // per-ray output columns
 enum { kOutHit, kOutT, kOutSign, kOutVal, kOutGx, kOutGy, kOutGz, kOutSteps };
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
   for (int o = kLanes / 2; o > 0; o >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -141,19 +165,95 @@ struct BasisFn {
   float dx, dy, dz, freq, offset, w;
 };
 
-// basis function i of the ray's realization
-__device__ __forceinline__ BasisFn synth(const Ray& ray, uint32_t i,
-                                         const float* __restrict__ prm) {
+// the first of the Box-Muller pair normal2(key, c)
+__device__ __forceinline__ float normal_cos(uint32_t key, uint32_t c) {
+  float r, angle;
+  box_muller(key, c, r, angle);
+  return r * cosf(angle);
+}
+
+// RQ's effective length l_eff = 1 / sqrt(tau), tau = Gamma(a) (1 / l^2) / a
+// by Marsaglia-Tsang's squeeze over four proposals
+__device__ __forceinline__ float rq_length(uint32_t key, uint32_t i,
+                                               const float* __restrict__ prm) {
+  const float shape = prm[kCovA];
+  const float d = shape - 1.0f / 3.0f;
+  const float c = 1.0f / sqrtf(9.0f * d);
+  float val = 0.0f;
+  bool accepted = false;
+  for (uint32_t k = 0; k < 4u; ++k) {
+    const float n = normal_cos(key, 16u + 16u * i + k);
+    const float u = uniform(key, 97u + 16u * i + k);
+    const float x = 1.0f + c * n;
+    const float v = x * (x * x);
+    const float vf = fmaxf(v, 1e-9f);
+    const bool ok =
+        v > 0.0f && logf(u) < 0.5f * (n * n) + d - d * v + d * logf(vf);
+    const float cand = d * vf;
+    if (k == 0u || !accepted) val = cand;
+    accepted = accepted || ok;
+  }
+  if (!accepted) val = d;
+  const float l = prm[kL];
+  const float mean_rate = 1.0f / (l * l);
+  const float tau = val * (mean_rate / shape);
+  return 1.0f / sqrtf(tau);
+}
+
+// the spectral sample omega of basis function i, drawn as covariance kCov
+// draws it
+template <int kCov>
+__device__ __forceinline__ void spectral(const Ray& ray, uint32_t i,
+                                         const float* __restrict__ prm,
+                                         float& o0, float& o1, float& o2) {
   float r, angle;
   box_muller(ray.key, 3u * i, r, angle);
   const float g0 = r * cosf(angle);
   const float g1 = r * sinf(angle);
-  box_muller(ray.key, 3u * i + 1u, r, angle);
-  const float g2 = r * cosf(angle);
-  const float l = prm[kL];
-  const float o0 = g0 / l * prm[kSa0];
-  const float o1 = g1 / l * prm[kSa1];
-  const float o2 = g2 / l * prm[kSa2];
+  const float g2 = normal_cos(ray.key, 3u * i + 1u);
+  if constexpr (kCov == kSE) {
+    const float l = prm[kL];
+    o0 = g0 / l * prm[kSa0];
+    o1 = g1 / l * prm[kSa1];
+    o2 = g2 / l * prm[kSa2];
+  } else if constexpr (kCov == kRQ) {
+    const float l_eff = rq_length(ray.key, i, prm);
+    o0 = g0 / l_eff;
+    o1 = g1 / l_eff;
+    o2 = g2 / l_eff;
+  } else if constexpr (kCov == kMatern) {
+    const float nu = prm[kCovA], l = prm[kL];
+    const float u = uniform(ray.key, 5u * i + 1u);
+    const float chi2 = -2.0f * nu * log1pf(-u);
+    const float s = sqrtf(2.0f * nu / fmaxf(chi2, 1e-6f));
+    o0 = g0 * s / l;
+    o1 = g1 * s / l;
+    o2 = g2 * s / l;
+  } else if constexpr (kCov == kGabor) {
+    o0 = g0;
+    o1 = g1;
+    o2 = g2;
+  } else if constexpr (kCov == kPeriodic) {
+    const float norm = fmaxf(sqrtf(g0 * g0 + g1 * g1 + g2 * g2), 1e-9f);
+    const float period = prm[kCovA];
+    o0 = g0 / norm * 2.0f * kPi / period;
+    o1 = g1 / norm * 2.0f * kPi / period;
+    o2 = g2 / norm * 2.0f * kPi / period;
+  } else {
+    static_assert(kCov == kThinPlate, "unknown covariance tag");
+    const float R = prm[kCovA];
+    o0 = g0 / R;
+    o1 = g1 / R;
+    o2 = g2 / R;
+  }
+}
+
+// basis function i of the ray's realization
+template <int kCov>
+__device__ __forceinline__ BasisFn synth(const Ray& ray, uint32_t i,
+                                         const float* __restrict__ prm) {
+  float o0, o1, o2, r, angle;
+  spectral<kCov>(ray, i, prm, o0, o1, o2);
   BasisFn b;
   b.freq = sqrtf(fmaxf(o0 * o0 + o1 * o1 + o2 * o2, 1e-20f));
   b.dx = o0 / b.freq;
@@ -210,34 +310,47 @@ __device__ __forceinline__ float mean_point(bool spherical, float px, float py,
   return len - prm[kRadius];
 }
 
+// the type K5's sums over the basis run in: float for the squared
+// exponential, float64 beside it (rounded once to float32 after the warp's
+// sum), so that two orders of the sum round alike: a heavy-tailed draw
+// (RQ, Matern) puts frequencies up to ~1e4 in the sum, where an ulp of f
+// moves the refined crossing, and the end point's gradient with it, by
+// more than the checks allow
+template <int kCov>
+using SumT = typename std::conditional<kCov == kSE, float, double>::type;
+
 // This lane's share of sum_i amp_i cos(a_i + slope_i t): the tile (this
 // lane's column: a, slope and amp of kTile functions, kLanes floats apart),
 // then the basis functions past it, synthesised again.
-__device__ __forceinline__ float lane_sum(const float* __restrict__ tile,
-                                          float t, const Ray& ray, int n,
-                                          int lane,
-                                          const float* __restrict__ prm) {
-  float acc = 0.0f;
+template <int kCov>
+__device__ __forceinline__ SumT<kCov> lane_sum(const float* __restrict__ tile,
+                                               float t, const Ray& ray, int n,
+                                               int lane,
+                                               const float* __restrict__ prm) {
+  SumT<kCov> acc = 0;
 #pragma unroll 2
   for (int i = 0; i < kTile; ++i) {
     const float* c = tile + i * kLanes;
-    acc += c[2 * kTile * kLanes] * cosf(c[0] + c[kTile * kLanes] * t);
+    acc += (SumT<kCov>)(c[2 * kTile * kLanes] *
+                        cosf(c[0] + c[kTile * kLanes] * t));
   }
   for (int j = lane + kLanes * kTile; j < n; j += kLanes) {
     float a, s, m;
-    hoist(synth(ray, (uint32_t)j, prm), ray, prm, a, s, m);
-    acc += m * cosf(a + s * t);
+    hoist(synth<kCov>(ray, (uint32_t)j, prm), ray, prm, a, s, m);
+    acc += (SumT<kCov>)(m * cosf(a + s * t));
   }
   return acc;
 }
 
 // f at t along the ray, in the hoisted form of the twin's value_of
+template <int kCov>
 __device__ __forceinline__ float value_at(const float* __restrict__ tile,
                                           float t, const Ray& ray, int n,
                                           int lane,
                                           const float* __restrict__ prm,
                                           bool spherical, float A, float B) {
-  const float nsum = warp_sum(lane_sum(tile, t, ray, n, lane, prm));
+  const float nsum =
+      (float)warp_sum(lane_sum<kCov>(tile, t, ray, n, lane, prm));
   return prm[kScale] * nsum + mean_at(spherical, A, B, t, prm);
 }
 
@@ -272,7 +385,7 @@ __device__ __forceinline__ void bound_term(float th0, float th1, float w,
 // Synthesises this lane's column of the tile; padding entries are 0.  With
 // kF0 it also returns this lane's share of sum_i w_i cos(phase_i(p)) at the
 // point p, over all n basis functions (K4's f0).
-template <bool kF0>
+template <int kCov, bool kF0>
 __device__ __forceinline__ float load_tile(float* __restrict__ tile,
                                            const Ray& ray, int n, int lane,
                                            const float* __restrict__ prm,
@@ -283,7 +396,7 @@ __device__ __forceinline__ float load_tile(float* __restrict__ tile,
     const int j = lane + kLanes * i;
     float a = 0.0f, s = 0.0f, m = 0.0f;
     if (j < n) {
-      const BasisFn b = synth(ray, (uint32_t)j, prm);
+      const BasisFn b = synth<kCov>(ray, (uint32_t)j, prm);
       if (kF0) s0 += term_at(b, px, py, pz);
       hoist(b, ray, prm, a, s, m);
     }
@@ -293,40 +406,45 @@ __device__ __forceinline__ float load_tile(float* __restrict__ tile,
   }
   if (kF0)
     for (int j = lane + kLanes * kTile; j < n; j += kLanes)
-      s0 += term_at(synth(ray, (uint32_t)j, prm), px, py, pz);
+      s0 += term_at(synth<kCov>(ray, (uint32_t)j, prm), px, py, pz);
   return s0;
 }
 
 // The realization's value and gradient at ro + t rd, as ws.evaluate and
-// ws.evaluate_gradient compute them; lane 0 writes them to o.
+// ws.evaluate_gradient compute them; lane 0 writes them to o.  The sums
+// over the basis run in SumT (float64 beside the squared exponential: a
+// heavy-tailed draw holds gradient terms a thousand times the sum, and
+// float32 sums in two orders would differ by more than the checks allow).
+template <int kCov>
 __device__ __forceinline__ void evaluate(const Ray& ray, float t, int n,
                                          int lane, const float* prm,
                                          bool spherical, float* o) {
+  using Acc = SumT<kCov>;
   const float px = ray.ox + t * ray.dx;
   const float py = ray.oy + t * ray.dy;
   const float pz = ray.oz + t * ray.dz;
-  float s = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+  Acc s = 0, g0 = 0, g1 = 0, g2 = 0;
   for (int j = lane; j < n; j += kLanes) {
-    const BasisFn b = synth(ray, (uint32_t)j, prm);
+    const BasisFn b = synth<kCov>(ray, (uint32_t)j, prm);
     const float phase = (b.dx * px + b.dy * py + b.dz * pz) * b.freq + b.offset;
-    s += b.w * cosf(phase);
+    s += (Acc)(b.w * cosf(phase));
     const float coeff = -sinf(phase) * b.freq * b.w;
-    g0 += coeff * b.dx;
-    g1 += coeff * b.dy;
-    g2 += coeff * b.dz;
+    g0 += (Acc)(coeff * b.dx);
+    g1 += (Acc)(coeff * b.dy);
+    g2 += (Acc)(coeff * b.dz);
   }
-  s = warp_sum(s);
-  g0 = warp_sum(g0);
-  g1 = warp_sum(g1);
-  g2 = warp_sum(g2);
+  const float sf = (float)warp_sum(s);
+  const float gf0 = (float)warp_sum(g0);
+  const float gf1 = (float)warp_sum(g1);
+  const float gf2 = (float)warp_sum(g2);
   float mg[3];
   const float m = mean_point(spherical, px, py, pz, prm, mg);
   const float scale = prm[kScale], k = prm[kSqrt2n];
   if (lane == 0) {
-    o[kOutVal] = scale * (s * k) + m;
-    o[kOutGx] = scale * (g0 * k) + mg[0];
-    o[kOutGy] = scale * (g1 * k) + mg[1];
-    o[kOutGz] = scale * (g2 * k) + mg[2];
+    o[kOutVal] = scale * (sf * k) + m;
+    o[kOutGx] = scale * (gf0 * k) + mg[0];
+    o[kOutGy] = scale * (gf1 * k) + mg[1];
+    o[kOutGz] = scale * (gf2 * k) + mg[2];
   }
 }
 
@@ -356,6 +474,7 @@ __device__ __forceinline__ void mean_consts(const Ray& ray, const float* prm,
 }
 
 // K5's search of ray r by one warp
+template <int kCov>
 __device__ __forceinline__ void march_ray(
     int64_t r, int lane, float* __restrict__ tile,
     const int32_t* __restrict__ keys,
@@ -369,11 +488,11 @@ __device__ __forceinline__ void march_ray(
   const bool sph = spherical != 0;
   float A = 0.0f, B = 0.0f;
   if (sph) mean_consts(ray, prm, A, B);
-  load_tile<false>(tile, ray, n, lane, prm, 0.0f, 0.0f, 0.0f);
+  load_tile<kCov, false>(tile, ray, n, lane, prm, 0.0f, 0.0f, 0.0f);
 
   const float t_near = near[r], t_far = far[r], dt = step[r];
   const bool absorbs = absorb[r] != 0;
-  const float f0 = value_at(tile, t_near, ray, n, lane, prm, sph, A, B);
+  const float f0 = value_at<kCov>(tile, t_near, ray, n, lane, prm, sph, A, B);
   float sign0 = f0 < 0.0f ? -1.0f : 1.0f;
   const float t1 = t_near + dt * u_jitter[r];
   float k = 0.0f, t_hi = t_far, f_lo = f0, f_hi = 0.0f, f_prev = f0;
@@ -382,7 +501,7 @@ __device__ __forceinline__ void march_ray(
   for (int it = 0; it < max_steps; ++it) {
     const bool first_abs = absorbs && k < 0.5f;
     const float tc = t1 + dt * k;
-    const float f = value_at(tile, tc, ray, n, lane, prm, sph, A, B);
+    const float f = value_at<kCov>(tile, tc, ray, n, lane, prm, sph, A, B);
     ++steps;
     const float sgn = f < 0.0f ? -1.0f : 1.0f;
     if (first_abs) sign0 = sgn;
@@ -407,7 +526,7 @@ __device__ __forceinline__ void march_ray(
       const float mid_s = lo + flo * (hi - lo) / (tiny ? 1.0f : denom);
       const float mid =
           (tiny || mid_s <= lo || mid_s >= hi) ? 0.5f * (lo + hi) : mid_s;
-      const float fm = value_at(tile, mid, ray, n, lane, prm, sph, A, B);
+      const float fm = value_at<kCov>(tile, mid, ray, n, lane, prm, sph, A, B);
       if ((fm < 0.0f ? -1.0f : 1.0f) == sign0) {
         lo = mid;
         flo = fm;
@@ -422,7 +541,7 @@ __device__ __forceinline__ void march_ray(
   }
 
   float* o = out + r * 8;
-  if (with_eval) evaluate(ray, t, n, lane, prm, sph, o);
+  if (with_eval) evaluate<kCov>(ray, t, n, lane, prm, sph, o);
   if (lane == 0) {
     o[kOutHit] = crossed ? 1.0f : 0.0f;
     o[kOutT] = t;
@@ -433,6 +552,7 @@ __device__ __forceinline__ void march_ray(
 }
 
 // K4's search of ray r by one warp
+template <int kCov>
 __device__ __forceinline__ void trace_ray(
     int64_t r, int lane, float* __restrict__ tile,
     const int32_t* __restrict__ keys,
@@ -449,7 +569,7 @@ __device__ __forceinline__ void trace_ray(
   const float px = ray.ox + t_near * ray.dx;
   const float py = ray.oy + t_near * ray.dy;
   const float pz = ray.oz + t_near * ray.dz;
-  const float s0 = load_tile<true>(tile, ray, n, lane, prm, px, py, pz);
+  const float s0 = load_tile<kCov, true>(tile, ray, n, lane, prm, px, py, pz);
   float mg[3];
   const float f0 = prm[kScale] * (warp_sum(s0) * prm[kSqrt2n]) +
                    mean_point(sph, px, py, pz, prm, mg);
@@ -472,7 +592,7 @@ __device__ __forceinline__ void trace_ray(
     }
     for (int j = lane + kLanes * kTile; j < n; j += kLanes) {
       float a, s, m;
-      hoist(synth(ray, (uint32_t)j, prm), ray, prm, a, s, m);
+      hoist(synth<kCov>(ray, (uint32_t)j, prm), ray, prm, a, s, m);
       bound_term(a + s * t, a + s * t_end, m, acc_lo, acc_hi);
     }
     const float n_lo = scale * warp_sum(acc_lo);
@@ -497,7 +617,7 @@ __device__ __forceinline__ void trace_ray(
 
   const float t_out = hit ? t : t_far;
   float* o = out + r * 8;
-  if (with_eval) evaluate(ray, t_out, n, lane, prm, sph, o);
+  if (with_eval) evaluate<kCov>(ray, t_out, n, lane, prm, sph, o);
   if (lane == 0) {
     o[kOutHit] = hit ? 1.0f : 0.0f;
     o[kOutT] = t_out;
@@ -515,6 +635,7 @@ __device__ __forceinline__ int64_t next_ray(int* __restrict__ next, int lane) {
   return __shfl_sync(0xffffffffu, r, 0);
 }
 
+template <int kCov>
 __global__ void __launch_bounds__(kLanes * kWarpsPerBlock)
 ws_march_kernel(int* __restrict__ next, int R,
                 const int32_t* __restrict__ keys, const float* __restrict__ ro,
@@ -528,10 +649,11 @@ ws_march_kernel(int* __restrict__ next, int R,
   __shared__ float tiles[kWarpsPerBlock][3 * kTile * kLanes];
   float* tile = tiles[threadIdx.x / kLanes] + lane;
   for (int64_t r = next_ray(next, lane); r < R; r = next_ray(next, lane))
-    march_ray(r, lane, tile, keys, ro, rd, near, far, step, u_jitter, absorb,
+    march_ray<kCov>(r, lane, tile, keys, ro, rd, near, far, step, u_jitter, absorb,
               prm, out, n, max_steps, spherical, refine, with_eval);
 }
 
+template <int kCov>
 __global__ void __launch_bounds__(kLanes * kWarpsPerBlock)
 ws_trace_kernel(int* __restrict__ next, int R,
                 const int32_t* __restrict__ keys, const float* __restrict__ ro,
@@ -543,7 +665,7 @@ ws_trace_kernel(int* __restrict__ next, int R,
   __shared__ float tiles[kWarpsPerBlock][3 * kTile * kLanes];
   float* tile = tiles[threadIdx.x / kLanes] + lane;
   for (int64_t r = next_ray(next, lane); r < R; r = next_ray(next, lane))
-    trace_ray(r, lane, tile, keys, ro, rd, near, far, prm, out, n, max_iters,
+    trace_ray<kCov>(r, lane, tile, keys, ro, rd, near, far, prm, out, n, max_iters,
               spherical, with_eval);
 }
 
@@ -585,21 +707,18 @@ cudaError_t launch_persistent(Kernel kernel, int R, int* next,
   return cudaSuccess;
 }
 
-}  // namespace
-
-// K5 over R rays: keys [R, 2] int32 (uint32 words), ro and rd [R, 3], near,
-// far, step and u_jitter [R] float32, absorb [R] uint8, params [13] float32;
-// writes out [R, 8] float32; next: one int of scratch (the ray counter).
-extern "C" int ws_march(const void* keys, const void* ro, const void* rd,
-                        const void* near, const void* far, const void* step,
-                        const void* u_jitter, const void* absorb,
-                        const void* params, void* out, void* next, int R,
-                        int n, int max_steps, int spherical, int refine,
-                        int with_eval, int device, void* stream) {
+// K5's instance for covariance kCov over R rays (the arguments of ws_march)
+template <int kCov>
+int march_instance(const void* keys, const void* ro, const void* rd,
+                   const void* near, const void* far, const void* step,
+                   const void* u_jitter, const void* absorb,
+                   const void* params, void* out, void* next, int R, int n,
+                   int max_steps, int spherical, int refine, int with_eval,
+                   int device, void* stream) {
   return on_device(device, [&] {
     const cudaStream_t s = (cudaStream_t)stream;
     return launch_persistent(
-        ws_march_kernel, R, (int*)next, s, (const int32_t*)keys,
+        ws_march_kernel<kCov>, R, (int*)next, s, (const int32_t*)keys,
         (const float*)ro, (const float*)rd, (const float*)near,
         (const float*)far, (const float*)step, (const float*)u_jitter,
         (const uint8_t*)absorb, (const float*)params, (float*)out, n,
@@ -607,19 +726,68 @@ extern "C" int ws_march(const void* keys, const void* ro, const void* rd,
   });
 }
 
-// K4 over R rays: keys, ro, rd, near, far, params, out and next as
-// ws_march's.
-extern "C" int ws_trace(const void* keys, const void* ro, const void* rd,
-                        const void* near, const void* far, const void* params,
-                        void* out, void* next, int R, int n, int max_iters,
-                        int spherical, int with_eval, int device,
-                        void* stream) {
+// K4's instance for covariance kCov over R rays (the arguments of ws_trace)
+template <int kCov>
+int trace_instance(const void* keys, const void* ro, const void* rd,
+                   const void* near, const void* far, const void* params,
+                   void* out, void* next, int R, int n, int max_iters,
+                   int spherical, int with_eval, int device, void* stream) {
   return on_device(device, [&] {
     const cudaStream_t s = (cudaStream_t)stream;
     return launch_persistent(
-        ws_trace_kernel, R, (int*)next, s, (const int32_t*)keys,
+        ws_trace_kernel<kCov>, R, (int*)next, s, (const int32_t*)keys,
         (const float*)ro, (const float*)rd, (const float*)near,
         (const float*)far, (const float*)params, (float*)out, n, max_iters,
         spherical, with_eval);
   });
+}
+
+}  // namespace
+
+// K5 over R rays: keys [R, 2] int32 (uint32 words), ro and rd [R, 3], near,
+// far, step and u_jitter [R] float32, absorb [R] uint8, params [14] float32;
+// writes out [R, 8] float32; next: one int of scratch (the ray counter);
+// cov: the covariance tag, whose instance runs.
+extern "C" int ws_march(const void* keys, const void* ro, const void* rd,
+                        const void* near, const void* far, const void* step,
+                        const void* u_jitter, const void* absorb,
+                        const void* params, void* out, void* next, int R,
+                        int n, int max_steps, int spherical, int refine,
+                        int with_eval, int cov, int device, void* stream) {
+#define WS_MARCH(tag)                                                        \
+  march_instance<tag>(keys, ro, rd, near, far, step, u_jitter, absorb,      \
+                      params, out, next, R, n, max_steps, spherical, refine, \
+                      with_eval, device, stream)
+  switch (cov) {
+    case kSE: return WS_MARCH(kSE);
+    case kRQ: return WS_MARCH(kRQ);
+    case kMatern: return WS_MARCH(kMatern);
+    case kGabor: return WS_MARCH(kGabor);
+    case kPeriodic: return WS_MARCH(kPeriodic);
+    case kThinPlate: return WS_MARCH(kThinPlate);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WS_MARCH
+}
+
+// K4 over R rays: keys, ro, rd, near, far, params, out, next and cov as
+// ws_march's.
+extern "C" int ws_trace(const void* keys, const void* ro, const void* rd,
+                        const void* near, const void* far, const void* params,
+                        void* out, void* next, int R, int n, int max_iters,
+                        int spherical, int with_eval, int cov, int device,
+                        void* stream) {
+#define WS_TRACE(tag)                                                     \
+  trace_instance<tag>(keys, ro, rd, near, far, params, out, next, R, n,  \
+                      max_iters, spherical, with_eval, device, stream)
+  switch (cov) {
+    case kSE: return WS_TRACE(kSE);
+    case kRQ: return WS_TRACE(kRQ);
+    case kMatern: return WS_TRACE(kMatern);
+    case kGabor: return WS_TRACE(kGabor);
+    case kPeriodic: return WS_TRACE(kPeriodic);
+    case kThinPlate: return WS_TRACE(kThinPlate);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WS_TRACE
 }

@@ -49,15 +49,50 @@ import torch
 from . import convert, render
 from .kernels import noise3d
 from .models.integrator import render_pass
+from .ops.covariance import SquaredExponentialCov
+from .ops.means import HomogeneousMean, SphericalMean
+from .ops.nonstationary import ProceduralNonstationaryCov
 from .scene.parse import check_device, load_scene
 
 SCENE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "scenes", "gpis-sphere-box.json")
 
 
+def _check_gradient_scope(scene):
+    """Raise by name on the GP types whose gradient is not ported (ROADMAP
+    item 16b): the gradient runs over squared-exponential covariances
+    (alone or as a procedural nonstationary one's base) with spherical or
+    homogeneous means and the conditioned normal."""
+    for med in scene.media:
+        gp = med.gp
+        cov = gp.cov if gp.cov.is_stationary else getattr(gp.cov, "base",
+                                                           gp.cov)
+        what = None
+        if not isinstance(gp.cov, (SquaredExponentialCov,
+                                   ProceduralNonstationaryCov)) or \
+                not isinstance(cov, SquaredExponentialCov):
+            what = f"a {type(gp.cov).__name__}"
+        elif cov.use_aniso_mtx:
+            what = "an anisoMtx"
+        elif not isinstance(gp.mean, (SphericalMean, HomogeneousMean)):
+            what = f"a {type(gp.mean).__name__}"
+        elif gp.mean_additional is not None and med.kind != \
+                "function_space":
+            what = "a CSG union's additional mean"
+        elif gp.color_field is not None or gp.emission_field is not None:
+            what = "a color or emission field"
+        elif med.normal_method in ("beckmann", "ggx"):
+            what = f"the {med.normal_method!r} normal"
+        if what is not None:
+            raise NotImplementedError(
+                f"the gradient through {what} is not ported to "
+                "tungsten_tpu_torch (ROADMAP item 16b)")
+
+
 def params(scene):
     """(sigma, l) of medium 0's covariance (of its stationary base when it
     is procedural nonstationary)."""
+    _check_gradient_scope(scene)
     cov = scene.media[0].gp.cov
     if not cov.is_stationary:
         cov = cov.base

@@ -20,8 +20,14 @@ body re-dispatched a chunk at a time until no ray is left
 refinement and `ws.evaluate` / `ws.evaluate_gradient` at the end point.
 `march_over` / `trace_over` run that twin on a given realization.
 
-`MARCH_LAUNCHES` and `TRACE_LAUNCHES` count kernel launches.  The library
-is built with nvcc at first use (kernels/nvcc.py).
+Each stationary covariance that the JAX package sends to its kernels
+(`supports`) draws its basis in its own way; the kernels take its tag
+(`COV_TAGS`) and run that tag's template instance of csrc/ws_trace.cu,
+and the twins draw with the covariance's own `sample_spectral_3d`.
+
+`MARCH_LAUNCHES` and `TRACE_LAUNCHES` count kernel launches, in all and
+per tag (`LAUNCHES_BY_TAG`).  The library is built with nvcc at first use
+(kernels/nvcc.py).
 
 State and aux columns of the chunk twins are those of the Pallas kernels.
 """
@@ -33,10 +39,11 @@ from pathlib import Path
 
 import torch
 
+from ..ops import covariance as cv
 from ..ops import weight_space as ws
-from ..ops.covariance import SquaredExponentialCov
 from ..ops.means import HomogeneousMean, SphericalMean
 from ..utils import rng
+from ..utils.vecmath import dot
 from .nvcc import compile_library
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ws_trace.cu"
@@ -56,8 +63,19 @@ C_T, C_STEP, C_DONE, C_HIT, C_SIGN, C_IT = range(6)
 # iterations (K4) the ray took
 O_HIT, O_T, O_SIGN, O_VAL, O_GX, O_GY, O_GZ, O_STEPS = range(8)
 
+# the kernels' covariance tags (csrc/ws_trace.cu's enum), by class, and
+# the name of the constant each draw reads (params[13])
+COV_TAGS = {cv.SquaredExponentialCov: 0, cv.RationalQuadraticCov: 1,
+            cv.MaternCov: 2, cv.GaborAnisoCov: 3, cv.GaborIsoCov: 3,
+            cv.PeriodicCov: 4, cv.ThinPlateCov: 5}
+TAG_NAMES = ("se", "rq", "matern", "gabor", "periodic", "thin_plate")
+_COV_CONST = {cv.RationalQuadraticCov: "a", cv.MaternCov: "nu",
+              cv.PeriodicCov: "period", cv.ThinPlateCov: "R"}
+
 MARCH_LAUNCHES = 0
 TRACE_LAUNCHES = 0
+# (kernel name, tag name) -> launches
+LAUNCHES_BY_TAG = {}
 _FNS = {}
 
 
@@ -68,7 +86,7 @@ def build():
     if not _FNS:
         dll = ctypes.CDLL(str(lib))
         i, p = ctypes.c_int, ctypes.c_void_p
-        for name, n_ptr, n_int in (("ws_march", 11, 7), ("ws_trace", 8, 6)):
+        for name, n_ptr, n_int in (("ws_march", 11, 8), ("ws_trace", 8, 7)):
             fn = getattr(dll, name)
             fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
             fn.restype = ctypes.c_int
@@ -77,10 +95,16 @@ def build():
 
 
 def supports(gp):
-    """The kernels' scope: a stationary covariance and a spherical or
-    homogeneous mean (the port's GP has no additional CSG mean)."""
-    return (isinstance(gp.cov, SquaredExponentialCov)
+    """The kernels' scope, as the JAX package's: a stationary covariance
+    (each has a tag), a spherical or homogeneous mean and no additional
+    CSG mean."""
+    return (type(gp.cov) in COV_TAGS and gp.mean_additional is None
             and isinstance(gp.mean, (SphericalMean, HomogeneousMean)))
+
+
+def cov_tag(cov):
+    """The kernels' tag of the covariance."""
+    return COV_TAGS[type(cov)]
 
 
 def realization(gp, n, key):
@@ -91,22 +115,29 @@ def realization(gp, n, key):
 
 
 def search_params(gp, n, device):
-    """The medium's constants as the kernels take them, [13] float32: l,
+    """The medium's constants as the kernels take them, [14] float32: l,
     sqrt(aniso) [3], sqrt(cov(0, 0)), sqrt(2/n), the spherical mean's
     center [3] and radius, the homogeneous mean's offset, the mean's
-    Lipschitz constant and TRACE_MIN_STEP."""
+    Lipschitz constant, TRACE_MIN_STEP and the covariance's constant
+    (RQ's a, Matern's nu, Periodic's period, ThinPlate's R; l and aniso
+    are 1 where the covariance has none)."""
     f32 = dict(dtype=torch.float32, device=device)
     cov, mean = gp.cov, gp.mean
     origin = torch.zeros(3, **f32)
     zero = torch.zeros(1, **f32)
+    one = torch.ones(1, **f32)
     if isinstance(mean, SphericalMean):
         center, radius, m_off = mean.center, mean.radius, zero
     else:
         center, radius, m_off = torch.zeros(3, **f32), zero, mean.offset
-    vals = (cov.l, torch.sqrt(cov.aniso), torch.sqrt(cov.cov(origin, origin)),
+    const = _COV_CONST.get(type(cov))
+    vals = (getattr(cov, "l", one),
+            torch.sqrt(getattr(cov, "aniso", torch.ones(3, **f32))),
+            torch.sqrt(cov.cov(origin, origin)),
             ws.sqrt_2_over_n(n, device), center, radius, m_off,
             torch.full((1,), float(mean.lipschitz()), **f32),
-            torch.full((1,), TRACE_MIN_STEP, **f32))
+            torch.full((1,), TRACE_MIN_STEP, **f32),
+            one if const is None else getattr(cov, const))
     # made on the device: a copy from the host would wait for it
     return torch.cat([v.to(**f32).reshape(-1) for v in vals])
 
@@ -140,8 +171,12 @@ def pack_keys(key):
 
 
 def _launch(name, gp, n, key, ro, rd, per_ray, ints):
-    """Launches kernel `name` on rays [R]; returns its output [R, 8]."""
+    """Launches kernel `name`'s instance for the GP's covariance on rays
+    [R]; returns its output [R, 8]."""
     _check(key, ro, rd, per_ray)
+    if not supports(gp):
+        raise ValueError("the GP is outside the kernels' scope (see "
+                         "`supports`)")
     if not _FNS:
         build()
     dev = key.device
@@ -152,10 +187,12 @@ def _launch(name, gp, n, key, ro, rd, per_ray, ints):
     next_ray = torch.empty(1, dtype=torch.int32, device=dev)  # the counter
     err = _FNS[name](keys.data_ptr(), *(x.data_ptr() for x in args),
                      params.data_ptr(), out.data_ptr(), next_ray.data_ptr(),
-                     key.shape[0], n, *ints, dev.index,
+                     key.shape[0], n, *ints, cov_tag(gp.cov), dev.index,
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    tag = (name, TAG_NAMES[cov_tag(gp.cov)])
+    LAUNCHES_BY_TAG[tag] = LAUNCHES_BY_TAG.get(tag, 0) + 1
     return out
 
 
@@ -235,10 +272,22 @@ def _mean_at(spherical, A, B, t, radius, m_off):
     return torch.sqrt(torch.clamp(A + t * (2.0 * B + t), min=0.0)) - radius
 
 
-def march_chunk_ref(a, slope, amp, aux, state, params, spherical):
+def _nsum(amp, phase, f64):
+    """sum_i amp_i cos(phase_i) over the basis [R, n] -> [R]: in float32,
+    or (f64, K5 beside the squared exponential) in float64 rounded once to
+    float32, as the kernel sums it."""
+    terms = amp * torch.cos(phase)
+    if f64:
+        return terms.double().sum(dim=1).float()
+    return terms.sum(dim=1)
+
+
+def march_chunk_ref(a, slope, amp, aux, state, params, spherical,
+                    f64=False):
     """The Pallas K5's step body, MARCH_CHUNK times over the whole batch:
     a, slope, amp [R, n]; aux, state [R, 8]; params [8] (scale, radius,
-    mean offset, -...); returns the new state [R, 8]."""
+    mean offset, -...); returns the new state [R, 8].  `f64`: the sums over
+    the basis as `_nsum` takes them."""
     params = params.reshape(-1)
     scale, radius, m_off = params[0], params[1], params[2]
     A, B, far, t1, step = aux[:, :5].unbind(-1)
@@ -248,7 +297,7 @@ def march_chunk_ref(a, slope, amp, aux, state, params, spherical):
         k, done, crossed, t_hi, f_lo, f_hi, sign0, f_prev = S.unbind(-1)
         done = done > 0.5
         tc = t1 + step * k
-        nsum = (amp * torch.cos(a + slope * tc[:, None])).sum(dim=1)
+        nsum = _nsum(amp, a + slope * tc[:, None], f64)
         f = scale * nsum + _mean_at(spherical, A, B, tc, radius, m_off)
         sgn = torch.where(f < 0.0, -1.0, 1.0)
         first_abs = absorb & (k < 0.5)
@@ -324,10 +373,11 @@ class HoistedParams:
     B: torch.Tensor  # [R] (ro - center) . rd
     radius: torch.Tensor
     m_off: torch.Tensor
+    f64: bool = False  # K5's sums in float64 (beside the SE)
 
     def value_of(self, t):
         """f at t [R] along each ray."""
-        nsum = (self.amp * torch.cos(self.a + self.slope * t[:, None])).sum(1)
+        nsum = _nsum(self.amp, self.a + self.slope * t[:, None], self.f64)
         return self.scale * nsum + _mean_at(self.spherical, self.A, self.B, t,
                                             self.radius, self.m_off)
 
@@ -340,7 +390,8 @@ def _hoisted_params(real, gp, ro, rd):
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if spherical:
         oc = ro - gp.mean.center
-        A, B = (oc * oc).sum(dim=-1), (oc * rd).sum(dim=-1)
+        # the sums written out, in the kernels' order
+        A, B = dot(oc, oc), dot(oc, rd)
         radius, m_off = gp.mean.radius.to(torch.float32), zero
     else:
         A = B = torch.zeros(ro.shape[0], dtype=torch.float32, device=dev)
@@ -351,7 +402,8 @@ def _hoisted_params(real, gp, ro, rd):
         slope=(b.freqs * ws.project(b.dirs, rd)).contiguous(),
         amp=(real.weights * ws.sqrt_2_over_n(b.n, dev)).contiguous(),
         scale=torch.sqrt(gp.cov.cov(origin, origin)), spherical=spherical,
-        A=A, B=B, radius=radius, m_off=m_off)
+        A=A, B=B, radius=radius, m_off=m_off,
+        f64=not isinstance(gp.cov, cv.SquaredExponentialCov))
 
 
 def _params(*vals):
@@ -398,11 +450,14 @@ def trace_inputs(real, gp, ro, rd, near, far):
 
 
 def _end_point(res, real, gp, ro, rd, evaluate):
-    """Adds the value and gradient of `real` at ro + t rd to res."""
+    """Adds the value and gradient of `real` at ro + t rd to res, summed
+    over the basis as the kernels sum them (in float64 beside the squared
+    exponential)."""
     if evaluate:
         ip = ro + res["t"][:, None] * rd
-        res["val"], _ = ws.evaluate(real, gp, ip)
-        res["grad"] = ws.evaluate_gradient(real, gp, ip)
+        f64 = not isinstance(gp.cov, cv.SquaredExponentialCov)
+        res["val"], _ = ws.evaluate(real, gp, ip, f64)
+        res["grad"] = ws.evaluate_gradient(real, gp, ip, f64)
     return res
 
 
@@ -416,7 +471,8 @@ def march_over(real, gp, ro, rd, near, far, step, u_jitter, absorb,
     for _ in range(march_cap(max_steps) // MARCH_CHUNK):
         if not bool((S[:, M_DONE] < 0.5).any()):
             break
-        S = march_chunk_ref(h.a, h.slope, h.amp, aux, S, params, h.spherical)
+        S = march_chunk_ref(h.a, h.slope, h.amp, aux, S, params, h.spherical,
+                            h.f64)
     crossed = S[:, M_CROSS] > 0.5
     t_hi = S[:, M_THI]
     sign0 = S[:, M_SIGN]

@@ -52,7 +52,8 @@ def chunk_key(pss, scene_seed, chunk, salt=0):
 
 def csg_children(gp):
     """(left, right) GPs of a CSG union."""
-    return dataclasses.replace(gp, csg_right=None), gp.csg_right
+    return (dataclasses.replace(gp, csg_right=None, mean_additional=None),
+            gp.csg_right)
 
 
 def _rows_of(ro, rd, n):

@@ -352,6 +352,7 @@ def trace(scene, px, py, spp_idx, want_aovs=False, qmc=None):
 
     throughput = torch.ones(R, 3, dtype=torch.float32, device=dev)
     emission = torch.zeros(R, 3, dtype=torch.float32, device=dev)
+    emissive = any(m.gp.emission_field is not None for m in scene.media)
     active = torch.ones(R, dtype=torch.bool, device=dev)
     was_specular = torch.ones(R, dtype=torch.bool, device=dev)
     med_idx = torch.full((R,), scene.cam_medium, dtype=torch.int64,
@@ -379,6 +380,7 @@ def trace(scene, px, py, spp_idx, want_aovs=False, qmc=None):
         med_t = far
         med_aniso = med_state.last_aniso
         med_weight = torch.ones_like(throughput)
+        med_emis = torch.zeros_like(throughput)
         scheme = torch.zeros_like(bounce)
         for mi, medium in enumerate(scene.media):
             in_m = active & (med_idx == mi)
@@ -392,10 +394,14 @@ def trace(scene, px, py, spp_idx, want_aovs=False, qmc=None):
             med_t = torch.where(in_m & ~res["exited"], res["t"], med_t)
             med_aniso = _where3(in_m, res["aniso"], med_aniso)
             med_weight = _where3(in_m, res["weight"], med_weight)
+            med_emis = _where3(in_m, res["emission"], med_emis)
             scheme = torch.where(in_m, res["scheme"], scheme)
             failed = failed | (in_m & res["failed"])
 
         active = active & ~failed
+        if emissive:
+            # volume emission, before the scatter weight
+            emission = emission + _where3(active, throughput * med_emis, 0.0)
         throughput = throughput * _where3(vol_event, med_weight, 1.0)
         escaped = active & ~vol_event & ~did_hit
         active = active & ~escaped

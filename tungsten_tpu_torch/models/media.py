@@ -24,6 +24,12 @@ the basis on chip and returns the crossing with the value and gradient
 there; see kernels/ws_trace.py.  Only the active rays are gathered into
 these calls (the results of the others are masked anyway).
 
+A weight-space GP outside the kernels' scope (a mean other than spherical
+or homogeneous, a CSG union's additional mean, a nonstationary covariance)
+takes the JAX package's plain path there: each ray's realization built as
+[R, n] tensors, then the fixed-step `march` over `ws.evaluate` or
+`ws.sphere_trace_segment` (`_ws_fallback`).
+
 Function space (models/fs_medium.py): each active ray draws its segment
 in chunks of jointly conditioned points and samples the normal at the
 first sign change by a dense conditional solve; a CSG union marches the
@@ -51,14 +57,27 @@ import torch
 
 from ..kernels import ws_trace as wst
 from . import fs_medium as fs
+from . import ndf
 from ..ops import sparse_conv as sc
 from ..ops import sparse_conv_fast as fast
 from ..ops import weight_space as ws
-from ..utils.vecmath import dot, mat_vec
+from ..utils import rng
+from ..utils.vecmath import (dot, frame_to_local, frame_to_world, mat_vec,
+                             safe_normalize, tangent_frame)
 
 GPIS_SPARSE_CONV = "sparse_conv_noise"
 GPIS_WEIGHT_SPACE = "weight_space"
 GPIS_FUNCTION_SPACE = "function_space"
+
+# normal methods: the GP's conditioned gradient, and the microfacet
+# normals around the mean's gradient.  `finite_differences` is declared
+# by the JAX package but never branched on: it samples the conditioned
+# normal, and so does the port.
+NORMAL_CONDITIONED = "conditioned_gaussian"
+NORMAL_FD = "finite_differences"
+NORMAL_BECKMANN = "beckmann"
+NORMAL_GGX = "ggx"
+NORMAL_METHODS = (NORMAL_CONDITIONED, NORMAL_FD, NORMAL_BECKMANN, NORMAL_GGX)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +102,7 @@ class Medium:
     # "brdf" (the phase_bsdf row) or "isotropic" (the JAX package's
     # isotropic phase, which its image-level gradient checks put in place)
     phase_kind: str = "brdf"
+    normal_method: str = NORMAL_CONDITIONED
 
     @property
     def sigma_t(self):
@@ -96,10 +116,12 @@ class MediumState:
     last segment end (the targets of renewal conditioning), the path length
     through media so far (info_t), the 1D sampling scheme at the last
     crossing, the 1D and 3D conditioning coefficients of the current
-    segment, and a function-space CSG union's right child's value and
+    segment, a function-space CSG union's right child's value and
     gradient (fs_val2, fs_grad2; last_val and last_aniso then carry the
-    left child's)."""
+    left child's) and the id of the GP (mean) that supplied the last
+    crossing (last_gp_id, which the microfacet normals read)."""
     first_scatter: torch.Tensor  # [R] bool
+    last_gp_id: torch.Tensor  # [R] int64
     last_aniso: torch.Tensor  # [R, 3]
     last_val: torch.Tensor  # [R]
     info_t: torch.Tensor  # [R]
@@ -116,6 +138,7 @@ class MediumState:
         zeros = torch.zeros(n, dtype=torch.float32, device=device)
         return MediumState(
             first_scatter=torch.ones(n, dtype=torch.bool, device=device),
+            last_gp_id=torch.zeros(n, dtype=torch.int64, device=device),
             last_aniso=aniso, last_val=zeros, info_t=zeros,
             scheme=torch.zeros(n, dtype=torch.int64, device=device),
             coeff1=sc.Coeffs.zeros(n, device),
@@ -261,22 +284,62 @@ def _ws_key(med, pss):
 def _ws_search(med, ro, rd, near, far, first_scatter, pss, u_jitter,
                refine=True, evaluate=True):
     """The first crossing of weight-space rays (all active): K5's march for
-    step_size > 0, K4's sphere trace for step_size == 0.  Returns the
-    kernels' dict: hit, t (far where nothing was hit) and, if `evaluate`,
-    the realization's value and gradient at ro + t rd."""
+    step_size > 0, K4's sphere trace for step_size == 0, or the plain
+    fallback where the GP is outside the kernels' scope.  Returns a dict:
+    hit, t (far where nothing was hit) and, if `evaluate`, the
+    realization's value, gradient and gp_id at ro + t rd."""
+    if not wst.supports(med.gp):
+        return _ws_fallback(med, ro, rd, near, far, first_scatter, pss,
+                            u_jitter, refine, evaluate)
     key = _ws_key(med, pss)
     n = med.basis_functions
     if med.ws_sphere_trace:
         # a segment that starts at an interior scatter skips its surface
         near_st = near + torch.where(first_scatter, 0.0, 2e-3)
-        return wst.sphere_trace_batch(med.gp, n, key, ro, rd, near_st, far,
-                                      evaluate=evaluate)
-    step = torch.clamp(torch.minimum(med.step_size,
-                                     (far - near) / med.min_step), min=1e-6)
-    return wst.fixed_march_batch(med.gp, n, key, ro, rd, near, far, step,
-                                 u_jitter, ~first_scatter,
-                                 max_steps=med.max_march_steps, refine=refine,
-                                 evaluate=evaluate)
+        res = wst.sphere_trace_batch(med.gp, n, key, ro, rd, near_st, far,
+                                     evaluate=evaluate)
+    else:
+        step = torch.clamp(torch.minimum(med.step_size,
+                                         (far - near) / med.min_step),
+                           min=1e-6)
+        res = wst.fixed_march_batch(med.gp, n, key, ro, rd, near, far, step,
+                                    u_jitter, ~first_scatter,
+                                    max_steps=med.max_march_steps,
+                                    refine=refine, evaluate=evaluate)
+    # the kernels' scope has no additional mean: every value is GP 0's
+    res["gp_id"] = torch.zeros(ro.shape[0], dtype=torch.int64,
+                               device=ro.device)
+    return res
+
+
+@dataclasses.dataclass(frozen=True)
+class _MarchState:
+    first_scatter: torch.Tensor
+
+
+def _ws_fallback(med, ro, rd, near, far, first_scatter, pss, u_jitter,
+                 refine=True, evaluate=True):
+    """`_ws_search` in plain PyTorch for any weight-space GP, as the JAX
+    package runs it outside its kernels' scope: each ray's realization
+    (its basis drawn by the covariance's own spectral draw) as [R, n]
+    tensors, then `ws.sphere_trace_segment` (step_size == 0) or the
+    fixed-step `march` over `ws.evaluate`; the end point's value, gradient
+    and gp_id by `ws.evaluate` and `ws.evaluate_gradient`."""
+    real = wst.realization(med.gp, med.basis_functions, _ws_key(med, pss))
+    if med.ws_sphere_trace:
+        near_st = near + torch.where(first_scatter, 0.0, 2e-3)
+        hit, t = ws.sphere_trace_segment(real, med.gp, ro, rd, near_st, far)
+    else:
+        def value_at(tt):
+            return ws.evaluate(real, med.gp, ro + tt[:, None] * rd)
+        hit, t = march(med, value_at, near, far, _MarchState(first_scatter),
+                       u_jitter, torch.ones_like(first_scatter), refine)
+    res = {"hit": hit, "t": t}
+    if evaluate:
+        ip = ro + t[:, None] * rd
+        res["val"], res["gp_id"] = ws.evaluate(real, med.gp, ip)
+        res["grad"] = ws.evaluate_gradient(real, med.gp, ip)
+    return res
 
 
 def sample_gradient(med, scene_seed, p, pss, rd=None, t_segment=None,
@@ -290,6 +353,26 @@ def sample_gradient(med, scene_seed, p, pss, rd=None, t_segment=None,
     return sc.eval_gradient(med.cfg, med.gp, p, pss, scene_seed, ray_dir=rd,
                             t_segment=t_segment, coeff1=coeff1,
                             coeff3=coeff3)
+
+
+def microfacet_normal(med, scene_seed, p, rd, pss, gp_id):
+    """The `beckmann` or `ggx` normal at p [R, 3]: a visible normal of the
+    distribution with roughness min(compute_beckmann_roughness(p), 10)
+    around the gradient of the mean with id gp_id, for the incoming
+    direction -rd, from the uniforms 0 and 1 of each ray's own stream."""
+    n_mean = safe_normalize(med.gp.mean_grad_by_id(p, gp_id))
+    t, b = tangent_frame(n_mean)
+    wi = frame_to_local(t, b, n_mean, -rd)
+    wi = torch.stack([wi[:, 0], wi[:, 1],
+                      torch.clamp(wi[:, 2].abs(), min=1e-4)], dim=-1)
+    alpha = torch.clamp(med.gp.cov.compute_beckmann_roughness(p),
+                        max=10.0).expand(p.shape[:-1])
+    key = rng.xxhash32_4(pss[:, 0], pss[:, 1], pss[:, 2],
+                         pss[:, 3] ^ 0x9D2C5680) ^ (scene_seed & rng.MASK32)
+    u1, u2 = rng.uniform(key, 0), rng.uniform(key, 1)
+    sample = (ndf.sample_vndf_beckmann if med.normal_method == NORMAL_BECKMANN
+              else ndf.sample_vndf_ggx)
+    return frame_to_world(t, b, n_mean, sample(wi, alpha, u1, u2))
 
 
 def _far_eff(med, ro, rd, near, far):
@@ -313,7 +396,7 @@ def _crossing_ws(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
         res = _ws_search(med, ro[idx], rd[idx], near[idx], far[idx],
                          state.first_scatter[idx], pss[idx], u_jitter[idx])
         val[idx], grad[idx] = res["val"], res["grad"]
-        hit[idx], t[idx] = res["hit"], res["t"]
+        hit[idx], t[idx], gp_id[idx] = res["hit"], res["t"], res["gp_id"]
     return hit, t, grad, val, gp_id
 
 
@@ -442,6 +525,9 @@ def _sample_distance_fs(med, scene_seed, ro, rd, near, far, state, pss,
     sig_s = med.sigma_s * med.density
     sig_t = torch.clamp(med.sigma_t, min=1e-9)
     weight = torch.where(hit[:, None], (sig_s / sig_t).expand(ro.shape), 1.0)
+    ip = ro + t[:, None] * rd
+    weight = weight * torch.where(hit[:, None], med.gp.color(ip), 1.0)
+    emission = torch.where(hit[:, None], med.gp.emission(ip), 0.0)
     is_csg = med.gp.csg_right is not None
     carry_grad = res["grads"][0] if is_csg else grad
     carry_val = (res["vals"][0] if is_csg
@@ -450,6 +536,8 @@ def _sample_distance_fs(med, scene_seed, ro, rd, near, far, state, pss,
     new_state = dataclasses.replace(
         state,
         first_scatter=torch.where(active, False, state.first_scatter),
+        last_gp_id=torch.where(active & hit, res["gp_id"],
+                               state.last_gp_id),
         last_aniso=torch.where(a3, carry_grad, state.last_aniso),
         last_val=torch.where(active, carry_val, state.last_val),
         info_t=torch.where(active, state.info_t + t - near, state.info_t),
@@ -460,8 +548,9 @@ def _sample_distance_fs(med, scene_seed, ro, rd, near, far, state, pss,
             fs_val2=torch.where(active, res["vals"][1], state.fs_val2),
             fs_grad2=torch.where(a3, res["grads"][1], state.fs_grad2))
     return ({"exited": ~hit, "t": t, "weight": weight, "aniso": grad,
-             "gp_id": res["gp_id"], "scheme": torch.zeros_like(res["gp_id"]),
-             "failed": failed}, new_state)
+             "emission": emission, "gp_id": res["gp_id"],
+             "scheme": torch.zeros_like(res["gp_id"]), "failed": failed},
+            new_state)
 
 
 def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
@@ -503,31 +592,44 @@ def sample_distance(med, scene_seed, ro, rd, near, far, state, pss,
         if f_at_t.requires_grad:
             t = _reattach_crossing(value_at, t, hit, f_at_t)
         end_val = f_at_t.detach()
-        grad = sample_gradient(med, scene_seed, ro + t[:, None] * rd, pss,
-                               rd=rd, t_segment=t - near,
-                               coeff1=state.coeff1, coeff3=state.coeff3)
+        if med.normal_method in (NORMAL_BECKMANN, NORMAL_GGX):
+            grad = None  # the microfacet normal below replaces it
+        else:
+            grad = sample_gradient(med, scene_seed, ro + t[:, None] * rd,
+                                   pss, rd=rd, t_segment=t - near,
+                                   coeff1=state.coeff1, coeff3=state.coeff3)
 
+    ip = ro + t[:, None] * rd
+    if med.normal_method in (NORMAL_BECKMANN, NORMAL_GGX):
+        # the JAX package reads the gp id of the path's previous crossing
+        grad = microfacet_normal(med, scene_seed, ip, rd, pss,
+                                 state.last_gp_id)
     grad_ok = torch.isfinite(grad.sum(dim=-1))
     wrong_side = hit & (dot(grad, rd) > 0.0)
     zero_grad = hit & (dot(grad, grad) < 1e-7)
     failed = active & (wrong_side | zero_grad | ~grad_ok)
 
+    # the GP's color scales the scatter weight; its emission is the
+    # volume emission at the scatter point
     sig_s = med.sigma_s * med.density
     sig_t = torch.clamp(med.sigma_t, min=1e-9)
-    weight = torch.where(hit[:, None], (sig_s / sig_t).expand(ro.shape), 1.0)
+    weight = torch.where(hit[:, None],
+                         med.gp.color(ip) * (sig_s / sig_t), 1.0)
+    emission = torch.where(hit[:, None], med.gp.emission(ip), 0.0)
     scheme = torch.where(
-        hit, sc.sampling_scheme(med.cfg, med.gp, ro + t[:, None] * rd),
-        sc.SCHEME_UNI)
+        hit, sc.sampling_scheme(med.cfg, med.gp, ip), sc.SCHEME_UNI)
     new_state = dataclasses.replace(
         state,
         first_scatter=torch.where(active, False, state.first_scatter),
+        last_gp_id=torch.where(active & hit, gp_id, state.last_gp_id),
         last_aniso=torch.where(active[:, None], grad, state.last_aniso),
         last_val=torch.where(active, torch.where(hit, 0.0, end_val),
                              state.last_val),
         info_t=torch.where(active, state.info_t + t - near, state.info_t),
         scheme=torch.where(active, scheme, state.scheme))
     return ({"exited": ~hit, "t": t, "weight": weight, "aniso": grad,
-             "gp_id": gp_id, "scheme": scheme, "failed": failed}, new_state)
+             "emission": emission, "gp_id": gp_id, "scheme": scheme,
+             "failed": failed}, new_state)
 
 
 @torch.no_grad()

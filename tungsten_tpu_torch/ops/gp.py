@@ -4,13 +4,16 @@ the parser refuses).
 
 An observation row is (point [3], derivative kind in {D_NONE, D_FIRST},
 direction [3]): a value of the field or its directional derivative.  The
-covariance between two rows is the squared-exponential kernel's value, its
-first directional derivatives or its mixed second derivative, written in
-closed form where the JAX package nests jax.jvp.  With d = a - b,
-A = diag(aniso) and k = cov(a, b) = sigma^2 exp(-d.A.d / 2 l^2):
+covariance between two rows is the kernel's value, its first directional
+derivatives or its mixed second derivative.  For the squared exponential
+they are written in closed form where the JAX package nests jax.jvp: with
+d = a - b, A = diag(aniso) and k = cov(a, b) = sigma^2 exp(-d.A.d / 2 l^2),
 
     d/da k . u = -k (A d . u) / l^2,    d/db k . u = k (A d . u) / l^2,
     d2/da db k (u, v) = k ((A u . v) / l^2 - (A d . u)(A d . v) / l^4).
+
+Any other covariance takes them as the JAX package does, by forward mode
+over its `cov` (`torch.func.jvp`, nested for the mixed derivative).
 
 Every function takes a leading batch axis [R, ...] (one problem per ray);
 the eigendecompositions behind `sqrt_psd` and `pseudo_inverse` are K8 on
@@ -29,6 +32,7 @@ import torch
 from ..kernels.psd import pseudo_inverse, sqrt_psd  # noqa: F401 (ops API)
 from ..utils import rng
 from ..utils.vecmath import dot
+from .covariance import SquaredExponentialCov
 
 D_NONE = 0
 D_FIRST = 1
@@ -37,9 +41,33 @@ def _first(dts):
     return dts == D_FIRST
 
 
+def _jvp_entries(cov, pa, dira, pb, dirb):
+    """(k, d/da k . u, d/db k . v, d2/da db k (u, v)) of any covariance by
+    forward mode, the directions broadcast to their points' shapes."""
+    # (forward mode writes its tangents into the primals' layout: no
+    # broadcast views)
+    pa, pb = pa.contiguous(), pb.contiguous()
+    dira = dira.expand(pa.shape).contiguous()
+    dirb = dirb.expand(pb.shape).contiguous()
+    jvp = torch.func.jvp
+
+    def da_fn(b):
+        return jvp(lambda a: cov.cov(a, b), (pa,), (dira,))[1]
+
+    v00, v10 = jvp(lambda a: cov.cov(a, pb), (pa,), (dira,))
+    _, v01 = jvp(lambda b: cov.cov(pa, b), (pb,), (dirb,))
+    _, v11 = jvp(da_fn, (pb,), (dirb,))
+    return v00, v10, v01, v11
+
+
 def cov_entry(cov, pa, da, dira, pb, db, dirb):
-    """Covariance between rows a and b of a squared-exponential GP: the
-    points, kinds and directions broadcast ([..., 3] and [...])."""
+    """Covariance between rows a and b: the points, kinds and directions
+    broadcast ([..., 3] and [...])."""
+    if not isinstance(cov, SquaredExponentialCov):
+        k, v10, v01, v11 = _jvp_entries(cov, pa, dira, pb, dirb)
+        fa, fb = _first(da), _first(db)
+        return torch.where(fa & fb, v11, torch.where(
+            fa, v10, torch.where(fb, v01, k)))
     d = pa - pb
     ad = d * cov.aniso
     inv_l2 = 1.0 / (cov.l * cov.l)

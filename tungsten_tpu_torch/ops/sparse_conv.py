@@ -31,6 +31,7 @@ import math
 import torch
 
 from ..utils import rng
+from . import means
 from ..utils.vecmath import (dot, frame_to_local, frame_to_world, inverse3,
                              mat_vec, normalize, tangent_frame)
 
@@ -59,22 +60,39 @@ _LOG_BASE = float(torch.log(torch.tensor(MULTI_RES_BASE,
 
 @dataclasses.dataclass(frozen=True)
 class GP:
-    """Mean + covariance; a CSG union (function-space media only) holds
-    its right child's GP in `csg_right` and is its left child otherwise."""
+    """Mean + covariance.  A CSG union is its left child's GP holding the
+    right child's in `csg_right` (the function-space medium marches both)
+    and the right child's mean in `mean_additional` (the sparse-conv and
+    weight-space media take the min of the two means).  The optional
+    vector fields color_field and emission_field give the scatter color
+    and the volume emission at a point."""
     mean: object
     cov: object
+    mean_additional: object = None
     csg_right: GP | None = None
+    color_field: object = None
+    emission_field: object = None
+
+    def color(self, p):
+        if self.color_field is None:
+            return torch.ones(p.shape, dtype=torch.float32, device=p.device)
+        return self.color_field(p)
+
+    def emission(self, p):
+        if self.emission_field is None:
+            return torch.zeros(p.shape, dtype=torch.float32,
+                               device=p.device)
+        return self.emission_field(p)
 
     def mean_and_id(self, p):
-        """Mean value and the id of the GP that supplies it (always 0: a
-        single mean, no CSG additional mean)."""
-        return self.mean.mean(p), torch.zeros(p.shape[:-1], dtype=torch.int64,
-                                              device=p.device)
+        """The mean's value and the id of the GP that supplies it (1 where
+        the additional mean is the smaller, else 0)."""
+        return means.mean_and_id(self.mean, self.mean_additional, p)
 
     def mean_grad_by_id(self, p, gp_id):
-        """Gradient of the mean that supplied the value (with one mean,
-        that mean's)."""
-        return self.mean.grad(p)
+        """The gradient of the mean that supplied the value."""
+        return means.mean_grad_by_id(self.mean, self.mean_additional, p,
+                                     gp_id)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -420,7 +438,9 @@ def eval_gradient(cfg, gp, p, pss, scene_seed, ray_dir=None, t_segment=None,
     else:
         seed = compute_seed(cfg, pss, scene_seed)
         _, ng = eval_noise3d(cfg, gp, p, seed, coeff3, ray_dir, True)
-    return gp.cov.amplitude(p)[..., None] * ng + gp.mean.grad(p)
+    _, gp_id = gp.mean_and_id(p)
+    return (gp.cov.amplitude(p)[..., None] * ng
+            + gp.mean_grad_by_id(p, gp_id))
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,17 @@ import torch
 
 from ..kernels import noise1d, noise3d
 from ..utils import rng
+from .covariance import apply_form
 from ..utils.vecmath import dot, frame_to_local, normalize, tangent_frame
 from . import sparse_conv as sc
+
+
+def _host_full(kr, m):
+    """(kr, m00, m11, m22, m01, m02, m12) as Python floats from a cell
+    radius and a full [3, 3] splat form: one host read per batch."""
+    return tuple(torch.stack([kr.detach().reshape(()), m[0, 0], m[1, 1],
+                              m[2, 2], m[0, 1], m[0, 2],
+                              m[1, 2]]).detach().tolist())
 
 
 def make_value_at(cfg, gp, ro, rd, pss, scene_seed, coeff3=None):
@@ -54,9 +63,11 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed, coeff3=None):
         kr = cov.splat_radius()
         # the splat form is diagonal: K1 takes its diagonal and kr as
         # tensors (differentiable in l) and by value (one host read for
-        # all four per batch)
+        # all four per batch); a full anisoMtx form goes by value alone
+        # (forward only)
         m3 = cov.splat_form()
-        host = noise3d.host_params(kr, m3)
+        host = (noise3d.host_params(kr, m3) if m3.dim() == 1
+                else _host_full(kr, m3))
         norm = torch.sqrt(cov.variance3(cfg.impulse_density, kr))
     K = cfg.impulse_count
     use_cond = cfg.activate_conditioning
@@ -74,11 +85,14 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed, coeff3=None):
     def value_at(t):
         p = ro + t[:, None] * rd
         ps = ro_s + t[:, None] * rd_s if cfg.isotropic_3d else p
-        total = noise3d.noise3d_sum_s_diff(ps, seed0, kr, m3, K, host)
+        if m3.dim() == 1:
+            total = noise3d.noise3d_sum_s_diff(ps, seed0, kr, m3, K, host)
+        else:
+            total = noise3d.noise3d_sum_s(ps, seed0, host[0], host[1:], K)
         val = total / norm
         if use_cond:
             dd = ps - o_s
-            mdd = m_cond * dd
+            mdd = apply_form(m_cond, dd, m_cond.dim() == 2)
             q0 = dot(mdd, dd)
             d0 = -2.0 * mdd
             val = val + (vsc + d0[:, 0] * gsc[:, 0] + d0[:, 1] * gsc[:, 1]
@@ -101,7 +115,9 @@ def _make_value_at_multi_res(cfg, gp, ro, rd, seed0):
     # the base's unit-scale splat form (diagonal: a tensor, differentiable
     # in l, and its values, read on the host once per batch) and cell radius
     m3 = cov.base.splat_form()
-    host = tuple(m3.detach().tolist())
+    full = m3.dim() == 2  # anisoMtx: the full form, by value, forward only
+    host = tuple(m3.detach().tolist()) if not full else _host_full(
+        m3.new_zeros(()), m3)[1:]
     kr_unit = cov.base.splat_radius()
     dens = cfg.impulse_density
     K = cfg.impulse_count
@@ -115,9 +131,14 @@ def _make_value_at_multi_res(cfg, gp, ro, rd, seed0):
         s = torch.stack([s_lo, s_hi])  # [2, R]
         kr = kr_unit * s
         qm = 1.0 / (s * s)
-        total = noise3d.noise3d_sum_diff(p.repeat(2, 1), seed.reshape(-1),
-                                         kr.reshape(-1), qm.reshape(-1), m3,
-                                         K, host)
+        if full:
+            total = noise3d.noise3d_sum(p.repeat(2, 1), seed.reshape(-1),
+                                        kr.reshape(-1), qm.reshape(-1), host,
+                                        K)
+        else:
+            total = noise3d.noise3d_sum_diff(
+                p.repeat(2, 1), seed.reshape(-1), kr.reshape(-1),
+                qm.reshape(-1), m3, K, host)
         vals = total.reshape(s.shape) / torch.sqrt(cov.variance3(dens, kr, s))
         val = r_lo * vals[0] + r_hi * vals[1]
         mean, gp_id = gp.mean_and_id(p)

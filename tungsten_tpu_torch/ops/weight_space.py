@@ -65,12 +65,15 @@ def project(dirs, v):
             + dirs[..., 2] * v[:, None, 2])
 
 
-def sample_basis(cov, n, key):
-    """n spectral samples for each stream key [R] (words)."""
+def sample_basis(cov, n, key, spectral_loc=None):
+    """n spectral samples for each stream key [R] (words), drawn by the
+    covariance's own `sample_spectral_3d` (a nonstationary one at the
+    points spectral_loc [R, 3] if given)."""
     ctr = torch.arange(n, dtype=torch.int64, device=key.device)
     k = key[:, None]
     offsets = rng.uniform(k, 1_000_000 + ctr) * (2.0 * math.pi)
-    omega = cov.sample_spectral_3d(k, ctr)  # [R, n, 3]
+    loc = None if spectral_loc is None else spectral_loc[:, None, :]
+    omega = cov.sample_spectral_3d(k, ctr, loc)  # [R, n, 3]
     freqs = torch.sqrt(torch.clamp(dot(omega, omega), min=1e-20))
     dirs = omega / freqs[..., None]
     return WeightSpaceBasis(dirs=dirs, freqs=freqs, offsets=offsets)
@@ -105,25 +108,51 @@ def sample_realization(cov, n, pss, global_seed, is_global_ctxt):
         cov, n, realization_key(pss, global_seed, is_global_ctxt))
 
 
-def evaluate(real, gp, p):
-    """f at one point per ray, p [R, 3]; returns (val [R], gp_id [R])."""
+def _sum(terms, dim, f64):
+    """terms summed over `dim` in float32, or (f64) in float64 and rounded
+    once to float32."""
+    if f64:
+        return terms.double().sum(dim=dim).float()
+    return terms.sum(dim=dim)
+
+
+def evaluate(real, gp, p, f64=False):
+    """f at one point per ray, p [R, 3]; returns (val [R], gp_id [R]).
+    With `f64` the sum over the basis runs in float64 and is rounded once
+    to float32 (K5/K4's end point beside the squared exponential)."""
     b = real.basis
     scale = torch.sqrt(gp.cov.cov(p, p))
     phase = project(b.dirs, p) * b.freqs + b.offsets
-    s = (real.weights * torch.cos(phase)).sum(dim=-1) \
+    s = _sum(real.weights * torch.cos(phase), -1, f64) \
         * sqrt_2_over_n(b.n, p.device)
     m, gp_id = gp.mean_and_id(p)
     return scale * s + m, gp_id
 
 
-def evaluate_gradient(real, gp, p):
-    """Analytic gradient of f at p [R, 3] -> [R, 3]."""
+def evaluate_many(real, gp, pts):
+    """f at S points per ray, pts [R, S, 3]; returns (val [R, S], gp_id
+    [R, S])."""
+    b = real.basis
+    scale = torch.sqrt(gp.cov.cov(pts, pts))
+    phase = (torch.matmul(pts, (b.dirs * b.freqs[..., None]).transpose(1, 2))
+             + b.offsets[:, None, :])
+    s = torch.matmul(torch.cos(phase), real.weights[..., None])[..., 0] \
+        * sqrt_2_over_n(b.n, pts.device)
+    m, gp_id = gp.mean_and_id(pts)
+    return scale * s + m, gp_id
+
+
+def evaluate_gradient(real, gp, p, f64=False):
+    """Analytic gradient of f at p [R, 3] -> [R, 3] (`f64` as evaluate's)."""
     b = real.basis
     scale = torch.sqrt(gp.cov.cov(p, p))
     phase = project(b.dirs, p) * b.freqs + b.offsets
     coeff = -torch.sin(phase) * b.freqs * real.weights
-    g = torch.einsum("rn,rnd->rd", coeff, b.dirs) \
-        * sqrt_2_over_n(b.n, p.device)
+    if f64:
+        g = _sum(coeff[..., None] * b.dirs, 1, True)
+    else:
+        g = torch.einsum("rn,rnd->rd", coeff, b.dirs)
+    g = g * sqrt_2_over_n(b.n, p.device)
     _, gp_id = gp.mean_and_id(p)
     return scale[:, None] * g + gp.mean_grad_by_id(p, gp_id)
 
@@ -153,6 +182,62 @@ def cos_interval(lo, hi):
     cmax = torch.where(k_even | wide, 1.0, cmax)
     cmin = torch.where(k_odd | wide, -1.0, cmin)
     return cmin, cmax
+
+
+def range_bound_segment(real, gp, ro, rd, t0, t1):
+    """Interval bound (lo [R], hi [R]) of f over the segments [t0, t1] of
+    the rays: each basis term by the exact cos interval of its affine
+    phase range, the amplitude sqrt(cov) and the mean at the midpoint, the
+    mean +- its Lipschitz constant times the half-length."""
+    b = real.basis
+    a = b.freqs * project(b.dirs, ro) + b.offsets
+    slope = b.freqs * project(b.dirs, rd)
+    th0 = a + slope * t0[:, None]
+    th1 = a + slope * t1[:, None]
+    cmin, cmax = cos_interval(torch.minimum(th0, th1),
+                              torch.maximum(th0, th1))
+    amp = real.weights * sqrt_2_over_n(b.n, ro.device)
+    term_lo = torch.minimum(amp * cmin, amp * cmax)
+    term_hi = torch.maximum(amp * cmin, amp * cmax)
+    pm = ro + (0.5 * (t0 + t1))[:, None] * rd
+    scale = torch.sqrt(gp.cov.cov(pm, pm))
+    n_lo = scale * term_lo.sum(dim=-1)
+    n_hi = scale * term_hi.sum(dim=-1)
+    m_mid, _ = gp.mean_and_id(pm)
+    half = 0.5 * (t1 - t0) * gp.mean.lipschitz()
+    return n_lo + m_mid - half, n_hi + m_mid + half
+
+
+def sphere_trace_segment(real, gp, ro, rd, near, far, min_step=1e-3,
+                         max_iters=256):
+    """The adaptive range-bound root search of every ray over [near, far]:
+    the step grows x1.6 while the segment's bound excludes zero and halves
+    otherwise; a hit when a sign-ambiguous step is at most min_step.
+    Returns (hit [R], t [R], far where nothing was hit).  One host check
+    per iteration ends the loop once every ray is done."""
+    f0, _ = evaluate(real, gp, ro + near[:, None] * rd)
+    sign0 = torch.where(f0 < 0.0, -1.0, 1.0)
+    t = near
+    step = torch.clamp((far - near) * 0.05, min=min_step)
+    done = torch.zeros_like(near, dtype=torch.bool)
+    hit = torch.zeros_like(done)
+    for _ in range(max_iters):
+        if bool(done.all()):
+            break
+        lo, hi = range_bound_segment(real, gp, ro, rd, t, t + step)
+        no_cross = torch.where(sign0 > 0, lo > 0.0, hi < 0.0)
+        converged = ~no_cross & (step <= min_step)
+        t_new = torch.where(no_cross, t + step, t)
+        step_new = torch.where(no_cross, step * 1.6, step * 0.5)
+        step_new = torch.clamp(step_new, min=min_step * 0.5)
+        exited = t_new >= far
+        upd = ~done
+        t = torch.where(upd, t_new, t)
+        step = torch.where(upd, torch.minimum(step_new, far - t_new + 1e-6),
+                           step)
+        hit = hit | (upd & converged)
+        done = done | converged | exited
+    return hit, torch.where(hit, t, far)
 
 
 # (ray, basis function) pairs per chunk of `noise_at`
