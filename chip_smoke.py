@@ -56,8 +56,8 @@ and read just after:
 - config 2's hyperparameter gradient: the two-segment d sum(t1 + t2) /
   d(sigma, l) on 32 rays (the second segment conditioned at its start)
   against central FD over the lanes FD resolves and against the CPU, and
-  3 training steps at its own 256x256, 16 spp, depth 2 (4 groups of 4
-  samples; K1 forward, K1b backward);
+  3 training steps at its own 256x256, depth 2, at 8 of its 16 spp (2
+  groups of 4 samples; K1 forward, K1b backward);
 - BASELINE config 4b (scenes/gpis-function-space.json) and its CSG union
   (scenes/gpis-csg.json), function space, renewal+, K8 alone: 128x128,
   8 spp through the CLI, then under torch.profiler with host syncs, peak
@@ -102,7 +102,28 @@ and read just after:
   fallback (no kernel, as in the JAX package).  Each 128x128 image is held
   by 8x8 bucket means against the port's own CPU render of the same scene
   at 32x32 and the same spp, rendered in spawned one-thread processes
-  from the start of the run (this phase comes last).
+  from the start of the run (this phase comes last);
+- the rest of the GP layer's forward (tools/gp_variants.py, in the same
+  phase): config 4b under the Global context (each ray's ring of 16
+  conditioning rows), the None context (the constrained prior), with
+  skip_space (its mean skipped length printed) and under Global
+  conditioned on a sphere mesh, each through K8 alone, with host syncs,
+  peak memory and K8's share of device time under torch.profiler; the
+  hero at its own 1920x1080, 1 spp with brute-force nonstationary noise
+  (K2 on the branch's own per-lane arguments, which a launch of the
+  render hands it and which are held against the twin), isotropic-ray
+  sampling (K1 on both levels), renewal+ conditioning (K2), 1D sampling
+  (the multi-resolution general evaluator: no kernel, as in the JAX
+  package) and surface/volume phase ids with GGX normals (K2); config 1
+  with isotropic-ray sampling, with an anisoMtx there, with a mirror
+  phase and with a mirror back wall (K1); config 3 under renewal and with
+  an anisoMtx (K3).  Each image against the port's CPU render of the
+  same scene at the same spp (the hero's at 48x27, 3x3 buckets); K8 at
+  the new sizes (the Global ring's 16, on random conditioning blocks:
+  under config 4b's one chunk a segment and depth 2 the ring's blocks
+  are diagonal; the chunk's 32, on the matrices an fs-global render
+  hands it) against its twin, timed at 4096 matrices beside its bound,
+  its twin and torch.linalg.eigh.
 It checks each image, shows that every weight-space search was one launch
 with no host sync inside, prints config 4a's host syncs, realization
 synthesis and peak memory beside the earlier design's recorded numbers,
@@ -127,6 +148,8 @@ over it, and of config 4a (both step sizes) with K5's or K4's.
 """
 import argparse
 import concurrent.futures
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -366,6 +389,18 @@ WS_TAG_RAYS = (131072,)  # past the most rays a variant render launches on
 VARIANT_CPU_RES = 32
 VARIANT_CPU_WORKERS = 6
 VARIANT_BUCKETS = 8
+# the variants of the rest of the GP layer's forward: their host syncs
+# are counted and the function-space ones' K8 share profiled
+SLICE_VARIANTS = ("fs-global", "fs-none", "fs-skip", "fs-conditioned",
+                  "hero-bruteforce", "hero-iso", "hero-renewal", "hero-1d",
+                  "hero-surfvol", "box-iso", "box-iso-aniso",
+                  "box-mirror-phase", "box-mirror-surface", "m1d-renewal",
+                  "m1d-aniso")
+# the hero's variants' CPU image keeps their 16:9 aspect: (W, H), buckets
+# a side
+VARIANT_CPU_SHAPE = {n: ((48, 27), 3) for n in SLICE_VARIANTS
+                     if n.startswith("hero")}
+K8_NEW_SIZES = (16, 32)  # the Global ring's solve, the chunk's root
 
 
 def ws_work(name, n, rays, rays_eval, steps, refined, tag="se"):
@@ -771,19 +806,27 @@ VARIANT_KERNELS = {
     "ws-matern": (("K5",), "matern"), "ws-matern-trace": (("K4",), "matern"),
     "fs-matern": (("K8",), None), "box-knob": (("K1",), None),
     "box-mesh": (("K1",), None), "box-ggx": (("K1",), None),
-    "box-csg": (("K1",), None), "ws-linear": ((), None)}
+    "box-csg": (("K1",), None), "ws-linear": ((), None),
+    "fs-global": (("K8",), None), "fs-none": (("K8",), None),
+    "fs-skip": (("K8",), None), "fs-conditioned": (("K8",), None),
+    "hero-bruteforce": (("K2",), None), "hero-iso": (("K1",), None),
+    "hero-renewal": (("K2",), None), "hero-1d": ((), None),
+    "hero-surfvol": (("K2",), None), "box-iso": (("K1",), None),
+    "box-iso-aniso": (("K1",), None), "box-mirror-phase": (("K1",), None),
+    "box-mirror-surface": (("K1",), None), "m1d-renewal": (("K3",), None),
+    "m1d-aniso": (("K3",), None)}
 
 
 def variant_docs(tmp):
     """The GP layer's variant scenes: {label: (scene dict, spp, the kernels
-    the render goes through, the K5/K4 tag)}."""
+    the render goes through, the K5/K4 tag, the variant's name)}."""
     from tungsten_tpu_torch.tools.gp_variants import variant_docs as docs
-    return {label: (doc, spp, *VARIANT_KERNELS[name])
+    return {label: (doc, spp, *VARIANT_KERNELS[name], name)
             for name, (label, doc, spp) in docs(tmp).items()}
 
 
-def cpu_reference(doc, spp):
-    """The port's CPU render of scene dict `doc` at VARIANT_CPU_RES, spp
+def cpu_reference(doc, spp, res=(VARIANT_CPU_RES, VARIANT_CPU_RES)):
+    """The port's CPU render of scene dict `doc` at res (W, H), spp
     samples one a pass, as a mean image (numpy), and its wall seconds: run
     in a process of its own, on one thread."""
     torch.set_num_threads(1)
@@ -792,7 +835,7 @@ def cpu_reference(doc, spp):
     from tungsten_tpu_torch.scene.parse import scene_from_dict
     t0 = time.perf_counter()
     doc = json.loads(json.dumps(doc))
-    doc["camera"]["resolution"] = [VARIANT_CPU_RES] * 2
+    doc["camera"]["resolution"] = list(res)
     scene, _ = scene_from_dict(doc, device="cpu")
     img = sum(render_pass(scene, s) for s in range(spp)) / spp
     return img.numpy(), time.perf_counter() - t0
@@ -808,66 +851,303 @@ def start_cpu_references(tmp):
     docs = variant_docs(tmp)
     pool = concurrent.futures.ProcessPoolExecutor(
         VARIANT_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
-    return docs, pool, {what: pool.submit(cpu_reference, doc, spp)
-                        for what, (doc, spp, _, _) in docs.items()}
+    # the slice's first: the phase renders them last
+    order = sorted(docs.items(), key=lambda kv: kv[1][4] not in
+                   SLICE_VARIANTS)
+    futures = {}
+    for what, (doc, spp, _, _, name) in order:
+        res, _ = VARIANT_CPU_SHAPE.get(
+            name, ((VARIANT_CPU_RES, VARIANT_CPU_RES), VARIANT_BUCKETS))
+        futures[what] = pool.submit(cpu_reference, doc, spp, res)
+    return docs, pool, futures
+
+
+class LaunchCapture:
+    """Wraps K2's raw wrapper, as the march calls it, to keep the inputs
+    of its first launch on at least `least` points; the launches stay the
+    render's."""
+
+    def __init__(self, noise3d, least):
+        self.noise3d, self.least, self.args = noise3d, least, None
+        self.fn = noise3d.noise3d_sum
+
+    def __enter__(self):
+        def launch(p, seed, kr, qm, m6, K):
+            if self.args is None and p.shape[0] >= self.least:
+                self.args = (p.clone(), seed.clone(), kr.clone(), qm.clone(),
+                             tuple(float(v) for v in m6), K)
+            return self.fn(p, seed, kr, qm, m6, K)
+        self.noise3d.noise3d_sum = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.noise3d.noise3d_sum = self.fn
+
+
+def k2_brute_force_check(noise3d, args, work, card_line):
+    """K2 against its twin on a brute-force launch's own arguments (one
+    cell radius for all lanes, per-lane form scales), atol K2_ATOL, and
+    timed beside its bound."""
+    p, seed, kr, qm, m6, K = args
+    got = noise3d.noise3d_sum(p, seed, kr, qm, m6, K)
+    want = noise3d.noise3d_sum_ref(p, seed, kr, qm, m6, K)
+    err = float((got - want).abs().max())
+    t_k = kernel_device_ms(lambda: noise3d.noise3d_sum(p, seed, kr, qm, m6,
+                                                       K),
+                           "noise3d_sum_kernel", reps=5)
+    b_ms, _, b_cls = bound_ms(*per_points(work, p.shape[0]))
+    check_bound("K2 on the brute-force launch", t_k, b_ms)
+    print(f"K2 on a brute-force launch's own arguments ({p.shape[0]} points,"
+          f" cell radius {float(kr[0]):.5f} for all, form scales "
+          f"{float(qm.min()):.4f}-{float(qm.max()):.4f}): max |kernel - "
+          f"twin| = {err:.3e} (atol {K2_ATOL}); device {t_k:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_cls}), {b_ms / t_k:.3f} of it ({card_line})",
+          flush=True)
+    if err > K2_ATOL or not bool(torch.isfinite(got).all()):
+        raise RuntimeError("K2 disagrees with its twin on the brute-force "
+                           "branch's arguments")
+    return err
+
+
+class CoupledCapture:
+    """Wraps K8's wrapper to keep the first `most` matrices of each size in
+    `sizes` that a render hands it with an off-diagonal entry (a ring with
+    no row yet, or with only the two rows of one crossing, gives a
+    diagonal block, which K8 leaves at once), and to count all and the
+    coupled ones by size; the launches stay the render's."""
+
+    def __init__(self, psd, sizes, most):
+        self.psd, self.sizes, self.most = psd, sizes, most
+        self.mats = {n: [] for n in sizes}
+        self.seen = {n: [0, 0] for n in sizes}
+        self.eigh = psd.eigh
+
+    def __enter__(self):
+        def eigh(a, sweeps=False):
+            n = a.shape[-1]
+            if n in self.mats:
+                flat = a.reshape(-1, n, n)
+                off = flat - torch.diag_embed(flat.diagonal(dim1=1, dim2=2))
+                keep = flat[off.abs().amax((1, 2)) > 0]
+                self.seen[n][0] += flat.shape[0]
+                self.seen[n][1] += keep.shape[0]
+                have = sum(x.shape[0] for x in self.mats[n])
+                if have < self.most:
+                    self.mats[n].append(keep[:self.most - have].clone())
+            return self.eigh(a, sweeps)
+        self.psd.eigh = eigh
+        return self
+
+    def __exit__(self, *exc):
+        self.psd.eigh = self.eigh
+
+
+def k8_share(trender, psd, counters, scene, what, spp, card_line,
+             tries=3):
+    """A function-space render on the card under torch.profiler (device
+    activity only, read from its raw events) with the launch counts at 0
+    just before: K8's device time and share of the render's, K8 alone
+    launched, no solver kernel.  After the spawned ranks of the sharded
+    phases the profiler may record no device activity at all (PERF.md,
+    PR 13): the render is profiled again, up to `tries` times, and the
+    share printed as not measured if none recorded any (None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    for _ in range(tries):
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            trender.render(scene, spp, device="cuda")
+            torch.cuda.synchronize()
+        check_counts(counters, ("K8",), what)
+        total = k8 = 0.0
+        solver = set()
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA:
+                continue
+            us = e.duration_ns() / 1e3
+            total += us
+            if "jacobi_eigh_kernel" in e.name():
+                k8 += us
+            elif any(w in e.name().lower() for w in SOLVER_WORDS):
+                solver.add(e.name())
+        if solver:
+            raise RuntimeError(f"{what}: a solver kernel ran: "
+                               f"{sorted(solver)}")
+        if total > 0.0:
+            break
+    if total <= 0.0:
+        print(f"{what} under the profiler, {spp} spp: K8's share of device "
+              f"time not measured (the profiler recorded no device "
+              f"activity in {tries} renders)", flush=True)
+        return None
+    if k8 <= 0.0:
+        raise RuntimeError(f"{what}: the profiler saw device time but none "
+                           "of K8's")
+    print(f"{what} under the profiler, {spp} spp: device time "
+          f"{total / 1e3:.1f} ms, K8 {k8 / 1e3:.1f} ms, {k8 / total:.3f} of "
+          f"it; no cuSOLVER kernel ({card_line})", flush=True)
+    return k8 / total
+
+
+def k8_new_sizes(trender, psd, gpmod, scene, card_line):
+    """K8 at the Global and None contexts' sizes (K8_NEW_SIZES): against
+    its twin on the first K8_CAPTURE coupled matrices of each size that a
+    render of `scene` hands it (where the render hands it fewer than
+    K8_LINE, on as many random conditioning blocks of that size,
+    `fs_blocks`), then timed at K8_LINE of them (device time), beside its
+    bound, its twin (the CPU) and torch.linalg.eigh (the card).  Returns
+    {n: the kernels line's numbers}."""
+    with CoupledCapture(psd, K8_NEW_SIZES, K8_CAPTURE) as cap:
+        trender.render(scene, 8, device="cuda")
+    out = {}
+    for n in K8_NEW_SIZES:
+        total, coupled = cap.seen[n]
+        print(f"fs-global's pass handed K8 {total} matrices {n}x{n}, "
+              f"{coupled} of them with an off-diagonal entry", flush=True)
+        if coupled >= K8_LINE:
+            a_all, what = torch.cat(cap.mats[n]), f"fs-global's pass, n = {n}"
+        else:
+            a_all = fs_blocks(gpmod, scene.media[0].gp.cov, K8_CAPTURE,
+                              n - 2, "cuda", n)[0]
+            what = f"random conditioning blocks, n = {n}"
+        err, _, mean, most = k8_against_twin(psd, gpmod, a_all, None, what)
+        mats = {n: a_all}
+        a = mats[n][:K8_LINE].contiguous()
+        B = a.shape[0]
+        sweeps = int(psd.eigh(a, sweeps=True)[2].sum())
+        # CUDA events: after the spawned ranks of the sharded phases the
+        # profiler may record no device activity (PERF.md, PR 13)
+        k8_ms = median_ms(lambda: psd.eigh(a))
+        plain_ms = median_ms(lambda: psd.eigh_ref(a.cpu()), reps=1)
+        lib_ms, _ = k8_library(a, k8_ms, card_line, f"[{B}, {n}, {n}] {what}")
+        b_ms, b_by, b_cls = bound_ms(*k8_work(n, sweeps, B))
+        check_bound(f"K8 at [{B}, {n}, {n}]", k8_ms, b_ms)
+        print(f"K8 at [{B}, {n}, {n}]: {k8_ms:.4f} ms (median of 20, CUDA "
+              f"events), twin "
+              f"{plain_ms:.3f} ms, torch.linalg.eigh {lib_ms:.3f} ms; bound "
+              f"{b_ms:.4f} ms ({b_cls}; {sweeps} sweeps in all), "
+              f"{b_ms / k8_ms:.3f} of it ({card_line})", flush=True)
+        out[n] = {"max_abs_err": err, "ms": k8_ms, "plain_ms": plain_ms,
+                  "bound_ms": b_ms, "bound_by": b_by, "bound_class": b_cls,
+                  "library_ms": lib_ms, "sweeps": [mean, most]}
+    return out
 
 
 def gp_layer_variants(trender, scene_from_dict, wst, searches, counters,
-                      psd, gpmod, dev, docs, cpu_refs, tmp, card_line):
+                      psd, gpmod, noise3d, lattice, dev, docs, cpu_refs, tmp,
+                      card_line):
     """The GP layer's variant renders (variant_docs) through the CLI at
-    128x128, each with the launch counts set to 0 just before and read just
-    after, held by bucket means against the port's CPU render at 32x32
-    (`cpu_refs`: futures of cpu_reference); config 4b's Matern matrices
-    against K8's twin.  Returns {(kernel, tag): launches} of the K5/K4 tag
-    renders."""
-    tag_launches = {}
-    for what, (doc, spp, used, tag) in docs.items():
-        phase(f"{what} (128x128, {spp} spp) through the CLI, against the "
-              f"CPU at {VARIANT_CPU_RES}x{VARIANT_CPU_RES}")
+    their scenes' own size, each with the launch counts set to 0 just
+    before and read just after, held by bucket means against the port's
+    CPU render (`cpu_refs`: futures of cpu_reference); the function-space
+    variants' matrices against K8's twin.  The new variants (SLICE_VARIANTS)
+    also count their host syncs; their function-space ones render again
+    under the profiler for K8's share of device time, and fs-global's
+    matrices hold K8 at its new sizes; hero-bruteforce's first K2 launch
+    is held against the twin on its own arguments.  Returns ({(kernel,
+    tag): launches} of the K5/K4 tag renders, {n: K8's numbers at the new
+    sizes}, {n: K8's launches at the new sizes})."""
+    from tungsten_tpu_torch.models import fs_medium
+    tag_launches, k8_new, k8_by_n = {}, {}, {n: 0 for n in K8_NEW_SIZES}
+    for what, (doc, spp, used, tag, name) in docs.items():
+        new = name in SLICE_VARIANTS
+        res, nb = VARIANT_CPU_SHAPE.get(
+            name, ((VARIANT_CPU_RES, VARIANT_CPU_RES), VARIANT_BUCKETS))
+        W, H = doc["camera"]["resolution"]
+        phase(f"{what} ({W}x{H}, {spp} spp) through the CLI, against the "
+              f"CPU at {res[0]}x{res[1]}")
         t0 = time.perf_counter()
         path = os.path.join(tmp, "variant.json")
         with open(path, "w") as fh:
             json.dump(doc, fh)
         zero_counts(counters)
+        psd.LAUNCHES_BY_N.clear()
         wst.LAUNCHES_BY_TAG.clear()
         searches.reset()
-        img, wall, peak = render_cli(trender, path, spp, tmp, "variant")
+        fs_medium.SKIPPED.update(length=0.0, rays=0)
+        capture = LaunchCapture(noise3d, 1 << 16)
+        box = []
+
+        def run():
+            box.append(render_cli(trender, path, spp, tmp, "variant"))
+        with capture if name == "hero-bruteforce" else \
+                contextlib.nullcontext():
+            syncs = host_syncs(run) if new else run()
+        img, wall, peak = box[0]
         counts = check_counts(counters, used, what)
-        for name in used:
-            if name in WS_FNS:
-                searches.check(name, what, max(WS_TAG_RAYS))
-                key = ({"K5": "ws_march", "K4": "ws_trace"}[name], tag)
-                tag_launches[(name, tag)] = wst.LAUNCHES_BY_TAG.get(key, 0)
+        for n in K8_NEW_SIZES:
+            k8_by_n[n] += psd.LAUNCHES_BY_N.get(n, 0)
+        for kname in used:
+            if kname in WS_FNS:
+                searches.check(kname, what, max(WS_TAG_RAYS))
+                key = ({"K5": "ws_march", "K4": "ws_trace"}[kname], tag)
+                tag_launches[(kname, tag)] = wst.LAUNCHES_BY_TAG.get(key, 0)
                 if set(wst.LAUNCHES_BY_TAG) != {key}:
                     raise RuntimeError(f"{what} launched other instances: "
                                        f"{wst.LAUNCHES_BY_TAG}")
-        lum = check_image(img, what)
+        lum = check_image(img, what, (H, W, 3))
         t1 = time.perf_counter()
         cpu_img, cpu_s = cpu_refs[what].result()
         waited = time.perf_counter() - t1
-        ratio, bad = bucket_compare(img, cpu_img)
-        print(f"mean luminance {lum:.4f}; launches {counts}; {wall:.2f} s "
-              f"with scene load, peak device memory {peak / 2 ** 30:.2f} GiB"
-              f" ({card_line}); against the CPU's {VARIANT_CPU_RES}x"
-              f"{VARIANT_CPU_RES}, {spp}-spp render ({cpu_s:.1f} s in its "
-              f"process, {waited:.1f} s waited for): energy ratio "
-              f"{ratio:.4f} (0.9-1.1), {VARIANT_BUCKETS}x{VARIANT_BUCKETS} "
-              f"buckets bad {bad:.4f} (< 0.08)", flush=True)
+        ratio, bad = bucket_compare(img, cpu_img, nb)
+        extra = ""
+        if new:
+            extra = f", {syncs} host syncs"
+            if psd.LAUNCHES_BY_N:
+                extra += ", K8 launches by n " + ", ".join(
+                    f"{n}: {c}" for n, c in sorted(psd.LAUNCHES_BY_N.items()))
+            if fs_medium.SKIPPED["rays"]:
+                extra += (f", mean skipped length "
+                          f"{float(fs_medium.SKIPPED['length']) / fs_medium.SKIPPED['rays']:.4f}"
+                          f" over {fs_medium.SKIPPED['rays']} segments")
+        print(f"mean luminance {lum:.4f}; launches {counts}{extra}; "
+              f"{wall:.2f} s with scene load, peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB ({card_line}); against the CPU's "
+              f"{res[0]}x{res[1]}, {spp}-spp render ({cpu_s:.1f} s in "
+              f"its process, {waited:.1f} s waited for): energy ratio "
+              f"{ratio:.4f} (0.9-1.1), {nb}x{nb} buckets bad {bad:.4f} "
+              f"(< 0.08)", flush=True)
         if not (0.9 < ratio < 1.1 and bad < 0.08):
             raise RuntimeError(f"{what} disagrees with the CPU render")
+        if name == "hero-bruteforce":
+            if capture.args is None:
+                raise RuntimeError("hero-bruteforce made no K2 launch of "
+                                   "2^16 points or more")
+            k2_brute_force_check(noise3d, capture.args, lattice["K2"],
+                                 card_line)
         if "K8" in used:
             scene = scene_from_dict(doc, device=dev)[0]
-            with EighCapture(psd, gpmod, K8_CAPTURE) as cap:
-                trender.render(scene, spp, device=dev)
-            mats, (s11, s12) = cap.sets()
-            for n, a in sorted(mats.items()):
-                if n != s11.shape[-1]:
-                    k8_against_twin(psd, gpmod, a, None, f"{what}, n = {n}")
-            k8_against_twin(psd, gpmod, s11, s12,
-                            f"{what}, the normal solves' blocks",
-                            schur_gate=False)
+            gc = scene.media[0].gp.global_cond
+            if gc is not None:
+                from tungsten_tpu_torch.scene import parse as tparse
+                free = dataclasses.replace(scene.media[0].gp,
+                                           global_cond=None)
+                gdoc = doc["media"][0]["gaussian_process"]
+                tparse._global_cond(free, gdoc, dev, tmp)  # warm
+                solve_s = timed(lambda: tparse._global_cond(free, gdoc, dev,
+                                                            tmp))
+                print(f"{what}: the scene-load solve of its "
+                      f"{gc.pts.shape[0]} mesh rows (K11 and its float64 "
+                      f"pseudo-inverse by torch.linalg.eigh, alpha) "
+                      f"{solve_s * 1e3:.1f} ms ({card_line})", flush=True)
+            if new:
+                k8_share(trender, psd, counters, scene, what, spp, card_line)
+            if name == "fs-global":
+                k8_new = k8_new_sizes(trender, psd, gpmod, scene, card_line)
+            elif not new:
+                with EighCapture(psd, gpmod, K8_CAPTURE) as cap:
+                    trender.render(scene, spp, device=dev)
+                mats, (s11, s12) = cap.sets()
+                for n, a in sorted(mats.items()):
+                    if n != s11.shape[-1]:
+                        k8_against_twin(psd, gpmod, a, None,
+                                        f"{what}, n = {n}")
+                k8_against_twin(psd, gpmod, s11, s12,
+                                f"{what}, the normal solves' blocks",
+                                schur_gate=False)
         done_print(t0)
-    return tag_launches
+    return tag_launches, k8_new, k8_by_n
 
 
 def done_print(t0):
@@ -2976,12 +3256,14 @@ def main():
                             ENS_SCENE)
     done(t0)
 
-    phase(f"config 2's training step (256x256, 16 spp, depth 2, in 4 groups "
+    # (8 of the scene's 16 spp: the run's time limit leaves room for the
+    # GP layer's variants)
+    phase(f"config 2's training step (256x256, 8 spp, depth 2, in 2 groups "
           f"of 4 samples): {TRAIN_STEPS} steps of entry.train_step")
     t0 = time.perf_counter()
     k1b_ens = train_steps(entry, counters, load_scene, dev, card_line,
                           "config 2", ENS_SCENE, TRAIN_STEPS,
-                          (256, 256, 16, 2), ("K1", "K1b"))["K1b"]
+                          (256, 256, 8, 2), ("K1", "K1b"), spp=8)["K1b"]
     done(t0)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3157,9 +3439,10 @@ def main():
     # done by now
     t_variants = time.perf_counter()
     try:
-        tag_launches = gp_layer_variants(
+        tag_launches, k8_new, k8_by_n = gp_layer_variants(
             trender, scene_from_dict, wst, searches, counters, psd, gpmod,
-            dev, variant_docs_, cpu_refs, variant_tmp, card_line)
+            noise3d, lattice, dev, variant_docs_, cpu_refs, variant_tmp,
+            card_line)
     finally:
         cpu_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(variant_tmp, ignore_errors=True)
@@ -3215,6 +3498,13 @@ def main():
         "source": "tungsten_tpu_torch/csrc/psd.cu",
         "replaces": "tungsten_tpu/ops/gp.py:127,148 jnp.linalg.eigh",
         "launches": sum(fs_k8.values()), **k8_numbers})
+    for n, numbers in sorted(k8_new.items()):
+        kernels.append({
+            "name": f"K8 jacobi_eigh (n = {n}: the function-space Global and "
+                    "None contexts)", "route": "cuda",
+            "source": "tungsten_tpu_torch/csrc/psd.cu",
+            "replaces": "tungsten_tpu/ops/gp.py:127,148 jnp.linalg.eigh",
+            "launches": k8_by_n[n], **numbers})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

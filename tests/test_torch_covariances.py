@@ -231,7 +231,7 @@ def _scene_doc(name):
 ])
 def test_gradient_of_the_new_types_is_refused(edit, what):
     """The gradient entry points raise by name on the GP types whose
-    gradient is not ported (ROADMAP item 16b), before rendering."""
+    gradient is not ported (ROADMAP item 16c), before rendering."""
     from tungsten_tpu_torch import entry
     from tungsten_tpu_torch.scene.parse import scene_from_dict
     doc = _scene_doc("gpis-weight-space.json")
@@ -243,10 +243,15 @@ def test_gradient_of_the_new_types_is_refused(edit, what):
 
 @pytest.mark.parametrize("option", ["isotropic_3D_sampling", "1D_sampling"])
 def test_aniso_mtx_with_1d_or_isotropic_sampling_is_refused(option):
+    """The forward render of anisoMtx with 1D or isotropic sampling is
+    ported (tests/test_torch_sc_branches.py); its gradient is refused by
+    name (ROADMAP item 16c)."""
+    from tungsten_tpu_torch import entry
     from tungsten_tpu_torch.scene.parse import scene_from_dict
     doc = _scene_doc("gpis-sphere-box.json")
     med = doc["media"][0]
     med[option] = True
     med["gaussian_process"]["covariance"] = COVS["se_mtx"]
+    scene, _ = scene_from_dict(doc, device="cpu")
     with pytest.raises(NotImplementedError, match="anisoMtx"):
-        scene_from_dict(doc, device="cpu")
+        entry.fwd_bwd(scene, 0)

@@ -224,11 +224,11 @@ def _doc(path, **medium):
 
 
 @pytest.mark.parametrize("medium, what", [
-    ({"correlation_context": "global"}, "'global' correlation context"),
-    ({"correlation_context": "none"}, "'none' correlation context"),
-    ({"skip_space": 0.1}, "skip_space"),
+    ({"correlation_context": "global"}, "CSG union under the Global"),
+    ({"correlation_context": "bogus"}, "correlation_context"),
+    ({"normal_method": "bogus"}, "normal_method"),
     ({"sample_points": 64}, "sample_points 64"),
-    ({"surf_vol_phase_separate": True}, "surf_vol_phase_separate"),
+    ({"type": "homogeneous"}, "medium type"),
     ({"transmittance": {"type": "linear"}}, "transmittance"),
 ])
 def test_unported_options_are_refused_by_name(medium, what):

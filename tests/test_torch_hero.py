@@ -383,12 +383,15 @@ def test_tiled_render_equals_untiled(monkeypatch):
 
 
 @pytest.mark.parametrize("edit, what", [
-    (lambda m, c: c.update(multiResolutionGrid=False), "brute-force"),
-    (lambda m, c: m.update({"1D_sampling": True}), "1D sampling"),
-    (lambda m, c: m.update(correlation_context="renewal+"), "renewal"),
+    (lambda m, c: m.update(transmittance={"type": "linear"}),
+     "transmittance"),
+    (lambda m, c: m.update(correlation_context="bogus"),
+     "correlation_context"),
+    (lambda m, c: m.update(phase_function={"type": "isotropic"}),
+     "phase function"),
     (lambda m, c: c.update(cov={"type": "rational_quadratic"}),
      "RationalQuadraticCov"),
-    (lambda m, c: m.update(isotropic_3D_sampling=True), "isotropic"),
+    (lambda m, c: m.update(type="homogeneous"), "medium type"),
 ])
 def test_parser_refuses_what_the_slice_does_not_port(edit, what):
     with open(SCENE) as fh:

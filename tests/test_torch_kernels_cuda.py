@@ -1,7 +1,10 @@
 """Kernels K1, K1b, K2, K2b, K3, K3b, K5, K4 and K8 on the card, against
-their plain PyTorch twins, the config-1, config-4a, config-3 and hero
-renders on the card against the same renders on the CPU, the
-function-space renders (config 4b and its CSG union) through K8 alone,
+their plain PyTorch twins (K2 also on the brute-force nonstationary
+branch's arguments, K8 also at the Global and None contexts' sizes), the
+config-1, config-4a, config-3 and hero renders on the card against the
+same renders on the CPU, the function-space renders (config 4b and its
+CSG union) through K8 alone, its Global, None, skip and mesh-conditioned
+variants against the CPU,
 the training steps of configs 1, 3 and 5 on the card against the same
 steps on the CPU, a render sharded over two gloo ranks that share the
 card against the single-process render, and `dryrun_multichip` on the
@@ -297,6 +300,53 @@ def test_k2_kernel_matches_twin_on_the_card(cuda, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("iso", [False, True])
+def test_k2_kernel_on_brute_force_arguments_matches_twin_on_the_card(cuda,
+                                                                     iso):
+    """K2 on the brute-force nonstationary branch's launch arguments
+    (tools/gp_variants.py's hero-bruteforce): one cell radius for every
+    lane (the base's at max(ls) in world space, kernel_scale in isotropic
+    space), the per-lane form scale 1 / (ls(p) / max(ls))^2 (over max(ls)^2
+    in world space) and, in world space, the seeds offset by the level of
+    max(ls); atol 1e-5 of the twin."""
+    from tungsten_tpu_torch.tools.gp_variants import variant_docs
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = variant_docs(tmp)["hero-bruteforce"][1]
+        scene, _ = scene_from_dict(doc, device="cpu")
+    cov = scene.media[0].gp.cov
+    r = np.random.default_rng(31)
+    n = (1 << 18) + 5
+    p = torch.from_numpy(r.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+                         + np.float32([0.0, 0.9, 0.0]))
+    ml = torch.tensor(cov.max_ls)
+    ls = cov.nonstat_splat_kernel_scale(p)
+    inv = 1.0 / torch.clamp(ls * ls, min=1e-12)
+    seed = torch.from_numpy(r.integers(0, 2 ** 32, n, dtype=np.uint64)
+                            .astype(np.int64))
+    if iso:
+        kr_f, qm, m6 = cov.splat_radius_iso(), inv, (0.5, 0.5, 0.5, 0, 0, 0)
+        p = cov.pos_world_to_local(p)
+    else:
+        kr_f = float(cov.base.splat_radius() * ml)
+        qm = inv / (ml * ml)
+        m6 = tuple(cov.base.splat_form().tolist()) + (0.0, 0.0, 0.0)
+        seed = (seed + int(np.floor(np.log(np.float32(cov.max_ls))
+                                    / np.log(np.float32(2.5))))) % 2 ** 32
+    kr = torch.full((n,), kr_f)
+    before = noise3d.K2_LAUNCHES
+    got = noise3d.noise3d_sum(p.contiguous().to(cuda), seed.to(cuda),
+                              kr.to(cuda), qm.contiguous().to(cuda), m6, 3)
+    torch.cuda.synchronize()
+    assert noise3d.K2_LAUNCHES == before + 1
+    want = noise3d.noise3d_sum_ref(p.contiguous(), seed, kr, qm.contiguous(),
+                                   m6, 3)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+    assert float(want.abs().max()) > 0.1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("K", [1, 3])
 def test_k2b_kernel_matches_twin_on_the_card(cuda, K):
     scene, _ = load_scene(HERO_SCENE, device="cpu")
@@ -499,15 +549,16 @@ def _k8_blocks(n, B, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2, 3, 8, 9, 17, 33, 34, 64])
+@pytest.mark.parametrize("n", [1, 2, 3, 8, 9, 16, 17, 32, 33, 34, 64])
 def test_k8_kernel_matches_twin_on_the_card(cuda, n):
     """K8 against torch.linalg.eigh with chip_smoke.py's limits (the
     root's is tests/test_torch_gp.py's): V diag(W) V^T within 1e-5 max|w| of A, V^T V
     within 1e-5 of I, W within 1e-5 max|w|, the symmetric root within
     2e-3 sqrt(max|w|).  The path's sizes (3, 33, 34) have instances of
     their own; 1, 2 and 8 take the generic 32-thread one, 9 (the first
-    size above it), 17 (odd: a padding pair each round) and 64 (above 48 KB
-    of shared memory) the generic 128-thread one."""
+    size above it), 16 (the Global context's ring), 17 (odd: a padding
+    pair each round), 32 (the Global and None contexts' chunk) and 64
+    (above 48 KB of shared memory) the generic 128-thread one."""
     from tungsten_tpu_torch.kernels import psd
     a = _k8_blocks(n, 2048, n) if n > 3 else torch.from_numpy(
         np.random.default_rng(n).normal(size=(2048, n, n)).astype(
@@ -557,6 +608,34 @@ def test_fs_render_on_the_card_goes_through_k8_alone(cuda, stem):
     assert psd.LAUNCHES > before[0]
     assert (noise3d.LAUNCHES, noise1d.LAUNCHES, wst.MARCH_LAUNCHES,
             wst.TRACE_LAUNCHES) == before[1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fs-global", "fs-none", "fs-skip",
+                                  "fs-conditioned"])
+def test_fs_context_renders_on_the_card_go_through_k8_and_match_cpu(cuda,
+                                                                    name):
+    """The function-space Global, None, skip and mesh-conditioned variants
+    (tools/gp_variants.py) at 8x8, 2 spp on the card: K8 launched and no
+    other kernel; against the same render on the CPU, means within 5%
+    (each chunk's root is drawn through K8 on the card and its twin on
+    the CPU, and the Global ring carries a ray's differences into its
+    later segments)."""
+    from tungsten_tpu_torch.kernels import psd
+    from tungsten_tpu_torch.tools.gp_variants import variant_docs
+    import json
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = json.loads(json.dumps(variant_docs(tmp)[name][1]))
+        doc["camera"]["resolution"] = [8, 8]
+        scenes = {d: scene_from_dict(doc, device=d)[0]
+                  for d in ("cpu", "cuda")}
+    before = (psd.LAUNCHES, noise3d.LAUNCHES)
+    got = trender.render(scenes["cuda"], 2, device="cuda").cpu().numpy()
+    assert psd.LAUNCHES > before[0] and noise3d.LAUNCHES == before[1]
+    want = trender.render(scenes["cpu"], 2, device="cpu").numpy()
+    assert np.isfinite(got).all() and got.mean() > 0.0
+    assert abs(got.mean() - want.mean()) <= 0.05 * want.mean()
 
 
 @pytest.mark.cuda

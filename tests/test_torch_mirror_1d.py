@@ -433,20 +433,21 @@ def test_parser_refuses_what_the_slice_leaves_out():
     import json
     with open(SCENES[False]) as f:
         doc = json.load(f)
-    for field, value, what in (("correlation_context", "renewal", "renewal"),
-                               ("1D_sampling", False, "mirror phase"),
-                               ("1D_sampling_scheme", "bogus", "scheme")):
+    for field, value, what in (
+            ("correlation_context", "bogus", "correlation_context"),
+            ("transmittance", {"type": "linear"}, "transmittance"),
+            ("1D_sampling_scheme", "bogus", "scheme")):
         d = json.loads(json.dumps(doc))
         d["media"][0][field] = value
         with pytest.raises(NotImplementedError, match=what):
             scene_from_dict(d, device="cpu")
     d = json.loads(json.dumps(doc))
-    d["media"][0].update({"1D_sampling": False, "single_realization": True})
-    with pytest.raises(NotImplementedError, match="mirror phase"):
+    d["media"][0]["phase_function"] = {"type": "isotropic"}
+    with pytest.raises(NotImplementedError, match="phase function"):
         scene_from_dict(d, device="cpu")
     d = json.loads(json.dumps(doc))
-    d["primitives"][0]["bsdf"] = d["media"][0]["phase_function"]["bsdf"]
-    with pytest.raises(NotImplementedError, match="mirror"):
+    d["primitives"][0]["bsdf"] = {"type": "conductor"}
+    with pytest.raises(NotImplementedError, match="conductor"):
         scene_from_dict(d, device="cpu")
 
 

@@ -60,8 +60,8 @@ def test_load_scene_equals_converted_jax_scene():
 
 def test_unported_types_raise():
     from tungsten_tpu_torch.scene.parse import scene_from_dict
-    with pytest.raises(NotImplementedError, match="mirror"):
-        scene_from_dict({"bsdfs": [{"type": "mirror"}]}, device="cpu")
+    with pytest.raises(NotImplementedError, match="conductor"):
+        scene_from_dict({"bsdfs": [{"type": "conductor"}]}, device="cpu")
     with pytest.raises(NotImplementedError, match="sphere"):
         scene_from_dict({"primitives": [{"type": "sphere"}]}, device="cpu")
 

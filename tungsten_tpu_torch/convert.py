@@ -8,8 +8,8 @@ stay as they are, and each dataclass adds a "<path>__type__" entry with its
 class name.  `scene_from_numpy(tree)` builds this package's Scene from such
 a dict, so both renderers compute from the same parameters; every tensor
 of it is a leaf of its own, which a caller may mark `requires_grad`.
-`gp_from_numpy` does the same for one object of the GP layer (a GP, a
-covariance, a mean or a field).
+`gp_from_numpy` does the same for one object of the GP layer (a GP with
+its mesh conditioning, a covariance, a mean or a field).
 `set_params(scene, sigma, l)` puts other GP hyperparameters into a scene,
 as the JAX package's gradient checks do; `coeffs_from_numpy` carries
 conditioning coefficients across.
@@ -27,6 +27,7 @@ from .models import primitives as pr
 from .models.camera import Camera
 from .models.integrator import Scene
 from .ops import covariance as cv
+from .ops import gp as gpmod
 from .ops import means as mn
 from .ops import nonstationary as ns
 from .ops import sparse_conv as sc
@@ -67,7 +68,7 @@ _GP_CLASSES = {c.__name__: c for c in (
     cv.DotProductCov, ns.ProceduralNonstationaryCov,
     ns.MeanGradNonstationaryCov, ns.NeuralNonstationaryCov,
     mn.HomogeneousMean, mn.SphericalMean, mn.LinearMean, mn.ProceduralMean,
-    mn.TabulatedMean, mn.NeuralMean, Field, sc.GP)}
+    mn.TabulatedMean, mn.NeuralMean, Field, sc.GP, gpmod.GlobalCond)}
 # Field leaves that only their kind reads (None otherwise, as parsed)
 _FIELD_LEAVES = {"grid": ("grid", "bounds_min", "bounds_max"),
                  "sdf": ("offset", "scale")}
@@ -98,11 +99,13 @@ def _gp_obj(tree, prefix, t):
     elif cls is cv.SquaredExponentialCov and not tree[prefix
                                                       + "use_aniso_mtx"]:
         skip = {"aniso_mtx"}
-    elif cls is sc.GP:
-        _require(tree[prefix + "global_cond"] is None, "a conditioned GP")
-    return cls(**{f.name: (None if f.name in skip
-                           else _leaf(tree, prefix + f.name, t))
-                  for f in dataclasses.fields(cls)})
+    obj = cls(**{f.name: (None if f.name in skip
+                          else _leaf(tree, prefix + f.name, t))
+                 for f in dataclasses.fields(cls)})
+    if cls is gpmod.GlobalCond:
+        # the row kinds are integers
+        obj = dataclasses.replace(obj, dts=obj.dts.to(torch.int64))
+    return obj
 
 
 def gp_from_numpy(tree, device="cuda"):
@@ -131,12 +134,6 @@ def scene_from_numpy(tree, device="cuda"):
     bsdf_kinds = np.asarray(tree["bsdfs.kind"])
     _require(np.isin(bsdf_kinds, bs.KINDS).all(),
              f"bsdf kinds {sorted(set(bsdf_kinds.tolist()))}")
-    # a mirror is ported as the phase function of a medium only
-    mirrors = set(np.nonzero(bsdf_kinds == bs.MIRROR)[0].tolist())
-    _require(not (mirrors - {tree[f"media.{i}.phase_bsdf"]
-                             for i in range(tree["media.__len__"])}
-                  or mirrors & set(np.asarray(tree["prims.bsdf"]).tolist())),
-             "a mirror bsdf outside a BRDF phase function")
     _require(tree["camera.kind"] == "pinhole"
              and tree["camera.filter_kind"] == "box",
              "a non-pinhole camera or non-box filter")
@@ -160,9 +157,6 @@ def scene_from_numpy(tree, device="cuda"):
                  and tree[m + "normal_method"] in md.NORMAL_METHODS
                  and tree[m + "law"] is None, "this medium configuration")
         c = m + "cfg."
-        _require(not (tree[c + "surf_vol_phase_separate"] or (
-            tree[c + "isotropic_3d"] and not tree[c + "isotropic_ray_3d"])),
-            "plain isotropic or phase-separated sampling")
         cfg = sc.SparseConvConfig(
             global_seed=int(tree[c + "global_seed"]),
             impulse_density=t(c + "impulse_density"), ctxt=tree[c + "ctxt"],
@@ -170,14 +164,13 @@ def scene_from_numpy(tree, device="cuda"):
             impulse_count=tree[c + "impulse_count"],
             one_d=tree[c + "one_d"], scheme=tree[c + "scheme"],
             correlation_xy=tree[c + "correlation_xy"],
-            isotropic_3d=tree[c + "isotropic_3d"])
+            isotropic_3d=tree[c + "isotropic_3d"],
+            isotropic_ray_3d=tree[c + "isotropic_ray_3d"],
+            surf_vol_phase_separate=tree[c + "surf_vol_phase_separate"],
+            surf_vol_phase_amp_thresh=float(
+                tree[c + "surf_vol_phase_amp_thresh"]))
         _require(not (cfg.one_d and kind == md.GPIS_WEIGHT_SPACE),
                  "1D sampling of a weight-space medium")
-        _require(cfg.one_d or bsdf_kinds[tree[m + "phase_bsdf"]] != bs.MIRROR,
-                 "a mirror phase function without 1D sampling")
-        _require(kind == md.GPIS_WEIGHT_SPACE or not cfg.activate_conditioning
-                 or not cfg.one_d or cfg.ctxt == sc.CTXT_RENEWAL_PLUS,
-                 "renewal conditioning of 1D realizations")
         fs_kind = kind == md.GPIS_FUNCTION_SPACE
         gp = _gp_obj(tree, m + "gp.", t)
         _require(gp.csg_right is None or gp.csg_right.csg_right is None,
@@ -185,21 +178,11 @@ def scene_from_numpy(tree, device="cuda"):
         for child in (gp, gp.csg_right):
             if child is not None:
                 check_cov(child.cov, kind, tree[m + "normal_method"])
-        cov = gp.cov
-        _require(cov.is_stationary or kind != md.GPIS_SPARSE_CONV or (
-            isinstance(cov, ns.ProceduralNonstationaryCov)
-            and cov.use_multi_res_grid
-            and not (cfg.one_d or cfg.activate_conditioning
-                     or cfg.isotropic_3d)),
-            "brute-force nonstationary sampling, or a nonstationary "
-            "covariance with 1D or isotropic sampling or with conditioning")
         _require(float(tree[c + "base"]) == sc.MULTI_RES_BASE,
                  "another multi-resolution base")
-        _require(not fs_kind or (
-            cfg.ctxt in (sc.CTXT_RENEWAL, sc.CTXT_RENEWAL_PLUS)
-            and tree[m + "skip_space"] == 0.0),
-            "a function-space medium under the Global or None context or "
-            "with skip_space")
+        _require(not (fs_kind and cfg.ctxt == sc.CTXT_GLOBAL
+                      and gp.csg_right is not None),
+                 "a CSG union under the Global context")
         bounds = (None if tree[m + "bounds"] is None
                   else t(m + "bounds"))
         media.append(md.Medium(
@@ -211,6 +194,7 @@ def scene_from_numpy(tree, device="cuda"):
             basis_functions=tree[m + "basis_functions"],
             ws_sphere_trace=tree[m + "ws_sphere_trace"],
             sample_points=tree[m + "sample_points"],
+            skip_space=float(tree[m + "skip_space"]),
             normal_method=tree[m + "normal_method"]))
 
     camera = Camera(transform=t("camera.transform"),

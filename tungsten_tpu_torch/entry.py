@@ -48,6 +48,7 @@ import torch
 
 from . import convert, render
 from .kernels import noise3d
+from .models.bsdfs import SPECULAR_KINDS as MIRROR_KINDS
 from .models.integrator import render_pass
 from .ops.covariance import SquaredExponentialCov
 from .ops.means import HomogeneousMean, SphericalMean
@@ -59,14 +60,18 @@ SCENE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def _check_gradient_scope(scene):
-    """Raise by name on the GP types whose gradient is not ported (ROADMAP
-    item 16b): the gradient runs over squared-exponential covariances
-    (alone or as a procedural nonstationary one's base) with spherical or
-    homogeneous means and the conditioned normal."""
+    """Raise by name on the GP types and options whose gradient is not
+    ported (ROADMAP item 16c): the gradient runs over squared-exponential
+    covariances (alone or as a multi-resolution procedural nonstationary
+    one's base, sampled in 3D world space with no conditioning) with
+    spherical or homogeneous means and the conditioned normal, on
+    renewal or renewal+ stationary realizations (in 1D under renewal+),
+    with lambert, null or forward surfaces."""
     for med in scene.media:
-        gp = med.gp
+        gp, cfg = med.gp, med.cfg
         cov = gp.cov if gp.cov.is_stationary else getattr(gp.cov, "base",
                                                            gp.cov)
+        nonstat = not gp.cov.is_stationary
         what = None
         if not isinstance(gp.cov, (SquaredExponentialCov,
                                    ProceduralNonstationaryCov)) or \
@@ -83,10 +88,42 @@ def _check_gradient_scope(scene):
             what = "a color or emission field"
         elif med.normal_method in ("beckmann", "ggx"):
             what = f"the {med.normal_method!r} normal"
+        elif (not cfg.one_d and med.phase_kind == "brdf"
+              and scene.bsdfs.kinds[med.phase_bsdf] in MIRROR_KINDS):
+            what = "a mirror phase function on a 3D-sampled medium"
+        elif med.kind == "function_space" and cfg.ctxt in ("global",
+                                                           "none"):
+            what = f"the function-space {cfg.ctxt!r} context"
+        elif gp.global_cond is not None:
+            what = "mesh conditioning (conditioning_data)"
+        elif med.kind == "function_space" and med.skip_space > 0.0:
+            what = "the function-space skip_space"
+        elif med.kind != "sparse_conv_noise":
+            pass
+        elif nonstat and not gp.cov.use_multi_res_grid:
+            what = "brute-force nonstationary noise"
+        elif nonstat and cfg.one_d:
+            what = "1D sampling of a nonstationary covariance"
+        elif nonstat and cfg.isotropic_3d:
+            what = "isotropic sampling of a nonstationary covariance"
+        elif nonstat and cfg.activate_conditioning:
+            what = "conditioned nonstationary noise"
+        elif cfg.isotropic_3d and not cfg.isotropic_ray_3d:
+            what = "plain isotropic 3D sampling"
+        elif cfg.one_d and cfg.activate_conditioning and \
+                cfg.ctxt == "renewal":
+            what = "renewal conditioning of 1D realizations"
+        elif cfg.surf_vol_phase_separate:
+            what = "surf_vol_phase_separate"
         if what is not None:
             raise NotImplementedError(
                 f"the gradient through {what} is not ported to "
-                "tungsten_tpu_torch (ROADMAP item 16b)")
+                "tungsten_tpu_torch (ROADMAP item 16c)")
+    prim_bsdfs = set(scene.prims.bsdf.tolist())
+    if any(scene.bsdfs.kinds[b] in MIRROR_KINDS for b in prim_bsdfs):
+        raise NotImplementedError(
+            "the gradient through a mirror surface is not ported to "
+            "tungsten_tpu_torch (ROADMAP item 16c)")
 
 
 def params(scene):

@@ -14,9 +14,10 @@ V sqrt(max(W, 1e-12)) V^T, which is unique) and `pseudo_inverse` (V W^+ V^T
 with the eigenvalues |w| <= 1e-6 max|w| dropped), both by torch.matmul.
 
 The kernel is built at first use with nvcc into `tungsten_tpu_torch/_build/`
-(see kernels/nvcc.py).  `LAUNCHES` counts kernel launches and
-`MOST_MATRICES` records the largest batch one launch took, so a run can
-show that its main path went through the kernel.
+(see kernels/nvcc.py).  `LAUNCHES` counts kernel launches (and
+`LAUNCHES_BY_N` them by matrix size) and `MOST_MATRICES` records the
+largest batch one launch took, so a run can show that its main path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ MAX_N = 64  # the kernel's shared-memory tile (csrc/psd.cu)
 MAX_SWEEPS = 15
 
 LAUNCHES = 0
+LAUNCHES_BY_N = {}
 MOST_MATRICES = 0
 _FN = None
 
@@ -102,6 +104,7 @@ def eigh(a, sweeps=False):
     if err != 0:
         raise RuntimeError(f"K8 launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_N[n] = LAUNCHES_BY_N.get(n, 0) + 1
     MOST_MATRICES = max(MOST_MATRICES, batch)
     return (w, v, count) if sweeps else (w, v)
 

@@ -7,10 +7,12 @@ material sampling), share one shadow walk over a [2R] ray batch per bounce.
 NEE sees the next segment's realization (pss with bounce + 1).  Emissive
 hits count only after specular chains, since NEE already carries the
 material-sampling half.  Forward (boundary) hops do not consume bounces.
-A mirror phase function (on a 1D-sampled medium) is a Dirac lobe: NEE
+A mirror phase function is a Dirac lobe: on a 1D-sampled medium NEE
 samples the normal the light direction needs and weighs it with the pdf of
 sampling that normal (`sparse_conv.nee_pdf`), gated by the crossing's 1D
-sampling scheme.
+sampling scheme; on a 3D-sampled one its vertices take no NEE, as in the
+JAX package.  A mirror BSDF on a primitive is a Dirac lobe that NEE
+skips and the walk samples.
 
 A loop ends early when no ray is left to advance, and a medium or shadow
 hop is skipped when no ray is in it: every result there is masked, so the
@@ -196,8 +198,10 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
     disable_mis = torch.zeros_like(is_vol)
     for mi, medium in enumerate(scene.media):
         in_m = is_vol & (med_idx == mi)
-        # a Dirac phase (the parser takes one on 1D media only)
-        if ph.phase_is_specular(medium, scene.bsdfs):
+        spec = ph.phase_is_specular(medium, scene.bsdfs)
+        # a Dirac phase: light-sampled through the 1D realization's normal
+        # plane on a 1D medium, not at all on a 3D one
+        if spec and medium.cfg.one_d:
             half_n = safe_normalize(-rd + d1)
             npdf = sc.nee_pdf(medium.cfg, medium.gp, med_state.coeff1, rd,
                               half_n, p_vtx, _seg_in(in_m, t_seg), pss_next,
@@ -210,6 +214,10 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
             vol_lvalid = vol_lvalid & torch.where(
                 in_m, scheme != sc.SCHEME_UNI, True)
             disable_mis = disable_mis | (in_m & (scheme == sc.SCHEME_NEE))
+        elif spec:
+            f_m = torch.zeros_like(f_surf)
+            pdf_m = torch.zeros_like(pdf_surf)
+            vol_lvalid = vol_lvalid & ~in_m
         else:
             f_m = ph.eval_phase(medium, scene.bsdfs, rd, d1, aniso)
             pdf_m = ph.pdf_phase(medium, scene.bsdfs, rd, d1, aniso)
@@ -234,7 +242,8 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
         d2 = _where3(in_m, psamp["w"], d2)
         w2 = _where3(in_m, psamp["weight"], w2)
         v_m = psamp["valid"]
-        if ph.phase_is_specular(medium, scene.bsdfs):
+        spec = ph.phase_is_specular(medium, scene.bsdfs)
+        if spec and medium.cfg.one_d:
             spdf = sc.nee_pdf(medium.cfg, medium.gp, med_state.coeff1, rd,
                               safe_normalize(-rd + psamp["w"]), p_vtx,
                               _seg_in(in_m, t_seg), pss_next,
@@ -243,6 +252,8 @@ def next_event(scene, p_vtx, is_vol, rd, aniso, scheme, t_seg, normal, tfr,
             # UNI: the main walk collects direct hits; NEE: light sampling
             # alone
             v_m = v_m & (scheme == sc.SCHEME_MIS)
+        elif spec:
+            v_m = torch.zeros_like(v_m)
         else:
             pdf2 = torch.where(in_m, psamp["pdf"], pdf2)
         valid2 = valid2 | (gate & in_m & v_m)

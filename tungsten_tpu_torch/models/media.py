@@ -34,8 +34,11 @@ Function space (models/fs_medium.py): each active ray draws its segment
 in chunks of jointly conditioned points and samples the normal at the
 first sign change by a dense conditional solve; a CSG union marches the
 min of two children and carries each child's value and gradient
-(MediumState.fs_val2, fs_grad2 for the right one).  Its eigensolves are
-K8 (kernels/psd.py).  Visibility skips the normal's solve.
+(MediumState.fs_val2, fs_grad2 for the right one).  Under the Global
+context each ray keeps a ring of its last FS_RING conditioning rows
+(MediumState.fs_pts, fs_vals, fs_dts, fs_n) across its segments.  Its
+eigensolves are K8 (kernels/psd.py).  Visibility skips the normal's
+solve.
 
 Gradients (the JAX package's detached-sampling estimator): the marches
 and visibility record no graph; a sparse-conv crossing is reattached to
@@ -79,6 +82,8 @@ NORMAL_BECKMANN = "beckmann"
 NORMAL_GGX = "ggx"
 NORMAL_METHODS = (NORMAL_CONDITIONED, NORMAL_FD, NORMAL_BECKMANN, NORMAL_GGX)
 
+FS_RING = 16  # the Global context's conditioning rows per ray
+
 
 @dataclasses.dataclass(frozen=True)
 class Medium:
@@ -99,6 +104,7 @@ class Medium:
     basis_functions: int = 300  # weight space: RFF basis size n
     ws_sphere_trace: bool = False  # weight space with step_size == 0
     sample_points: int = 32  # function space: points per chunk
+    skip_space: float = 0.0  # function space: the cdf free-flight skip
     # "brdf" (the phase_bsdf row) or "isotropic" (the JAX package's
     # isotropic phase, which its image-level gradient checks put in place)
     phase_kind: str = "brdf"
@@ -118,8 +124,11 @@ class MediumState:
     crossing, the 1D and 3D conditioning coefficients of the current
     segment, a function-space CSG union's right child's value and
     gradient (fs_val2, fs_grad2; last_val and last_aniso then carry the
-    left child's) and the id of the GP (mean) that supplied the last
-    crossing (last_gp_id, which the microfacet normals read)."""
+    left child's), the Global context's ring of function-space
+    conditioning rows (fs_pts, fs_vals, fs_dts and the count fs_n; FS_RING
+    rows, read when the state is made) and the id of the GP (mean) that
+    supplied the last crossing (last_gp_id, which the microfacet normals
+    read)."""
     first_scatter: torch.Tensor  # [R] bool
     last_gp_id: torch.Tensor  # [R] int64
     last_aniso: torch.Tensor  # [R, 3]
@@ -130,20 +139,34 @@ class MediumState:
     coeff3: sc.Coeffs
     fs_val2: torch.Tensor  # [R]
     fs_grad2: torch.Tensor  # [R, 3]
+    fs_pts: torch.Tensor  # [R, K, 3]
+    fs_vals: torch.Tensor  # [R, K]
+    fs_dts: torch.Tensor  # [R, K] int64
+    fs_n: torch.Tensor  # [R] int64
 
     @staticmethod
     def make(n, device):
         aniso = torch.zeros(n, 3, dtype=torch.float32, device=device)
         aniso[:, 0] = 1.0
         zeros = torch.zeros(n, dtype=torch.float32, device=device)
+        izeros = torch.zeros(n, dtype=torch.int64, device=device)
         return MediumState(
             first_scatter=torch.ones(n, dtype=torch.bool, device=device),
-            last_gp_id=torch.zeros(n, dtype=torch.int64, device=device),
-            last_aniso=aniso, last_val=zeros, info_t=zeros,
-            scheme=torch.zeros(n, dtype=torch.int64, device=device),
+            last_gp_id=izeros, last_aniso=aniso, last_val=zeros,
+            info_t=zeros, scheme=izeros,
             coeff1=sc.Coeffs.zeros(n, device),
             coeff3=sc.Coeffs.zeros(n, device),
-            fs_val2=zeros, fs_grad2=aniso)
+            fs_val2=zeros, fs_grad2=aniso,
+            fs_pts=torch.zeros(n, FS_RING, 3, dtype=torch.float32,
+                               device=device),
+            fs_vals=torch.zeros(n, FS_RING, dtype=torch.float32,
+                                device=device),
+            fs_dts=torch.zeros(n, FS_RING, dtype=torch.int64, device=device),
+            fs_n=izeros)
+
+    @property
+    def ring(self):
+        return self.fs_pts, self.fs_vals, self.fs_dts, self.fs_n
 
     def reset_where(self, mask):
         """Fresh state on rays that cross a boundary; the path length
@@ -190,11 +213,27 @@ def _clamp_far_to_bounds(med, ro, rd, near, far):
 
 
 def make_value_at(med, scene_seed, ro, rd, pss, state):
-    """value_at(t [R]) -> (f [R], gp_id [R]) along each ray."""
-    if med.cfg.one_d:
-        return fast.make_value_at_1d(med.cfg, med.gp, state.coeff1, ro, rd,
-                                     pss, scene_seed)
-    return fast.make_value_at(med.cfg, med.gp, ro, rd, pss, scene_seed,
+    """value_at(t [R]) -> (f [R], gp_id [R]) along each ray: the march
+    evaluators of ops/sparse_conv_fast.py, or for 1D sampling of a
+    nonstationary covariance the general evaluator (as in the JAX
+    package, whose 1D fast path takes stationary covariances only)."""
+    cfg, gp = med.cfg, med.gp
+    if cfg.one_d and not gp.cov.is_stationary:
+        # sc.eval_value with the rays' seeds and iso-ray frame made once
+        seed = sc.compute_seed(cfg, pss, scene_seed)
+        frame = sc._ray_frame(gp.cov, rd)
+
+        def value_at(t):
+            p = ro + t[:, None] * rd
+            nv = sc.eval_value_noise1d(cfg, gp, state.coeff1, p, rd, seed,
+                                       True, frame)
+            m, gp_id = gp.mean_and_id(p)
+            return gp.cov.amplitude(p) * nv + m, cfg.gp_id(gp, p, gp_id)
+        return value_at
+    if cfg.one_d:
+        return fast.make_value_at_1d(cfg, gp, state.coeff1, ro, rd, pss,
+                                     scene_seed)
+    return fast.make_value_at(cfg, gp, ro, rd, pss, scene_seed,
                               coeff3=state.coeff3)
 
 
@@ -498,7 +537,7 @@ def _fs_march(med, scene_seed, ro, rd, near, far, state, pss, u_jitter,
     return fs.sample_distance_fs(med, scene_seed, ro, rd, near, far,
                                  state.first_scatter, carries,
                                  ~state.first_scatter, pss, u_jitter, active,
-                                 want_grad)
+                                 want_grad, state.ring)
 
 
 def _sample_distance_fs(med, scene_seed, ro, rd, near, far, state, pss,
@@ -547,6 +586,13 @@ def _sample_distance_fs(med, scene_seed, ro, rd, near, far, state, pss,
             new_state,
             fs_val2=torch.where(active, res["vals"][1], state.fs_val2),
             fs_grad2=torch.where(a3, res["grads"][1], state.fs_grad2))
+    if "ring" in res:
+        r_pts, r_vals, r_dts, r_n = res["ring"]
+        new_state = dataclasses.replace(
+            new_state, fs_pts=torch.where(a3[..., None], r_pts, state.fs_pts),
+            fs_vals=torch.where(a3, r_vals, state.fs_vals),
+            fs_dts=torch.where(a3, r_dts, state.fs_dts),
+            fs_n=torch.where(active, r_n, state.fs_n))
     return ({"exited": ~hit, "t": t, "weight": weight, "aniso": grad,
              "emission": emission, "gp_id": res["gp_id"],
              "scheme": torch.zeros_like(res["gp_id"]), "failed": failed},

@@ -33,6 +33,9 @@ from ..utils import rng
 from ..utils.vecmath import dot, inverse3, mat_vec
 
 _SQRT2_OVER_2 = math.sqrt(2.0) / 2.0
+# sqrt(pi) as float32 computes it (a Python float holding that value, so
+# that no constant is copied to the card per call)
+_SQRT_PI_F32 = float(np.sqrt(np.float32(math.pi)))
 _PI = math.pi
 
 
@@ -53,6 +56,20 @@ def apply_form(m, v, full):
         return v * m
     return (m[..., :, 0] * v[..., 0:1] + m[..., :, 1] * v[..., 1:2]
             + m[..., :, 2] * v[..., 2:3])
+
+
+def conditioning_combo(m, full, ab, coeff, value_scale):
+    """value_scale * K + coeff . dK/dcenter of the kernel exp(-ab^T M ab)
+    at ab [R, 3] and its gradient in the query, for the form M (its
+    diagonal [..., 3], or `full`, [..., 3, 3]): (val [R], grad [R, 3])."""
+    mab = apply_form(m, ab, full)
+    f = torch.exp(-dot(ab, mab))
+    d = -2.0 * mab
+    val = (value_scale + dot(d, coeff)) * f
+    hess = d[:, :, None] * d[:, None, :] - 2.0 * (
+        m if full else torch.diag_embed(m))
+    grad = (d * value_scale[:, None] + mat_vec(hess, coeff)) * f[:, None]
+    return val, grad
 
 
 def _beckmann_roughness(cov):
@@ -128,19 +145,37 @@ class SquaredExponentialCov:
         holding a float32 value."""
         return float(np.float32(self.kernel_scale))
 
-    # world <-> isotropic space (diagonal local_to_world = diag(l_aniso))
+    # world <-> isotropic space: local_to_world = diag(l_aniso), or the
+    # full l_conv anisoMtx, whose products are written out
     def pos_world_to_local(self, v):
+        if self.use_aniso_mtx:
+            return apply_form(self.world_to_local, v, True)
         return self.l_aniso_inv * v
 
     def grad_world_to_local(self, g):
+        if self.use_aniso_mtx:
+            return apply_form(self.local_to_world.T, g, True)
         return self.l_aniso * g
 
     def grad_local_to_world(self, g):
+        if self.use_aniso_mtx:
+            return apply_form(self.world_to_local.T, g, True)
         return self.l_aniso_inv * g
 
     def local_to_world_inv_transpose(self):
-        """Diagonal [3] of the iso -> world gradient transform."""
+        """The iso -> world gradient transform: its diagonal [3], or with
+        anisoMtx the full [3, 3] world_to_local^T."""
+        if self.use_aniso_mtx:
+            return self.world_to_local.T
         return self.l_aniso_inv
+
+    # the fields of a nonstationary covariance, constant here
+    def unscaled_variance(self, p):
+        return torch.ones(p.shape[:-1], dtype=torch.float32,
+                          device=p.device)
+
+    lateral_scale = unscaled_variance
+    nonstat_splat_kernel_scale = unscaled_variance
 
     def splat_form(self, global_scale=1.0, is_identity=False):
         """Diagonal [3] of the quadratic form M of the splat exp(-ab^T M ab)
@@ -158,33 +193,36 @@ class SquaredExponentialCov:
         inv = self.l_aniso_inv
         return inv * inv / (global_scale * global_scale) * 0.5
 
-    def splat3_val_grad(self, ab, global_scale=1.0, is_identity=False):
+    def full_form(self, is_identity=False):
+        """Whether splat_form is a full [3, 3] (anisoMtx in world space)."""
+        return self.use_aniso_mtx and not is_identity
+
+    def splat3_val_grad(self, ab, global_scale=1.0, is_identity=False,
+                        p=None):
         """Splat value and its gradient wrt the query; ab = query - center,
-        [..., 3]."""
+        [..., 3] (`p`, the query point, is read by a nonstationary
+        covariance's per-point splat scale)."""
         mab = apply_form(self.splat_form(global_scale, is_identity), ab,
-                         self.use_aniso_mtx and not is_identity)
+                         self.full_form(is_identity))
         f = torch.exp(-dot(ab, mab))
         return f, -2.0 * mab * f[..., None]
 
-    def cond_form(self, is_identity=False):
-        """Diagonal [3] of the conditioning splat's form: the covariance
-        kernel's, half the splat's (JAX `_inv_cov_mtx` with is_cov)."""
-        return self.splat_form(1.0, is_identity) * 0.5
+    def cond_form(self, is_identity=False, global_scale=1.0):
+        """The conditioning splat's form at spatial scale `global_scale`:
+        the covariance kernel's, half the splat's (JAX `_inv_cov_mtx` with
+        is_cov)."""
+        return self.splat_form(global_scale, is_identity) * 0.5
 
     def splat3_conditioning_combo(self, ab, coeff, value_scale,
-                                  is_identity=False):
+                                  is_identity=False, global_scale=1.0,
+                                  p=None):
         """value_scale * K + sum_i coeff_i dK/dcenter_i of the covariance
-        kernel K at ab = query - conditioning origin [R, 3], with its
-        gradient in the query: (val [R], grad [R, 3])."""
-        m = self.cond_form(is_identity)
-        mab = apply_form(m, ab, self.use_aniso_mtx and not is_identity)
-        f = torch.exp(-dot(ab, mab))
-        d = -2.0 * mab
-        val = (value_scale + dot(d, coeff)) * f
-        hess = d[:, :, None] * d[:, None, :] - 2.0 * (
-            m if m.dim() == 2 else torch.diag(m))
-        grad = (d * value_scale[:, None] + mat_vec(hess, coeff)) * f[:, None]
-        return val, grad
+        kernel K at ab = query - conditioning origin [R, 3] (at spatial
+        scale `global_scale`, per point with a trailing axis of size 1),
+        with its gradient in the query: (val [R], grad [R, 3])."""
+        return conditioning_combo(self.cond_form(is_identity, global_scale),
+                                  self.full_form(is_identity), ab, coeff,
+                                  value_scale)
 
     def one_over_second_derivative(self, is_identity=False):
         """Inverse [3, 3] of the covariance splat's Hessian at 0: -2 I in
@@ -199,39 +237,38 @@ class SquaredExponentialCov:
         return inverse3((-2.0 * (m * 0.25))[None])[0]
 
     # 1D kernels along the iso-ray axis; dt = query - center in iso units
+    # (the points after dt are read by a nonstationary covariance)
     @staticmethod
-    def splat1_val_grad(dt):
+    def splat1_val_grad(dt, *points):
         """1D splat exp(-dt^2 / 2) and its derivative in the query."""
         f = torch.exp(-0.5 * dt * dt)
         return f, -dt * f
 
     @staticmethod
-    def cov1_val_grad(dt):
+    def cov1_val_grad(dt, *points):
         """1D covariance kernel exp(-dt^2 / 4) (the splat at scale sqrt 2)
         and its derivative in the query."""
         f = torch.exp(-0.25 * dt * dt)
         return f, -0.5 * dt * f
 
     @staticmethod
-    def cov1_grad_grad2(dt):
+    def cov1_grad_grad2(dt, *points):
         """First and second derivatives of the 1D covariance kernel."""
         f = torch.exp(-0.25 * dt * dt)
         g1 = -0.5 * dt
         return g1 * f, (g1 * g1 - 0.5) * f
 
     @staticmethod
-    def cov1_grad2_for_3d_normal(dt):
+    def cov1_grad2_for_3d_normal(dt, *points):
         """The lateral second derivative that correlationXY uses."""
         return -0.5 * torch.exp(-0.25 * dt * dt)
 
-    def variance1(self, impulse_density, kernel_radius):
+    def variance1(self, impulse_density, kernel_radius, p=None):
         """Analytic variance of the raw 1D noise (a scalar)."""
-        sqrt_pi = torch.sqrt(torch.tensor(math.pi, dtype=torch.float32,
-                                          device=impulse_density.device))
-        return impulse_density / kernel_radius * sqrt_pi
+        return impulse_density / kernel_radius * _SQRT_PI_F32
 
     def variance3(self, impulse_density, kernel_radius, global_scale=1.0,
-                  is_identity=False):
+                  is_identity=False, p=None):
         """Analytic variance of the raw 3D noise at cell radius
         `kernel_radius` and spatial scale `global_scale` (scalars, or one
         of each per point); det_sqrt is 1 in isotropic space."""

@@ -1,6 +1,7 @@
 """Function-space GP: exact conditioning by dense covariance solves, batched
-over rays (tungsten_tpu/ops/gp.py without the global conditioning, which
-the parser refuses).
+over rays (tungsten_tpu/ops/gp.py), with the global conditioning on a mesh
+point set (`GlobalCond`), the constrained sampler of the None context and
+the cdf of the free-flight skip.
 
 An observation row is (point [3], derivative kind in {D_NONE, D_FIRST},
 direction [3]): a value of the field or its directional derivative.  The
@@ -22,9 +23,21 @@ sampling root is the symmetric V sqrt(W) V^T, where the JAX package takes
 V sqrt(W): any B with B B^T = C samples the same distribution, and the
 symmetric root is unique, so the kernel and its twin draw the same
 realization from the same z.
+
+A GP conditioned on a mesh (`GlobalCond`, the scene's `conditioning_data`)
+holds the 2V x 2V pseudo-inverse of its V vertices' value and normal rows,
+solved once at scene load in float64 (`build_global_cond`; V <= 1024, so
+not K8's size).  Every covariance block and mean vector of such a GP is
+then the conditioned one (`mean_cov_gc`): the products with the cross
+covariances to the mesh rows [R, 2V, N] are plain matrix products, formed
+for groups of rays so that their memory stays bounded, and summed in
+float64: near the mesh the conditioned covariance is the small difference
+of two large terms, and float32 sums over the 2V rows leave noise at the
+pseudo-inverse's cut, which the later solves amplify.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -107,18 +120,102 @@ def _sym(s):
     return 0.5 * (s + s.transpose(-1, -2))
 
 
+@dataclasses.dataclass(frozen=True)
+class GlobalCond:
+    """A GP's conditioning on a mesh point set: one value row (0) and one
+    normal-derivative row (1) per unique vertex, and what the conditioning
+    solve leaves: alpha = K11^+ (values - mean) and K11^+ itself."""
+    pts: torch.Tensor  # [M, 3]
+    dts: torch.Tensor  # [M] int64
+    dirs: torch.Tensor  # [M, 3]
+    values: torch.Tensor  # [M]
+    alpha: torch.Tensor  # [M]
+    k11_pinv: torch.Tensor  # [M, M]
+
+
+def build_global_cond(gp, verts, normals, eps_scale=1e-6):
+    """GlobalCond of the GP on vertices verts [V, 3] with unit normals
+    [V, 3]: K11 of the 2V rows in float32, its pseudo-inverse (eigenvalues
+    with |w| <= eps_scale max|w| dropped) by torch.linalg.eigh in float64
+    on their device, alpha in float64; both stored in float32."""
+    V, dev = verts.shape[0], verts.device
+    pts = torch.cat([verts, verts])
+    dts = torch.cat([torch.full((V,), D_NONE, dtype=torch.int64, device=dev),
+                     torch.full((V,), D_FIRST, dtype=torch.int64,
+                                device=dev)])
+    dirs = torch.cat([normals, normals])
+    values = torch.cat([torch.zeros(V, dtype=torch.float32, device=dev),
+                        torch.ones(V, dtype=torch.float32, device=dev)])
+    k11 = cov_matrix(gp.cov, pts[None], dts, dirs[None], pts[None], dts,
+                     dirs[None])[0]
+    w, v = torch.linalg.eigh(_sym(k11).double())
+    eps = eps_scale * w.abs().amax()
+    w_inv = torch.where(w.abs() <= eps, 0.0,
+                        1.0 / torch.where(w == 0, 1.0, w))
+    pinv = torch.matmul(v * w_inv[None, :], v.T)
+    m1, _ = mean_vector(gp, pts[None], dts, dirs[None])
+    alpha = torch.matmul(pinv, (values - m1[0]).double())
+    return GlobalCond(pts=pts, dts=dts, dirs=dirs, values=values,
+                      alpha=alpha.float(), k11_pinv=pinv.float())
+
+
+# cross-covariance entries [rays, 2V, N] formed at once by mean_cov_gc
+GC_ENTRIES = 1 << 26
+
+
+def mean_cov_gc(gp, pts, dts, dirs):
+    """The mean vector [R, N], covariance [R, N, N] and ids [R, N] of the GP
+    at query rows, conditioned on its mesh rows when it has them
+    (gp.global_cond): m + k1x^T alpha and K - k1x^T K11^+ k1x, in groups
+    of rays of at most GC_ENTRIES cross-covariance entries."""
+    m, ids = mean_vector(gp, pts, dts, dirs)
+    K = cov_matrix(gp.cov, pts, dts, dirs, pts, dts, dirs)
+    gc = gp.global_cond
+    if gc is None:
+        return m, K, ids
+    R, N = pts.shape[0], pts.shape[1]
+    M = gc.pts.shape[0]
+    step = max(1, GC_ENTRIES // (M * N))
+    dts_b = dts.expand(R, N)
+    alpha, pinv = gc.alpha.double(), gc.k11_pinv.double()
+    ms, Ks = [], []
+    for r0 in range(0, R, step):
+        r1 = min(R, r0 + step)
+        k1x = cov_matrix(gp.cov, gc.pts[None], gc.dts, gc.dirs[None],
+                         pts[r0:r1], dts_b[r0:r1], dirs[r0:r1]).double()
+        k1x_t = k1x.transpose(1, 2)
+        ms.append(m[r0:r1] + torch.matmul(k1x_t, alpha).float())
+        Ks.append(K[r0:r1] - torch.matmul(
+            k1x_t, torch.matmul(pinv, k1x)).float())
+    return torch.cat(ms), torch.cat(Ks), ids
+
+
 def conditional_mvn(gp, pts, dts, dirs, cond_pts, cond_dts, cond_dirs,
                     cond_vals):
     """The GP at query rows conditioned on rows with values cond_vals
-    [R, Nc] by the Schur complement: (mean [R, N], root of the covariance
-    [R, N, N], ids [R, N])."""
+    [R, Nc] by the Schur complement (on the mesh-conditioned GP when it
+    has mesh rows): (mean [R, N], root of the covariance [R, N, N], ids
+    [R, N])."""
     cov = gp.cov
-    s11 = cov_matrix(cov, cond_pts, cond_dts, cond_dirs, cond_pts, cond_dts,
-                     cond_dirs)
-    s12 = cov_matrix(cov, cond_pts, cond_dts, cond_dirs, pts, dts, dirs)
-    m2, ids = mean_vector(gp, pts, dts, dirs)
-    m1, _ = mean_vector(gp, cond_pts, cond_dts, cond_dirs)
-    s22 = cov_matrix(cov, pts, dts, dirs, pts, dts, dirs)
+    if gp.global_cond is None:
+        s11 = cov_matrix(cov, cond_pts, cond_dts, cond_dirs, cond_pts,
+                         cond_dts, cond_dirs)
+        s12 = cov_matrix(cov, cond_pts, cond_dts, cond_dirs, pts, dts, dirs)
+        m2, ids = mean_vector(gp, pts, dts, dirs)
+        m1, _ = mean_vector(gp, cond_pts, cond_dts, cond_dirs)
+        s22 = cov_matrix(cov, pts, dts, dirs, pts, dts, dirs)
+    else:
+        R, nc = pts.shape[0], cond_pts.shape[1]
+        all_dts = torch.cat([cond_dts.expand(R, nc),
+                             dts.expand(R, pts.shape[1])], dim=1)
+        m_all, K_all, ids_all = mean_cov_gc(
+            gp, torch.cat([cond_pts, pts], dim=1), all_dts,
+            torch.cat([cond_dirs, dirs], dim=1))
+        s11 = K_all[:, :nc, :nc].contiguous()
+        s12 = K_all[:, :nc, nc:]
+        s22 = K_all[:, nc:, nc:]
+        m1, m2 = m_all[:, :nc], m_all[:, nc:]
+        ids = ids_all[:, nc:]
     solved = psd_solve(s11, s12).transpose(-1, -2)  # [R, N, Nc]
     mean = m2 + torch.matmul(solved, (cond_vals - m1)[..., None])[..., 0]
     s2 = s22 - torch.matmul(solved, s12)
@@ -126,10 +223,26 @@ def conditional_mvn(gp, pts, dts, dirs, cond_pts, cond_dts, cond_dirs,
 
 
 def prior_mvn(gp, pts, dts, dirs):
-    """The unconditioned GP at query rows: (mean, root, ids)."""
-    m, ids = mean_vector(gp, pts, dts, dirs)
-    s = cov_matrix(gp.cov, pts, dts, dirs, pts, dts, dirs)
+    """The GP at query rows, unconditioned but for its mesh rows: (mean,
+    root, ids)."""
+    m, s, ids = mean_cov_gc(gp, pts, dts, dirs)
     return m, sqrt_psd(_sym(s).contiguous()), ids
+
+
+def gp_cdf(gp, p):
+    """P(f(p) < 0) at points p [R, 3] (the free-flight skip's criterion),
+    on the mesh-conditioned GP when it has mesh rows."""
+    if gp.global_cond is not None:
+        zeros = torch.zeros(p.shape[0], 1, dtype=torch.int64,
+                            device=p.device)
+        mv, K, _ = mean_cov_gc(gp, p[:, None], zeros,
+                               torch.zeros_like(p)[:, None])
+        m, var = mv[:, 0], K[:, 0, 0]
+    else:
+        var = gp.cov.cov(p, p)
+        m, _ = gp.mean_and_id(p)
+    return 0.5 * (1.0 + torch.erf((0.0 - m) / torch.sqrt(
+        torch.clamp(var, min=1e-20)) / _SQRT2_F32))
 
 
 def z_counters(ctr, n, device):
@@ -155,6 +268,26 @@ def sample_mvn(mean, cov_sqrt, key, ctr):
 
 
 _SQRT2 = math.sqrt(2.0)
+_SQRT2_F32 = float(torch.sqrt(torch.tensor(2.0, dtype=torch.float32)))
+
+
+def sample_mvn_constrained(mean, cov_sqrt, key, ctr, lo, hi, cmask,
+                           max_tries=16):
+    """A realization under box constraints lo <= x <= hi on the entries
+    cmask [n] marks: max_tries candidates drawn at counters ctr + (1 + i)
+    7919, the first that passes taken, the last one if none does.
+    Returns (values [R, n], whether one passed [R])."""
+    R, n = mean.shape
+    z = torch.stack([normals(key, (ctr + (1 + i) * 7919) & rng.MASK32, n)
+                     for i in range(max_tries)], dim=-1)  # [R, n, tries]
+    cands = mean[..., None] + torch.matmul(cov_sqrt, z)
+    ok = (((cands >= lo) & (cands <= hi)) | ~cmask[None, :, None]).all(dim=1)
+    tries = torch.arange(max_tries, device=mean.device)
+    first = torch.where(ok, tries, max_tries).amin(dim=1)
+    any_ok = ok.any(dim=1)
+    pick = torch.where(any_ok, first, max_tries - 1)
+    vals = cands.gather(2, pick[:, None, None].expand(R, n, 1))[..., 0]
+    return vals, any_ok
 
 
 def sample_truncated_normal(mean, sigma, a, key, ctr):

@@ -14,12 +14,16 @@ NeuralNonstationaryCov: the Paciorek covariance of a small sin-activated
 MLP's softplus outputs (sigma(p), ls(p)).  Both are weight- and
 function-space covariances, as in the JAX package.
 
-In multi-resolution mode the per-point splat scale is 1: the noise at p
-blends two lattice levels around ls(p) (sparse_conv.kernel_scale_level_ratio),
-and each level samples the base covariance's splat at its level scale.  So
-the splat radius, quadratic form, variance and transforms here are the
-base's at that scale.  Brute-force mode (`multiResolutionGrid: false`,
-ls(p) folded into each splat) is not ported: the parser refuses it.
+On a sparse-convolution medium it samples in one of two modes.  In
+multi-resolution mode the per-point splat scale is 1: the noise at p
+blends two lattice levels around ls(p) (sparse_conv.level_pair), and each
+level samples the base covariance's splat at its level scale.  In
+brute-force mode (`multiResolutionGrid: false`) the sampling space is the
+base's scaled by max(ls), and each splat's form is divided by the square
+of the per-point splat scale ls(p) / max(ls) (its 1D splats by the scale
+itself), as is the noise's variance.  The methods below take the JAX
+package's formulas, which reduce to the base's to the bit where the
+scale is 1.
 """
 from __future__ import annotations
 
@@ -93,32 +97,143 @@ class ProceduralNonstationaryCov:
     def lateral_scale(self, p):
         return self.ls_field(p)
 
+    def nonstat_splat_kernel_scale(self, p):
+        """The per-point splat scale: 1 in multi-resolution mode, ls(p) /
+        max(ls) in brute-force mode."""
+        if self.use_multi_res_grid:
+            return torch.ones(p.shape[:-1], dtype=torch.float32,
+                              device=p.device)
+        return self.ls_field(p) / self.max_ls
+
+    def nonstat_splat_cov_1d(self, pq, pc):
+        """The 1D covariance kernel's scale between two points."""
+        a = self.nonstat_splat_kernel_scale(pq)
+        b = self.nonstat_splat_kernel_scale(pc)
+        return torch.sqrt(0.5 * (a * a + b * b))
+
+    def _scale(self, local_scale):
+        """The transforms' scale: the level's, or max(ls) in brute-force
+        mode."""
+        return local_scale if self.use_multi_res_grid else self.max_ls
+
+    def _inv_ls2(self, p):
+        """max(ls_splat(p)^2, 1e-12) [R], the divisor of the splat forms,
+        or None in multi-resolution mode (where it is 1)."""
+        if self.use_multi_res_grid or p is None:
+            return None
+        ls = self.nonstat_splat_kernel_scale(p)
+        return torch.clamp(ls * ls, min=1e-12)
+
     # the base's world <-> isotropic transforms at a level scale
     def pos_world_to_local(self, v, local_scale=1.0):
-        return self.base.pos_world_to_local(v) / local_scale
+        return self.base.pos_world_to_local(v) / self._scale(local_scale)
 
     def grad_world_to_local(self, g, local_scale=1.0):
-        return self.base.grad_world_to_local(g) * local_scale
+        return self.base.grad_world_to_local(g) * self._scale(local_scale)
 
     def grad_local_to_world(self, g, local_scale=1.0):
-        return self.base.grad_local_to_world(g) / local_scale
+        return self.base.grad_local_to_world(g) / self._scale(local_scale)
 
     def local_to_world_inv_transpose(self):
-        return self.base.local_to_world_inv_transpose()
+        return self.base.local_to_world_inv_transpose() / self._scale(1.0)
 
-    # splats at a level scale (the multi-resolution splat scale is 1)
+    @property
+    def world_to_local(self):
+        return self.base.world_to_local
+
+    # splats at a level scale, divided by the per-point splat scale
     def splat_radius(self, local_scale=1.0):
-        return self.base.splat_radius(local_scale)
+        return self.base.splat_radius(
+            local_scale * (1.0 if self.use_multi_res_grid else self.max_ls))
 
-    def splat_form(self, global_scale=1.0):
-        return self.base.splat_form(global_scale)
+    def splat_radius_iso(self):
+        return self.base.splat_radius_iso()
 
-    def splat3_val_grad(self, ab, global_scale=1.0):
-        return self.base.splat3_val_grad(ab, global_scale)
+    def full_form(self, is_identity=False):
+        return self.base.full_form(is_identity)
 
-    def variance3(self, impulse_density, kernel_radius, global_scale=1.0):
-        return self.base.variance3(impulse_density, kernel_radius,
-                                   global_scale)
+    def splat_form(self, global_scale=1.0, is_identity=False):
+        return self.base.splat_form(global_scale, is_identity)
+
+    def cond_form(self, is_identity=False, global_scale=1.0):
+        return self.base.cond_form(is_identity, global_scale)
+
+    @staticmethod
+    def _per_point(m, full, ls2, lead):
+        """The form m (full: [..., 3, 3], else its diagonal [..., 3])
+        divided per point by ls_splat^2 (ls2, [R]) for queries with `lead`
+        leading axes after the ray's."""
+        return m / ls2.reshape(ls2.shape + (1,) * (lead + (2 if full
+                                                         else 1)))
+
+    def splat3_val_grad(self, ab, global_scale=1.0, is_identity=False,
+                        p=None):
+        inv = self._inv_ls2(p)
+        if inv is None:
+            return self.base.splat3_val_grad(ab, global_scale, is_identity)
+        full = self.full_form(is_identity)
+        m = self._per_point(self.splat_form(global_scale, is_identity), full,
+                            inv, ab.dim() - 2)
+        from .covariance import apply_form
+        mab = apply_form(m, ab, full)
+        f = torch.exp(-dot(ab, mab))
+        return f, -2.0 * mab * f[..., None]
+
+    def splat3_conditioning_combo(self, ab, coeff, value_scale,
+                                  is_identity=False, global_scale=1.0,
+                                  p=None):
+        from .covariance import conditioning_combo
+        m = self.cond_form(is_identity, global_scale)
+        inv = self._inv_ls2(p)
+        if inv is not None:
+            m = self._per_point(m, self.full_form(is_identity), inv, 0)
+        return conditioning_combo(m, self.full_form(is_identity), ab, coeff,
+                                  value_scale)
+
+    def one_over_second_derivative(self, is_identity=False):
+        return self.base.one_over_second_derivative(is_identity)
+
+    def variance3(self, impulse_density, kernel_radius, global_scale=1.0,
+                  is_identity=False, p=None):
+        v = self.base.variance3(impulse_density, kernel_radius, global_scale,
+                                is_identity)
+        if self.use_multi_res_grid or p is None:
+            return v
+        ls = self.nonstat_splat_kernel_scale(p)
+        return v * (ls * ls * ls)
+
+    def variance1(self, impulse_density, kernel_radius, p=None):
+        v = self.base.variance1(impulse_density, kernel_radius)
+        if self.use_multi_res_grid or p is None:
+            return v
+        return v * self.nonstat_splat_kernel_scale(p)
+
+    # 1D kernels along the iso-ray axis, at the per-point splat scales
+    def splat1_val_grad(self, dt, pc):
+        ls = self.nonstat_splat_kernel_scale(pc)
+        if dt.dim() > ls.dim():
+            ls = ls.reshape(ls.shape + (1,) * (dt.dim() - ls.dim()))
+        q = dt / ls
+        f = torch.exp(-0.5 * (q * q))
+        return f, -dt / (ls * ls) * f
+
+    def cov1_val_grad(self, dt, pq, pc):
+        sc_ = self.nonstat_splat_cov_1d(pq, pc)
+        q = dt / sc_
+        f = torch.exp(-0.25 * (q * q))
+        return f, -0.5 * dt / (sc_ * sc_) * f
+
+    def cov1_grad_grad2(self, dt, pq, pc):
+        sc_ = self.nonstat_splat_cov_1d(pq, pc)
+        q = dt / sc_
+        f = torch.exp(-0.25 * (q * q))
+        g1 = -0.5 * dt / (sc_ * sc_)
+        return g1 * f, (g1 * g1 - 0.5 / (sc_ * sc_)) * f
+
+    def cov1_grad2_for_3d_normal(self, dt, pq, pc):
+        sc_ = self.nonstat_splat_cov_1d(pq, pc)
+        q = dt / sc_
+        return -0.5 / (sc_ * sc_) * torch.exp(-0.25 * (q * q))
 
 
 def _aniso_from_normal(n, aniso):

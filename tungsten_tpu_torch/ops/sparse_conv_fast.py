@@ -1,8 +1,16 @@
 """The march-step evaluators: value_at(t) along a ray batch, with the raw
-lattice sum in kernel K1 (stationary, the world-space and isotropic-ray
-branches of tungsten_tpu/ops/sparse_conv_fast.py::make_value_at), K2 (the
-multi-resolution world-space branch of the same function) or K3 (1D
-sampling, `make_value_at_1d`).
+lattice sum in kernel K1, K2 or K3 (tungsten_tpu/ops/sparse_conv_fast.py's
+`make_value_at` and `make_value_at_1d`):
+
+- K1 (scalar cell radius and form): stationary covariances in world,
+  isotropic and isotropic-ray space, and the two levels of a
+  multi-resolution nonstationary covariance in isotropic(-ray) space
+  (each level's scale in the positions), as one [2R] launch;
+- K2 (per-point radius and form scale): the two levels of a
+  multi-resolution covariance in world space, as one [2R] launch, and a
+  brute-force nonstationary covariance (`multiResolutionGrid: false`),
+  whose per-point splat scale divides the form;
+- K3: 1D sampling of a stationary covariance (`make_value_at_1d`).
 
 Everything that does not change along a ray (seeds, the splat quadratic
 form, the cell radius, the variance normalization, the iso-ray
@@ -10,11 +18,13 @@ parametrization, the isotropic-ray frame and the conditioning constants)
 is computed once per batch, so each step is one kernel plus a few
 elementwise ops on [R] tensors.  Under the multi-resolution grid the two
 levels around ls(p) change along the ray, so each step computes them,
-with their radii, quadratic-form scales and variances, and sums both in
-one K2 launch.
-The 3D steps are differentiable in t, the rays, the covariance's
-parameters and the conditioning coefficients: K1's backward is K1b, K2's
-is K2b.
+with their radii, quadratic-form scales and variances.  Under a renewal
+context each step adds the conditioning splat around each ray's
+conditioning origin (per level at its scale).  Under
+`surf_vol_phase_separate` the gp id is the variance threshold's.
+The stationary and world-space multi-resolution steps are differentiable
+in t, the rays, the covariance's parameters and the conditioning
+coefficients: K1's backward is K1b, K2's is K2b.
 """
 from __future__ import annotations
 
@@ -35,6 +45,38 @@ def _host_full(kr, m):
                               m[1, 2]]).detach().tolist())
 
 
+def _iso_space(cov, ray_frame, ro, rd, scale=1.0):
+    """Each ray in isotropic space at spatial scale `scale` (and, with
+    `ray_frame`, rotated into its frame): (origin [R, 3], direction [R, 3],
+    a map of world points [R, 3] into the same space)."""
+    def w2l(v):
+        v = cov.pos_world_to_local(v)
+        return v if isinstance(scale, float) and scale == 1.0 else v / scale
+    rd_iso = w2l(rd)
+    if not ray_frame:
+        return w2l(ro), rd_iso, w2l
+    rdi = normalize(rd_iso)
+    tg, bt = tangent_frame(rdi)
+
+    def to_space(v):
+        return frame_to_local(tg, bt, rdi, w2l(v))
+    return to_space(ro), frame_to_local(tg, bt, rdi, rd_iso), to_space
+
+
+def _cond_splat(m_cond, full, dd, qm, coeff3):
+    """The conditioning splat (value_scale + d0 . gradient_scale)
+    exp(-q0) at offsets dd [R, 3] from the conditioning origins in the
+    sampling space, its form scaled by qm (1, or per point [R])."""
+    mdd = apply_form(m_cond, dd, full)
+    q0 = dot(mdd, dd)
+    d0 = -2.0 * mdd
+    if not isinstance(qm, float):
+        q0, d0 = qm * q0, qm[:, None] * d0
+    gsc = coeff3.gradient_scale
+    return (coeff3.value_scale + d0[:, 0] * gsc[:, 0] + d0[:, 1] * gsc[:, 1]
+            + d0[:, 2] * gsc[:, 2]) * torch.exp(-q0)
+
+
 def make_value_at(cfg, gp, ro, rd, pss, scene_seed, coeff3=None):
     """value_at(t [R]) -> (f [R], gp_id [R]) for the rays ro + t * rd
     (`coeff3`: the rays' 3D conditioning coefficients, [R] Coeffs, read
@@ -42,16 +84,17 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed, coeff3=None):
     cov = gp.cov
     seed0 = sc.compute_seed(cfg, pss, scene_seed)
     if not cov.is_stationary:
-        return _make_value_at_multi_res(cfg, gp, ro, rd, seed0)
+        if not cov.use_multi_res_grid:
+            return _make_value_at_brute_force(cfg, gp, ro, rd, seed0, coeff3)
+        if cfg.isotropic_3d:
+            return _make_value_at_multi_res_iso(cfg, gp, ro, rd, seed0,
+                                                coeff3)
+        return _make_value_at_multi_res(cfg, gp, ro, rd, seed0, coeff3)
     if cfg.isotropic_3d:
-        # isotropic-ray space: world -> isotropic, then each ray's frame
-        # (tg, bt, rdi); K1 sums there with the identity splat form and
+        # isotropic(-ray) space: world -> isotropic (then each ray's frame
+        # (tg, bt, rdi)); K1 sums there with the identity splat form and
         # the cell radius kernel_scale, constants of the covariance
-        rd_iso = cov.pos_world_to_local(rd)
-        rdi = normalize(rd_iso)
-        tg, bt = tangent_frame(rdi)
-        ro_s = frame_to_local(tg, bt, rdi, cov.pos_world_to_local(ro))
-        rd_s = frame_to_local(tg, bt, rdi, rd_iso)
+        ro_s, rd_s, to_space = _iso_space(cov, cfg.isotropic_ray_3d, ro, rd)
         kr_f = cov.splat_radius_iso()
         kr = torch.full((), kr_f, dtype=torch.float32, device=ro.device)
         m3 = cov.splat_form(is_identity=True)
@@ -74,13 +117,10 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed, coeff3=None):
     if use_cond:
         # the conditioning splat exp(-q0) around each ray's conditioning
         # origin, in the same sampling space
-        if cfg.isotropic_3d:
-            o_s = frame_to_local(tg, bt, rdi,
-                                 cov.pos_world_to_local(coeff3.ray_origin))
-        else:
-            o_s = coeff3.ray_origin
+        o_s = (to_space(coeff3.ray_origin) if cfg.isotropic_3d
+               else coeff3.ray_origin)
         m_cond = cov.cond_form(cfg.isotropic_3d)
-        vsc, gsc = coeff3.value_scale, coeff3.gradient_scale
+        full = cov.full_form(cfg.isotropic_3d)
 
     def value_at(t):
         p = ro + t[:, None] * rd
@@ -91,26 +131,22 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed, coeff3=None):
             total = noise3d.noise3d_sum_s(ps, seed0, host[0], host[1:], K)
         val = total / norm
         if use_cond:
-            dd = ps - o_s
-            mdd = apply_form(m_cond, dd, m_cond.dim() == 2)
-            q0 = dot(mdd, dd)
-            d0 = -2.0 * mdd
-            val = val + (vsc + d0[:, 0] * gsc[:, 0] + d0[:, 1] * gsc[:, 1]
-                         + d0[:, 2] * gsc[:, 2]) * torch.exp(-q0)
+            val = val + _cond_splat(m_cond, full, ps - o_s, 1.0, coeff3)
         mean, gp_id = gp.mean_and_id(p)
-        return cov.amplitude(p) * val + mean, gp_id
+        return cov.amplitude(p) * val + mean, cfg.gp_id(gp, p, gp_id)
 
     return value_at
 
 
-def _make_value_at_multi_res(cfg, gp, ro, rd, seed0):
+def _make_value_at_multi_res(cfg, gp, ro, rd, seed0, coeff3):
     """value_at(t) of a multi-resolution nonstationary covariance: at each
     point the normalized lattice sums of the levels lvl and lvl + 1 around
     ls(p), each at its scale s (seed offset by its level, cell radius
-    kr_unit * s, quadratic form over s^2), blended by r_lo and r_hi.  Both
-    levels go to K2 as one [2R] batch, differentiable in p (through t),
-    in l (through the cell radii and the splat form) and in the levels'
-    scales."""
+    kr_unit * s, quadratic form over s^2) and, under a renewal context,
+    each with the conditioning splat at its scale, blended by r_lo and
+    r_hi.  Both levels go to K2 as one [2R] batch, differentiable in p
+    (through t), in l (through the cell radii and the splat form) and in
+    the levels' scales."""
     cov = gp.cov
     # the base's unit-scale splat form (diagonal: a tensor, differentiable
     # in l, and its values, read on the host once per batch) and cell radius
@@ -122,6 +158,9 @@ def _make_value_at_multi_res(cfg, gp, ro, rd, seed0):
     dens = cfg.impulse_density
     K = cfg.impulse_count
     seed0 = seed0[None]
+    use_cond = cfg.activate_conditioning
+    if use_cond:
+        m_cond = cov.base.cond_form()
 
     def value_at(t):
         p = ro + t[:, None] * rd
@@ -140,9 +179,111 @@ def _make_value_at_multi_res(cfg, gp, ro, rd, seed0):
                 p.repeat(2, 1), seed.reshape(-1), kr.reshape(-1),
                 qm.reshape(-1), m3, K, host)
         vals = total.reshape(s.shape) / torch.sqrt(cov.variance3(dens, kr, s))
+        if use_cond:
+            dd = p - coeff3.ray_origin
+            vals = vals + torch.stack([
+                _cond_splat(m_cond, full, dd, qm[j], coeff3)
+                for j in range(2)])
         val = r_lo * vals[0] + r_hi * vals[1]
         mean, gp_id = gp.mean_and_id(p)
-        return cov.amplitude(p) * val + mean, gp_id
+        return cov.amplitude(p) * val + mean, cfg.gp_id(gp, p, gp_id)
+
+    return value_at
+
+
+def _make_value_at_multi_res_iso(cfg, gp, ro, rd, seed0, coeff3):
+    """value_at(t) of a multi-resolution nonstationary covariance sampled
+    in isotropic(-ray) space: each level's positions are the rays' there
+    over its scale s, with the identity splat at the cell radius
+    kernel_scale, so both levels go to K1 (scalar kr and form) as one [2R]
+    batch, seeds offset by their levels; under a renewal context each
+    level adds the conditioning splat at its scale."""
+    cov = gp.cov
+    ro_s, rd_s, to_space = _iso_space(cov, cfg.isotropic_ray_3d, ro, rd)
+    kr_f = cov.splat_radius_iso()
+    norm = torch.sqrt(cov.variance3(cfg.impulse_density, kr_f,
+                                    is_identity=True))
+    K = cfg.impulse_count
+    seed0 = seed0[None]
+    use_cond = cfg.activate_conditioning
+    if use_cond:
+        o_s = to_space(coeff3.ray_origin)
+        m_cond = cov.cond_form(True)
+
+    def value_at(t):
+        p = ro + t[:, None] * rd
+        ps = ro_s + t[:, None] * rd_s
+        lvl_lo, s_lo, s_hi, r_lo, r_hi = sc.level_pair(gp, p)
+        lvl = lvl_lo.to(torch.int64)
+        seed = (seed0 + torch.stack([lvl, lvl + 1])) & rng.MASK32
+        inv = torch.stack([1.0 / s_lo, 1.0 / s_hi])[..., None]  # [2, R, 1]
+        pl = ps[None] * inv
+        total = noise3d.noise3d_sum_s(pl.reshape(-1, 3), seed.reshape(-1),
+                                      kr_f, (0.5, 0.5, 0.5, 0.0, 0.0, 0.0),
+                                      K)
+        vals = total.reshape(2, -1) / norm
+        if use_cond:
+            vals = vals + torch.stack([
+                _cond_splat(m_cond, False, pl[j] - o_s * inv[j], 1.0,
+                            coeff3) for j in range(2)])
+        val = r_lo * vals[0] + r_hi * vals[1]
+        mean, gp_id = gp.mean_and_id(p)
+        return cov.amplitude(p) * val + mean, cfg.gp_id(gp, p, gp_id)
+
+    return value_at
+
+
+def _make_value_at_brute_force(cfg, gp, ro, rd, seed0, coeff3):
+    """value_at(t) of a brute-force nonstationary covariance
+    (`multiResolutionGrid: false`): one lattice at the scale max(ls) whose
+    splat forms are divided per point by the squared splat scale ls(p) /
+    max(ls).  K2 takes it as a per-point quadratic-form scale qm with the
+    cell radius kr_unit * max(ls) in world space (seed offset by the
+    level of max(ls)), or kernel_scale in isotropic(-ray) space at
+    positions over max(ls) (no offset); the variance is the base's at
+    max(ls) times the splat scale cubed.  Under a renewal context the
+    conditioning splat takes the same qm."""
+    cov = gp.cov
+    dev = ro.device
+    dens = cfg.impulse_density
+    K = cfg.impulse_count
+    ml = torch.tensor(float(cov.max_ls), dtype=torch.float32, device=dev)
+    iso = cfg.isotropic_3d
+    if iso:
+        ro_s, rd_s, to_space = _iso_space(cov.base, cfg.isotropic_ray_3d, ro,
+                                          rd, ml)
+        kr_f = cov.splat_radius_iso()
+        host = (0.5, 0.5, 0.5, 0.0, 0.0, 0.0)
+        seed = seed0
+    else:
+        ro_s, rd_s = ro, rd
+        kr_f = float(cov.base.splat_radius() * ml)
+        m3 = cov.base.splat_form()
+        host = (tuple(m3.tolist()) + (0.0, 0.0, 0.0) if m3.dim() == 1
+                else _host_full(m3.new_zeros(()), m3)[1:])
+        seed = (seed0 + sc._level_word(ml)) & rng.MASK32
+    kr_t = torch.tensor(kr_f, dtype=torch.float32, device=dev)
+    base_var = cov.base.variance3(dens, kr_t, ml, is_identity=iso)
+    use_cond = cfg.activate_conditioning
+    if use_cond:
+        o_s = to_space(coeff3.ray_origin) if iso else coeff3.ray_origin
+        m_cond = cov.base.cond_form(iso)
+        full = cov.full_form(iso)
+
+    def value_at(t):
+        p = ro + t[:, None] * rd
+        ps = ro_s + t[:, None] * rd_s
+        ls = cov.nonstat_splat_kernel_scale(p)
+        inv_ls2 = 1.0 / torch.clamp(ls * ls, min=1e-12)
+        qm = inv_ls2 if iso else inv_ls2 / (ml * ml)
+        total = noise3d.noise3d_sum(ps.contiguous(), seed,
+                                    torch.full_like(ls, kr_f),
+                                    qm.contiguous(), host, K)
+        val = total / torch.sqrt(base_var * (ls * ls * ls))
+        if use_cond:
+            val = val + _cond_splat(m_cond, full, ps - o_s, qm, coeff3)
+        mean, gp_id = gp.mean_and_id(p)
+        return cov.amplitude(p) * val + mean, cfg.gp_id(gp, p, gp_id)
 
     return value_at
 
@@ -182,6 +323,6 @@ def make_value_at_1d(cfg, gp, coeff1, ro, rd, pss, scene_seed):
             g1, _ = cov.cov1_grad_grad2(dtc)
             val = val + vsc * cv + gsz * g1
         mean, gp_id = gp.mean_and_id(pw)
-        return cov.amplitude(pw) * val + mean, gp_id
+        return cov.amplitude(pw) * val + mean, cfg.gp_id(gp, pw, gp_id)
 
     return value_at

@@ -4,7 +4,10 @@ that BASELINE config 1, `scenes/gpis-sphere-box.json`, config 2,
 configs 3 and 3b, `scenes/gpis-mirror-1d{,-corrxy}.json`, config 4b,
 `scenes/gpis-function-space.json` and its CSG union `scenes/gpis-csg.json`,
 and config 5, the hero `scenes/gpis-hero.json`, use, with every
-covariance, mean, field and normal method of the JAX package's GP layer).
+covariance, mean, field, normal method, sampling space and correlation
+context of the JAX package's GP layer, mesh conditioning
+(`conditioning_data`), the function-space skip (`skip_space`), the
+surface/volume phase id and mirror surfaces and phases).
 
 Host-side numpy, computed as the JAX package computes it, then moved to
 `device` (the card unless the caller asks for the CPU; asking for `cuda`
@@ -29,6 +32,7 @@ from ..models.camera import Camera
 from ..models.integrator import Scene
 from ..io import meshio
 from ..ops import covariance as cv
+from ..ops import gp as gpmod
 from ..ops import means as mn
 from ..ops import nonstationary as ns
 from ..ops import sdf
@@ -332,15 +336,37 @@ def parse_gp(g: dict, device, base_dir=".") -> sc.GP:
                                    csg_right=right)
     if t != "standard":
         raise _unsupported(f"gaussian_process type {t!r}")
-    if "conditioning_data" in g:
-        raise _unsupported("gaussian_process option 'conditioning_data'")
     mdoc = g.get("mean", {})
-    return sc.GP(mean=parse_mean(mdoc, device, base_dir),
-                 cov=parse_cov(g.get("covariance", {}), device, base_dir),
-                 color_field=parse_field(mdoc.get("color"), device,
-                                         is_vector=True),
-                 emission_field=parse_field(mdoc.get("emission"), device,
-                                            is_vector=True))
+    gp = sc.GP(mean=parse_mean(mdoc, device, base_dir),
+               cov=parse_cov(g.get("covariance", {}), device, base_dir),
+               color_field=parse_field(mdoc.get("color"), device,
+                                       is_vector=True),
+               emission_field=parse_field(mdoc.get("emission"), device,
+                                          is_vector=True))
+    if "conditioning_data" in g:
+        gp = dataclasses.replace(gp, global_cond=_global_cond(
+            gp, g, device, base_dir))
+    return gp
+
+
+def _global_cond(gp, g, device, base_dir):
+    """The GP's conditioning on the unique vertices (rounded to 1e-6) of
+    the mesh `conditioning_data` (relative to the scene's directory), at
+    most `conditioning_max_points` of them (1024; a seeded choice beyond),
+    with their unit normals: solved once here (ops/gp.py)."""
+    mesh = meshio.load_mesh(os.path.join(base_dir, g["conditioning_data"]))
+    pos = np.asarray(mesh["pos"], np.float32)
+    nrm = np.asarray(mesh["normal"], np.float32)
+    pos_u, idx = np.unique(pos.round(6), axis=0, return_index=True)
+    nrm_u = nrm[idx]
+    cap = int(g.get("conditioning_max_points", 1024))
+    if len(pos_u) > cap:
+        sel = np.random.default_rng(0).choice(len(pos_u), cap, replace=False)
+        pos_u, nrm_u = pos_u[sel], nrm_u[sel]
+    nrm_u = nrm_u / np.maximum(
+        np.linalg.norm(nrm_u, axis=-1, keepdims=True), 1e-9)
+    return gpmod.build_global_cond(gp, _t32(pos_u, device),
+                                   _t32(nrm_u, device))
 
 
 _CTXT = {"global": sc.CTXT_GLOBAL, "renewal+": sc.CTXT_RENEWAL_PLUS,
@@ -359,14 +385,10 @@ _MEDIUM_KINDS = {"sparse_conv_noise": md.GPIS_SPARSE_CONV,
 
 
 def _check_function_space(gp, ctxt, m):
-    """Refuse what the ported function-space medium does not run."""
-    if ctxt not in (sc.CTXT_RENEWAL, sc.CTXT_RENEWAL_PLUS):
-        # the JAX package's _sample_chunk (the Global ring, the None
-        # context's constrained sampler)
-        raise _unsupported(f"the {ctxt!r} correlation context of a "
-                           "function-space medium")
-    if float(m.get("skip_space", 0.0)) > 0.0:
-        raise _unsupported("function-space option 'skip_space'")
+    """Refuse what the function-space medium does not run."""
+    if ctxt == sc.CTXT_GLOBAL and gp.csg_right is not None:
+        raise _jax_fails("a CSG union under the Global context of a "
+                         "function-space medium")
     n = int(m.get("sample_points", 32))
     if not 2 <= n <= psd.MAX_N - 2:
         raise _unsupported(f"sample_points {n} (K8 solves at most "
@@ -433,8 +455,6 @@ def parse_medium(m: dict, phase_bsdf: int, device, base_dir=".") -> md.Medium:
     if t not in _MEDIUM_KINDS:
         raise _unsupported(f"medium type {t!r}")
     kind = _MEDIUM_KINDS[t]
-    if m.get("surf_vol_phase_separate", False):
-        raise _unsupported("medium option 'surf_vol_phase_separate'")
     one_d = bool(m.get("1D_sampling", False))
     if one_d and kind != md.GPIS_SPARSE_CONV:
         raise _unsupported(f"1D sampling of a {kind} medium")
@@ -456,41 +476,17 @@ def parse_medium(m: dict, phase_bsdf: int, device, base_dir=".") -> md.Medium:
         use_single_realization=bool(m.get("single_realization", False)),
         one_d=one_d, scheme=_SCHEME[scheme],
         correlation_xy=bool(m.get("1D_gradient_correlationXY", False)),
-        isotropic_3d=bool(m.get("isotropic_3D_sampling", False)))
+        isotropic_3d=bool(m.get("isotropic_3D_sampling", False)),
+        surf_vol_phase_separate=bool(m.get("surf_vol_phase_separate",
+                                           False)),
+        surf_vol_phase_amp_thresh=float(m.get("surf_vol_phase_amp_thresh",
+                                              0.0)))
     gp = parse_gp(m.get("gaussian_process", {}), device, base_dir)
     for child in (gp, gp.csg_right):
         if child is not None:
             check_cov(child.cov, kind, normal)
     if kind == md.GPIS_FUNCTION_SPACE:
         _check_function_space(gp, cfg.ctxt, m)
-    elif kind == md.GPIS_WEIGHT_SPACE:
-        # a weight-space realization is drawn fresh per segment and
-        # conditions nothing, whatever the context; a GP outside the
-        # K4/K5 kernels' scope takes the plain path, as in the JAX package
-        pass
-    elif (one_d or cfg.isotropic_3d) and getattr(
-            gp.cov if gp.cov.is_stationary else gp.cov.base,
-            "use_aniso_mtx", False):
-        raise _unsupported("covariance option 'anisoMtx' with 1D or "
-                           "isotropic 3D sampling")
-    elif not gp.cov.is_stationary and not gp.cov.use_multi_res_grid:
-        raise _unsupported("brute-force nonstationary sampling "
-                           "(multiResolutionGrid: false)")
-    # the 1D and isotropic multi-resolution branches and the conditioning
-    # of nonstationary covariances are not ported
-    elif not gp.cov.is_stationary and one_d:
-        raise _unsupported("a nonstationary covariance with 1D sampling")
-    elif not gp.cov.is_stationary and cfg.isotropic_3d:
-        raise _unsupported("isotropic 3D sampling of a nonstationary "
-                           "covariance")
-    elif not gp.cov.is_stationary and cfg.activate_conditioning:
-        raise _unsupported(f"a nonstationary covariance with {ctxt!r} "
-                           "conditioning")
-    elif cfg.activate_conditioning and one_d and \
-            cfg.ctxt != sc.CTXT_RENEWAL_PLUS:
-        # the port conditions 1D realizations under renewal+ only
-        raise _unsupported(f"{ctxt!r} conditioning of per-path 1D "
-                           "realizations")
     step_size = float(m.get("step_size", 0.01))
     return md.Medium(
         sigma_a=torch.tensor(_rgb(m.get("sigma_a"), (0, 0, 0)), device=device),
@@ -502,7 +498,7 @@ def parse_medium(m: dict, phase_bsdf: int, device, base_dir=".") -> md.Medium:
         basis_functions=int(m.get("basis_functions", 300)),
         ws_sphere_trace=kind == md.GPIS_WEIGHT_SPACE and step_size == 0.0,
         sample_points=int(m.get("sample_points", 32)),
-        normal_method=normal)
+        skip_space=float(m.get("skip_space", 0.0)), normal_method=normal)
 
 
 # ---------------------------------------------------------------------------
@@ -554,9 +550,6 @@ def scene_from_dict(doc: dict, seed=DEFAULT_SEED, device="cuda"):
                                "than lambert or mirror")
         medium_names[m.get("name", f"medium{len(media)}")] = len(media)
         media.append(parse_medium(m, phase_bsdf, device, base_dir))
-        if kind == bs.MIRROR and not media[-1].cfg.one_d:
-            raise _unsupported("a mirror phase function without 1D "
-                               "sampling")
 
     def medium_index(ref):
         if ref is None:
@@ -581,12 +574,6 @@ def scene_from_dict(doc: dict, seed=DEFAULT_SEED, device="cuda"):
         if np.any(entry["emission"] > 0) and entry["kind"] != pr.PRIM_QUAD:
             raise _unsupported(f"an emissive {t!r}")
         prims.append(entry)
-
-    # a mirror is ported as the phase function of a medium only
-    mirrors = {i for i, b in enumerate(bsdf_list) if b["kind"] == bs.MIRROR}
-    on_prims = {p["bsdf"] for p in prims}
-    if mirrors - {m.phase_bsdf for m in media} or mirrors & on_prims:
-        raise _unsupported("a mirror bsdf outside a BRDF phase function")
 
     cam_doc = doc.get("camera", {})
     if cam_doc.get("type", "pinhole") != "pinhole":
