@@ -37,26 +37,26 @@ and read just after:
   128x128, 16 spp with its launches, host syncs and peak memory;
 - config 1's hyperparameter gradient: sample_distance's d sum(t) /
   d(sigma, l) on 32 rays against central FD and against the port on the
-  CPU, then 3 inverse-rendering steps of tungsten_tpu_torch.entry's
+  CPU, then 2 inverse-rendering steps of tungsten_tpu_torch.entry's
   train_step at 128x128, 4 spp, depth 2 (K1 forward, K1b backward), each
   with its loss, parameters, gradient, wall, launches and host syncs;
 - the hyperparameter gradient of configs 3 and 3b: config 3's
   sample_distance gradient on 48 rays against central FD and the CPU,
-  then 3 training steps of config 3 and one of config 3b at 128x128,
+  then 2 training steps of config 3 and one of config 3b at 128x128,
   16 spp, depth 2 (K3 forward, K3b backward), each with its loss,
   gradient, wall, launches, host syncs and peak memory, and one step
   through the CLI (`python -m tungsten_tpu_torch.entry --scene
   scenes/gpis-mirror-1d.json --steps 1`);
 - the hero's hyperparameter gradient (in the base covariance's sigma and
   l): sample_distance's gradient of a signed sum of t on 32 rays against
-  central FD and the CPU, 3 training steps at 128x128, 16 spp, depth 2
+  central FD and the CPU, 2 training steps at 128x128, 16 spp, depth 2
   (K2 forward, K2b backward), each with its loss, gradient, wall,
   launches, host syncs and peak memory, and one step through the CLI at
   the hero's own 1920x1080, 1 spp, in 8 row bands;
 - config 2's hyperparameter gradient: the two-segment d sum(t1 + t2) /
   d(sigma, l) on 32 rays (the second segment conditioned at its start)
   against central FD over the lanes FD resolves and against the CPU, and
-  3 training steps at its own 256x256, depth 2, at 8 of its 16 spp (2
+  2 training steps at its own 256x256, depth 2, at 8 of its 16 spp (2
   groups of 4 samples; K1 forward, K1b backward);
 - BASELINE config 4b (scenes/gpis-function-space.json) and its CSG union
   (scenes/gpis-csg.json), function space, renewal+, K8 alone: 128x128,
@@ -69,7 +69,7 @@ and read just after:
   fed to the CPU's reattachment, the CPU, for both step sizes; the
   image-level check of tests/test_grad_e2e.py::test_image_grad_allclose_fd
   (24x24, 16 passes, isotropic phase, event-linear pixels) against
-  central FD in sigma and l; 3 training steps at 128x128, 8 spp (K5) and
+  central FD in sigma and l; 2 training steps at 128x128, 8 spp (K5) and
   one with step_size 0 (K4), each launching the kernel as often as the
   forward render.
 - the distribution layer (parallel/mesh.py): the hero at its own
@@ -123,7 +123,23 @@ and read just after:
   under config 4b's one chunk a segment and depth 2 the ring's blocks
   are diagonal; the chunk's 32, on the matrices an fs-global render
   hands it) against its twin, timed at 4096 matrices beside its bound,
-  its twin and torch.linalg.eigh.
+  its twin and torch.linalg.eigh.  The hero's five variants render at
+  960x540 (HERO_VARIANT_RES), a cut of their depth;
+- the gradient through the GP layer's types (ROADMAP 16c): K1b's and
+  K2b's full-form instances (an anisoMtx in world space: all six
+  partials of the splat form) against their twins on box-aniso's form
+  and on the hero's base over it, up to 2^20 points, timed beside their
+  SASS bounds; then for each variant of GRAD_VARIANTS (config 1's at
+  128x128, 4 spp; config 3's at 16 spp; config 4a's at 8 spp; the hero's
+  at 128x128, 16 spp; hero-aniso, the hero over box-aniso's anisoMtx) one
+  step of entry.train_step with its loss, gradient, wall, launches, host
+  syncs and peak memory (the backward launched at least once a recording
+  sample_distance where the path has a lattice sum; box-aniso's and
+  hero-aniso's first full-form launch held against the twin), and the
+  medium-level gradient on the family's rays, per lane, against the
+  port's CPU run of the same rays (spawned at the start of the run) and
+  central FD on the lanes FD resolves; box-knob must be refused by name;
+  then hero-bruteforce's gradient through the CLI at 1920x1080, 1 spp.
 It checks each image, shows that every weight-space search was one launch
 with no host sync inside, prints config 4a's host syncs, realization
 synthesis and peak memory beside the earlier design's recorded numbers,
@@ -246,7 +262,8 @@ K2B_RTOL, K2B_SUM_RTOL = 1e-5, 1e-4
 # its l step is 1e-4 (1e-3 leaves the realization's linear regime).
 # Config 2's rays go on from their first crossing in a second segment,
 # conditioned there (renewal+), as tests/test_torch_ensemble.py runs them;
-# FD is taken over the lanes it resolves (`fd_lanes`).
+# FD is taken over the lanes it resolves (tungsten_tpu_torch/utils/fd.py
+# `fd_lanes`).
 MEDIUM_RAYS = {"config 1": (32, (0.0, 1.0, 3.8), 0.12, -0.02, 2.0, 4.5, 4e-3),
                "config 2": (32, (0.0, 1.0, 3.8), 0.12, -0.02, 2.0, 4.5, 5e-4),
                "config 3": (48, (0.0, 0.9, 3.0), 0.15, -0.01, 1.2, 4.5, 2e-3),
@@ -264,7 +281,9 @@ MEDIUM_CPU_RTOL = 1e-3
 # gradient) that the card's search found fed into the CPU's reattachment
 # (`ws_lane_grads`), each lane within MEDIUM_CPU_RTOL of (|its CPU
 # partial| + the lanes' mean |partial|)
-TRAIN_STEPS = 3
+# Training steps of each BASELINE config: two (a third would not fit the
+# run's time limit beside the gradient variants' steps)
+TRAIN_STEPS = 2
 # Config 4b (function space) and its CSG union: 128x128, 8 spp, depth 2
 # through the CLI and the 64x64, 48-spp goldens.  K8 against its twin
 # (torch.linalg.eigh, on the CPU): V diag(W) V^T within K8_RECON_TOL
@@ -401,6 +420,9 @@ SLICE_VARIANTS = ("fs-global", "fs-none", "fs-skip", "fs-conditioned",
 VARIANT_CPU_SHAPE = {n: ((48, 27), 3) for n in SLICE_VARIANTS
                      if n.startswith("hero")}
 K8_NEW_SIZES = (16, 32)  # the Global ring's solve, the chunk's root
+# the hero's forward variants render at half its 1920x1080 a side (2 row
+# bands of 273 rows where the frame takes 8 of 136)
+HERO_VARIANT_RES = (960, 540)
 
 
 def ws_work(name, n, rays, rays_eval, steps, refined, tag="se"):
@@ -423,9 +445,9 @@ def ws_work(name, n, rays, rays_eval, steps, refined, tag="se"):
 
 def lattice_pipes(sass, noise3d, noise1d):
     """{kernel: (bytes, {class: instructions}) per point} of K1, K1b, K2,
-    K2b, K3 and K3b at K = 3 impulses per cell (every scene's), from the
-    SASS of the libraries just built (K1b's, K3's and K3b's K = 3
-    kernels)."""
+    K2b, K3 and K3b (and K1b's and K2b's full-form instances) at K = 3
+    impulses per cell (every scene's), from the SASS of the libraries just
+    built (K1b's, K3's and K3b's K = 3 kernels)."""
     from tungsten_tpu_torch.kernels.nvcc import compile_library, sass_listing
     l3 = sass_listing(compile_library(noise3d.SOURCE)[0])
     l1 = sass_listing(compile_library(noise1d.SOURCE)[0])
@@ -437,13 +459,22 @@ def lattice_pipes(sass, noise3d, noise1d):
         # loop (K = 3 tests each) 27 times, an append and a drained entry
         # per impulse within reach, and the point loop around the walk
         # (loads, dp and the float64 partials) once
-        "K1b": (32, sass.split_counts(l3, "noise3d_sum_s_bwd_kernelILi3",
+        "K1b": (32, sass.split_counts(l3, "noise3d_sum_s_bwd_kernelILi3ELb0",
                                       27, LONG_3D * K, around=1)),
+        # the full-form instance: the same walk, three more sums a drained
+        # entry
+        "K1b full": (32, sass.split_counts(
+            l3, "noise3d_sum_s_bwd_kernelILi3ELb1", 27, LONG_3D * K,
+            around=1)),
         "K2": (28, sass.lattice_counts(l3, "noise3d_sum_kernel", 27 * K,
                                        LONG_3D * K, cells=27)),
         # p, seed, kr, qm and the cotangent in; dp and 5 partials out
-        "K2b": (60, sass.lattice_counts(l3, "noise3d_sum_bwd_kernel",
+        "K2b": (60, sass.lattice_counts(l3, "noise3d_sum_bwd_kernelILb0",
                                         27 * K, LONG_3D * K, cells=27)),
+        # and 3 + 8 partials out
+        "K2b full": (72, sass.lattice_counts(
+            l3, "noise3d_sum_bwd_kernelILb1", 27 * K, LONG_3D * K,
+            cells=27)),
         "K3": (12, sass.lattice_counts(l1, "noise1d_sum_kernelILi3", 1,
                                        LONG_1D * K)),
         # pz, seed and the cotangent in; dpz out
@@ -491,7 +522,9 @@ def kernel_device_ms(fn, kernel, reps=20, tries=3):
     one warm-up: the kernel alone, without the host work and gaps a
     CUDA-event window around a short launch also holds.  The mean is over
     the launches the profiler recorded; a window in which it recorded none
-    is profiled again, up to `tries` times."""
+    is profiled again, up to `tries` times.  Where none did, the time is
+    the median of `reps` CUDA-event windows around fn() (host work and
+    gaps included, so no less than the kernel's), and the run says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
@@ -507,7 +540,11 @@ def kernel_device_ms(fn, kernel, reps=20, tries=3):
         us = sum(e.self_device_time_total for e in seen)
         if launches > 0 and us > 0:
             return us / launches / 1e3
-    raise RuntimeError(f"the profiler saw no device time for {kernel}")
+    t = median_ms(fn, reps)
+    print(f"the profiler recorded no device time for {kernel} in {tries} "
+          f"windows: its time is {t:.4f} ms, the median of {reps} CUDA-event "
+          "windows around one call", flush=True)
+    return t
 
 
 def bound_ms(n_bytes, counts):
@@ -812,17 +849,28 @@ VARIANT_KERNELS = {
     "hero-bruteforce": (("K2",), None), "hero-iso": (("K1",), None),
     "hero-renewal": (("K2",), None), "hero-1d": ((), None),
     "hero-surfvol": (("K2",), None), "box-iso": (("K1",), None),
-    "box-iso-aniso": (("K1",), None), "box-mirror-phase": (("K1",), None),
+    "box-iso-aniso": (("K1",), None), "box-aniso": (("K1",), None),
+    "box-mirror-phase": (("K1",), None),
     "box-mirror-surface": (("K1",), None), "m1d-renewal": (("K3",), None),
     "m1d-aniso": (("K3",), None)}
 
 
 def variant_docs(tmp):
     """The GP layer's variant scenes: {label: (scene dict, spp, the kernels
-    the render goes through, the K5/K4 tag, the variant's name)}."""
+    the render goes through, the K5/K4 tag, the variant's name)}; the
+    hero's at HERO_VARIANT_RES (a cut of their depth: the time limit
+    leaves room for the gradient variants)."""
     from tungsten_tpu_torch.tools.gp_variants import variant_docs as docs
-    return {label: (doc, spp, *VARIANT_KERNELS[name], name)
-            for name, (label, doc, spp) in docs(tmp).items()}
+    out = {}
+    for name, (label, doc, spp) in docs(tmp).items():
+        if name.startswith("hero"):
+            doc = json.loads(json.dumps(doc))
+            doc["camera"]["resolution"] = list(HERO_VARIANT_RES)
+            label = label.replace("config 5", "config 5 at "
+                                  f"{HERO_VARIANT_RES[0]}x"
+                                  f"{HERO_VARIANT_RES[1]}")
+        out[label] = (doc, spp, *VARIANT_KERNELS[name], name)
+    return out
 
 
 def cpu_reference(doc, spp, res=(VARIANT_CPU_RES, VARIANT_CPU_RES)):
@@ -1689,30 +1737,48 @@ def f32_ulps(a, b):
     return float(((a.double() - b.double()).abs() / step.double()).max())
 
 
-def device_kernels(fn):
+def device_kernels(fn, tries=3):
     """{kernel: [launches, device ms]} the card ran for one call of fn(),
-    after a warm-up call (torch.profiler)."""
+    after a warm-up call (torch.profiler).  A window in which the profiler
+    recorded no kernel at all is profiled again, up to `tries` times; {}
+    when none recorded one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: [e.count, e.self_device_time_total / 1e3]
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)}
+    for _ in range(tries):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ran = {e.key: [e.count, e.self_device_time_total / 1e3]
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)}
+        if ran:
+            return ran
+    return {}
 
 
-def backward_kernels(name, fn, kernel):
-    """The kernels the card ran for one call of fn(), a backward through
-    autograd: it must be one launch of `kernel` and nothing else."""
+def backward_kernels(name, fn, kernel, mod, counter):
+    """One call of fn(), a backward through autograd, must be one launch
+    of `kernel`: its wrapper's count `mod.counter` must rise by one, and
+    the kernels the card ran (torch.profiler) must be that one launch and
+    nothing else.  Where the profiler recorded no kernel in any window,
+    the count alone holds it, and the run says so."""
+    before = getattr(mod, counter)
+    fn()
+    torch.cuda.synchronize()
+    launched = getattr(mod, counter) - before
     ran = device_kernels(fn)
-    print(f"{name}'s backward through autograd ran on the card: {ran}",
+    print(f"{name}'s backward through autograd: {launched} launch(es) by "
+          f"its wrapper's count {counter}; ran on the card: "
+          f"{ran or 'nothing the profiler recorded (the count holds it)'}",
           flush=True)
-    if sum(c for c, _ in ran.values()) != 1 or not any(kernel in k
-                                                       for k in ran):
+    if launched != 1:
+        raise RuntimeError(f"{name}'s backward made {launched} launches of "
+                           f"{kernel}, not one")
+    if ran and (sum(c for c, _ in ran.values()) != 1
+                or not any(kernel in k for k in ran)):
         raise RuntimeError(f"{name}'s backward is not one launch of {kernel}:"
                            f" {ran}")
 
@@ -1748,7 +1814,8 @@ def k1b_checks(noise3d, cov, K, work, dev, card_line):
     out = noise3d.noise3d_sum_s_diff(leaves[0], sd, leaves[1], leaves[2], K,
                                      host)
     backward_kernels("K1b", lambda: torch.autograd.grad(
-        out, leaves, g, retain_graph=True), "noise3d_sum_s_bwd_kernel")
+        out, leaves, g, retain_graph=True), "noise3d_sum_s_bwd_kernel",
+        noise3d, "K1B_LAUNCHES")
     return check(K1B_POINTS, K, "noise3d_sum_s_bwd_kernel")
 
 
@@ -1784,7 +1851,8 @@ def k3b_checks(noise1d, work, dev, card_line):
               torch.tensor(3.0, device=dev, requires_grad=True))
     out = noise1d.noise1d_sum_diff(leaves[0], seed[:n], leaves[1], 3)
     backward_kernels("K3b", lambda: torch.autograd.grad(
-        out, leaves, g[:n], retain_graph=True), "noise1d_sum_bwd_kernel")
+        out, leaves, g[:n], retain_graph=True), "noise1d_sum_bwd_kernel",
+        noise1d, "K3B_LAUNCHES")
     return check(K3_POINTS, 3, "noise1d_sum_bwd_kernel")
 
 
@@ -1980,61 +2048,63 @@ def two_segments(md, med, scene_seed, rays):
     return r1, r2
 
 
-def fd_lanes(run, params, i, eps):
-    """(lanes, central FD of sum(t1 + t2) over them) in parameter i at step
-    eps, `run(sigma, l)` giving the two segments' results: the lanes that
-    hit in both segments at every evaluation and whose t1 and t2 have
-    central differences at eps and eps / 4 within 10% (+ 0.05) of each
-    other.  A lane whose march takes another bracket or refinement path
-    across the stencil jumps in t, which FD turns into a slope no
-    derivative has (tests/test_torch_ensemble.py)."""
-    def at(d):
-        x = list(params)
-        x[i] += d
-        with torch.no_grad():
-            a, b = run(*x)
-        return a["t"], b["t"], ~a["exited"] & ~b["exited"]
+def variant_run(md, convert, scene, dev, spec, segments, sigma, l):
+    """sample_distance over a variant's fan of rays (fan_rays), in one
+    segment or two (`two_segments`): a list of the results."""
+    rays = fan_rays(spec, dev)
+    med = convert.set_params(scene, sigma, l).media[0]
+    if segments == 2:
+        return list(two_segments(md, med, scene.scene_seed, rays))
+    ro, rd, near, far, pss, uj, active = rays
+    res, _ = md.sample_distance(med, scene.scene_seed, ro, rd, near, far,
+                                md.MediumState.make(ro.shape[0], dev), pss,
+                                uj, active)
+    return [res]
 
-    c, p, m, p4, m4 = (at(d) for d in (0.0, eps, -eps, eps / 4, -eps / 4))
-    lanes = c[2] & p[2] & m[2] & p4[2] & m4[2]
-    for k in range(2):
-        f1 = (p[k] - m[k]) / (2 * eps)
-        f4 = (p4[k] - m4[k]) / (eps / 2)
-        lanes &= (f1 - f4).abs() <= 0.1 * f1.abs() + 0.05
-    fd = torch.where(lanes, p[0] + p[1] - m[0] - m[1], 0.0).sum() / (2 * eps)
-    return lanes, float(fd)
+
+def lane_grads(md, convert, entry, scene, dev, spec, segments):
+    """Each lane's d(t1 + t2) / d(sigma, l) (one backward a lane), its
+    t1 + t2 and whether it hit in every segment: ([R, 2], [R], [R]) on
+    the CPU."""
+    sigma, l = (x.detach().clone().requires_grad_()
+                for x in entry.params(scene))
+    res = variant_run(md, convert, scene, dev, spec, segments, sigma, l)
+    t = sum(r["t"] for r in res)
+    hit = torch.ones_like(res[0]["exited"])
+    for r in res:
+        hit &= ~r["exited"]
+    ad = torch.zeros(t.shape[0], 2)
+    for i in range(t.shape[0]):
+        if t[i].requires_grad:
+            ad[i] = torch.stack(torch.autograd.grad(
+                t[i], (sigma, l), retain_graph=True)).cpu()
+    return ad, t.detach().cpu(), hit.cpu()
 
 
 def two_segment_grad_checks(md, convert, entry, load_scene, dev, what, path):
     """A renewal scene's two-segment medium-level gradient d sum(t1 + t2) /
     d(sigma, l) on the card against central FD over the lanes FD resolves
-    and against the port on the CPU over the same lanes."""
+    (`fd_lanes` at eps and eps / 4, FD at eps / 4) and against the port
+    on the CPU over the same lanes (each lane's partial from
+    `lane_grads`)."""
+    from tungsten_tpu_torch.utils.fd import fd_lanes
     spec = MEDIUM_RAYS[what]
     R, eps = spec[0], spec[-1]
     scenes = {d: load_scene(path, device=d)[0] for d in (dev, "cpu")}
-
-    def run(d, sigma, l):
-        sc = scenes[d]
-        med = convert.set_params(
-            sc, *(torch.as_tensor(v, dtype=torch.float32, device=d)
-                  for v in (sigma, l))).media[0]
-        return two_segments(md, med, sc.scene_seed, fan_rays(spec, d))
-
-    def ad(d, lanes, i):
-        x = [torch.tensor(float(v), device=d, requires_grad=True)
-             for v in entry.params(scenes[d])]
-        r1, r2 = run(d, *x)
-        loss = torch.where(lanes.to(d), r1["t"] + r2["t"], 0.0).sum()
-        return float(torch.autograd.grad(loss, x[i])[0])
-
+    grads = {d: lane_grads(md, convert, entry, scenes[d], d, spec, 2)
+             for d in (dev, "cpu")}
     params = tuple(float(v) for v in entry.params(scenes[dev]))
     for i, name in enumerate(("dsigma", "dl")):
-        lanes, fd = fd_lanes(lambda s, l: run(dev, s, l), params, i, eps)
-        g, g_cpu = ad(dev, lanes, i), ad("cpu", lanes.cpu(), i)
+        lanes, fd = fd_lanes(lambda s, l: variant_run(
+            md, convert, scenes[dev], dev, spec, 2, s, l), params, i, eps,
+            dev, n_steps=2)
+        lanes &= grads[dev][2]
+        fd = float(torch.where(lanes, fd, 0.0).sum())
+        g, g_cpu = (float(grads[d][0][lanes, i].sum()) for d in (dev, "cpu"))
         print(f"{what} two-segment medium-level d sum(t1 + t2) / {name[1:]}"
               f" on the {int(lanes.sum())} of {R} lanes FD resolves: card "
-              f"{g:.5f}, central FD at eps {eps} {fd:.5f}, CPU {g_cpu:.5f}",
-              flush=True)
+              f"{g:.5f}, central FD at eps {eps / 4:g} {fd:.5f}, CPU "
+              f"{g_cpu:.5f}", flush=True)
         if int(lanes.sum()) < R // 4:
             raise RuntimeError(f"{what}: FD resolves fewer than {R // 4} "
                                "lanes")
@@ -2282,6 +2352,14 @@ def fs_render_checks(trender, psd, gpmod, counters, scene, what, spp,
     total = sum(e.self_device_time_total for e in dev_ev) / 1e3
     k8 = sum(e.self_device_time_total for e in dev_ev
              if "jacobi_eigh_kernel" in e.key) / 1e3
+    if not dev_ev:
+        print(f"{what} under the profiler, {spp} spp: {wall:.3f} s "
+              f"(profiled), K8 launches {counts['K8']}, largest launch "
+              f"{psd.MOST_MATRICES} matrices, host syncs {syncs}, peak "
+              f"device memory {peak:.2f} GiB; K8's device time and share "
+              "not measured (the profiler recorded no device activity; the "
+              f"launch count holds K8 alone) ({card_line})", flush=True)
+        return counts["K8"], wall, syncs, peak
     if k8 <= 0.0:
         raise RuntimeError(f"{what}: the profiler saw no K8 device time")
     by_n = {}
@@ -2375,6 +2453,8 @@ def launch_counters(noise3d, noise1d, wst, psd):
     """{kernel: (module, name of its launch counter)} of every kernel."""
     return {"K1": (noise3d, "LAUNCHES"), "K1b": (noise3d, "K1B_LAUNCHES"),
             "K2": (noise3d, "K2_LAUNCHES"), "K2b": (noise3d, "K2B_LAUNCHES"),
+            "K1b full": (noise3d, "K1B_FULL_LAUNCHES"),
+            "K2b full": (noise3d, "K2B_FULL_LAUNCHES"),
             "K3": (noise1d, "LAUNCHES"),
             "K3b": (noise1d, "K3B_LAUNCHES"), "K5": (wst, "MARCH_LAUNCHES"),
             "K4": (wst, "TRACE_LAUNCHES"), "K8": (psd, "LAUNCHES")}
@@ -2462,14 +2542,14 @@ def train_steps(entry, counters, load_scene, dev, card_line, what, path,
                 raise RuntimeError(f"{what} step {step}: dsigma {float(gs)}, "
                                    f"dl {float(gl)}: the gradient chain is "
                                    "severed or not finite")
-            bwd = used[-1]
+            bwd = used[-1] if used else None
             if graphs[0] <= 0 or len(used) > 1 and graphs[0] > (
                     after[bwd] - before[bwd]):
                 raise RuntimeError(f"{what} step {step}: {bwd} launched "
                                    f"{after[bwd] - before[bwd]} times for "
                                    f"{graphs[0]} sample_distance calls with "
                                    "a graph")
-            fwd = after[used[0]] - before[used[0]]
+            fwd = after[used[0]] - before[used[0]] if used else 0
             if per_step is not None and fwd != per_step:
                 raise RuntimeError(f"{what} step {step}: {used[0]} launched "
                                    f"{fwd} times, the forward render "
@@ -2783,6 +2863,340 @@ def driver_options(trender, read_pfm, noise3d, tmp, card_line):
         raise RuntimeError("the Sobol render failed the golden bucket test")
 
 
+# ---------------------------------------------------------------------------
+# The gradient through the GP layer's types (ROADMAP 16c)
+# ---------------------------------------------------------------------------
+
+# Each variant's training step, one step of entry.train_step against a
+# zero target at 128x128 and depth 2 (config 1's variants at 4 spp, config
+# 3's at 16, config 4a's at 8, the hero's at 16 as its own step phase
+# runs), and the kernels its forward and backward launch (none: hero-1d's
+# multi-resolution 1D general evaluator and ws-linear's plain weight-space
+# fallback, as in the JAX package).  box-mirror-phase trains at depth 3:
+# at depth 2 a path reflected off the medium ends there, so its image
+# gradient is 0 in both packages (tests/test_torch_grad_mirror.py).
+# hero-aniso is this script's own: the hero over box-aniso's anisoMtx
+# (the full splat form in world space, K2b's full instance).  box-knob is
+# refused by name: the knob SDF's gradient is NaN in jax.grad too.
+GRAD_VARIANTS = {
+    "box-iso": ("K1", "K1b"), "box-iso-aniso": ("K1", "K1b"),
+    "box-aniso": ("K1", "K1b full"), "box-mesh": ("K1", "K1b"),
+    "box-csg": ("K1", "K1b"), "box-ggx": ("K1", "K1b"),
+    "box-mirror-phase": ("K1", "K1b"), "box-mirror-surface": ("K1", "K1b"),
+    "m1d-renewal": ("K3", "K3b"), "m1d-aniso": ("K3", "K3b"),
+    "ws-rq": ("K5",), "ws-rq-trace": ("K4",), "ws-matern": ("K5",),
+    "ws-matern-trace": ("K4",), "ws-linear": (),
+    "hero-bruteforce": ("K2", "K2b"), "hero-iso": ("K1", "K1b"),
+    "hero-renewal": ("K2", "K2b"), "hero-1d": (),
+    "hero-surfvol": ("K2", "K2b"), "hero-aniso": ("K2", "K2b full")}
+GRAD_REFUSED = {"box-knob": "knob mean"}
+GRAD_DEPTH = {"box-mirror-phase": 3}
+# the medium-level gradient's rays per family (MEDIUM_RAYS), and the
+# variants whose second segment conditions at its start (two segments)
+GRAD_FAMILY = {"box": "config 1", "m1d": "config 3", "ws": "config 4a",
+               "hero": "config 5"}
+TWO_SEGMENTS = ("hero-renewal", "m1d-renewal", "m1d-aniso", "ws-rq",
+                "ws-matern")
+# the medium-level gradient's lanes on which the card and the CPU found
+# one crossing (within this of 1 + |t|)
+LANE_T_RTOL = 1e-4
+# K1b's and K2b's full instances (full_form_checks): K1b at K1B_POINTS,
+# K2b at K2_POINTS, on the forms of box-aniso and of the hero's base over
+# its anisoMtx; K1b's dp bit for bit and its sums within K1B_SUM_ULPS (its
+# operations in the twin's order, -fmad=false), K2b within K2B_RTOL and
+# K2B_SUM_RTOL, as their diagonal instances
+
+
+def grad_variant_docs(tmp):
+    """{name: (scene dict, spp, resolution override or None)} of the
+    variants whose gradient the run takes, with hero-aniso beside them."""
+    from tungsten_tpu_torch.tools.gp_variants import ANISO_MTX
+    from tungsten_tpu_torch.tools.gp_variants import variant_docs as docs
+    out = {}
+    all_docs = docs(tmp)
+    for name, (_, doc, spp) in all_docs.items():
+        if name not in GRAD_VARIANTS and name not in GRAD_REFUSED:
+            continue
+        doc = json.loads(json.dumps(doc))
+        if name in GRAD_DEPTH:
+            doc["integrator"]["max_bounces"] = GRAD_DEPTH[name]
+        hero = name.startswith("hero")
+        out[name] = (doc, 16 if hero else spp, (128, 128) if hero else None)
+    hero = json.loads(json.dumps(all_docs["hero-iso"][1]))
+    hero["media"][0]["isotropic_3D_sampling"] = False
+    hero["media"][0]["gaussian_process"]["covariance"]["cov"][
+        "anisoMtx"] = ANISO_MTX
+    out["hero-aniso"] = (hero, 16, (128, 128))
+    return out
+
+
+def _family(name):
+    return name.split("-")[0]
+
+
+def cpu_lane_grads(doc, name):
+    """`lane_grads` of variant `name` (scene dict `doc`) on the CPU, and its
+    wall seconds: run in a process of its own, on one thread."""
+    torch.set_num_threads(1)
+    sys.path.insert(0, ROOT)
+    from tungsten_tpu_torch import convert, entry
+    from tungsten_tpu_torch.models import media as md
+    from tungsten_tpu_torch.scene.parse import scene_from_dict
+    t0 = time.perf_counter()
+    scene, _ = scene_from_dict(doc, device="cpu")
+    spec = MEDIUM_RAYS[GRAD_FAMILY[_family(name)]]
+    out = lane_grads(md, convert, entry, scene, "cpu", spec,
+                     2 if name in TWO_SEGMENTS else 1)
+    return (*(x.numpy() for x in out), time.perf_counter() - t0)
+
+
+def variant_grad_check(md, convert, entry, scene, dev, name, cpu_future):
+    """A variant's medium-level gradient on the card, per lane (one
+    backward a lane), against the port's CPU run of the same rays
+    (`cpu_future`: cpu_lane_grads, started at the run's beginning) and
+    central FD.  Each lane's t1 + t2 is weighed by the sign of its card
+    partial, so that the lanes add: over the lanes where the card and the
+    CPU found one crossing (within LANE_T_RTOL), the weighed sum within
+    MEDIUM_CPU_RTOL of the CPU's; over those whose FD resolves
+    (`fd_lanes`), within MEDIUM_FD_RTOL, MEDIUM_FD_ATOL of FD.  A
+    parameter whose FD resolves no lane is printed, not held (K4's
+    variants: the sphere trace stops off the root, at a t that does not
+    move across the stencil).  Returns the wall seconds of the card's
+    part."""
+    from tungsten_tpu_torch.utils.fd import fd_lanes
+    t0 = time.perf_counter()
+    segments = 2 if name in TWO_SEGMENTS else 1
+    spec = MEDIUM_RAYS[GRAD_FAMILY[_family(name)]]
+    R, eps = spec[0], spec[-1]
+    eps = eps if isinstance(eps, tuple) else (eps, eps)
+    params = tuple(float(x) for x in entry.params(scene))
+
+    def run(sigma, l):
+        return variant_run(md, convert, scene, dev, spec, segments, sigma,
+                           l)
+
+    fd = [fd_lanes(run, params, i, eps[i], dev) for i in range(2)]
+    ad, t, hit = lane_grads(md, convert, entry, scene, dev, spec, segments)
+    card_s = time.perf_counter() - t0
+    ad_c, t_c, hit_c, cpu_s = (torch.from_numpy(np.asarray(x)) if k < 3
+                               else x for k, x in
+                               enumerate(cpu_future.result()))
+    same = hit & hit_c & ((t - t_c).abs() <= LANE_T_RTOL * (1 + t_c.abs()))
+    if int(same.sum()) < R // 2:
+        raise RuntimeError(f"{name}: the card and the CPU found one crossing"
+                           f" on {int(same.sum())} of {R} lanes")
+    parts = []
+    for i, pname in enumerate(("dsigma", "dl")):
+        w = torch.where(same, torch.sign(ad[:, i]), 0.0)
+        g, g_c = float((w * ad[:, i]).sum()), float((w * ad_c[:, i]).sum())
+        lanes, fd_lane = fd[i]
+        wf = torch.where(lanes & same, torch.sign(ad[:, i]), 0.0)
+        g_f, g_fd = float((wf * ad[:, i]).sum()), float((wf * fd_lane).sum())
+        n_fd = int((wf != 0).sum())
+        parts.append(f"{pname}: card {g:.5f}, CPU {g_c:.5f} on "
+                     f"{int(same.sum())} lanes; card {g_f:.5f}, FD at eps {eps[i] / 4:g} "
+                     f"{g_fd:.5f} on the {n_fd} lanes FD resolves")
+        if g == 0.0 or not np.isfinite(g) or abs(g - g_c) > (
+                MEDIUM_CPU_RTOL * abs(g_c)):
+            raise RuntimeError(f"{name}: medium-level {pname} on the card {g}"
+                               f" is not within {MEDIUM_CPU_RTOL} of the "
+                               f"CPU's {g_c}")
+        if n_fd == 0:
+            parts[-1] += " (printed, not held)"
+        elif abs(g_f - g_fd) > MEDIUM_FD_ATOL + MEDIUM_FD_RTOL * abs(g_fd):
+            raise RuntimeError(f"{name}: medium-level {pname} {g_f} is not "
+                               f"within rtol {MEDIUM_FD_RTOL}, atol "
+                               f"{MEDIUM_FD_ATOL} of FD {g_fd}")
+    print(f"{name} medium-level d sum(s (t1 + t2)) / d(sigma, l) ({segments}"
+          f" segment{'s' if segments > 1 else ''}, s the sign of each lane's "
+          f"card partial): " + "; ".join(parts)
+          + f" ({card_s:.2f} s on the card, {cpu_s:.1f} s on the CPU in its "
+          "process)", flush=True)
+    return card_s
+
+
+class BwdCapture:
+    """Wraps K1b's or K2b's raw wrapper (`fn`: "noise3d_sum_s_bwd" or
+    "noise3d_sum_bwd"), as autograd calls it, to keep the inputs of its
+    first full-form launch on at least `least` points; the launches stay
+    the step's."""
+
+    def __init__(self, noise3d, fn, least):
+        self.noise3d, self.name, self.least = noise3d, fn, least
+        self.fn, self.args = getattr(noise3d, fn), None
+
+    def __enter__(self):
+        def launch(p, *rest):
+            m = rest[-3]
+            if self.args is None and len(m) == 6 and p.shape[0] >= self.least:
+                self.args = tuple(x.clone() if torch.is_tensor(x) else x
+                                  for x in (p, *rest))
+            return self.fn(p, *rest)
+        setattr(self.noise3d, self.name, launch)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.noise3d, self.name, self.fn)
+
+
+def full_form_checks(noise3d, cov, hero_base, lattice, dev, card_line):
+    """K1b's and K2b's full instances against their twins on the card:
+    K1b on box-aniso's cell radius and form at ODD_POINTS (untimed), with
+    MANY_K impulses, and at K1B_POINTS (timed), then one backward through
+    autograd must be one launch of it; K2b on the hero's levels over the
+    hero's base with box-aniso's anisoMtx, K = 1 untimed and K = 3 timed at
+    K2_POINTS.  Returns ({"K1b full": (max |diff|, times), "K2b full":
+    ...})."""
+    from tungsten_tpu_torch.tools.gp_variants import ANISO_MTX
+    mtx = torch.tensor(ANISO_MTX, device=dev)
+    acov = dataclasses.replace(cov, aniso_mtx=mtx)
+    m6 = noise3d.form6(acov.splat_form())
+    host = noise3d.host_params(acov.splat_radius(), m6)
+    kr, m = host[0], host[1:]
+    print(f"box-aniso's full splat form {[round(v, 4) for v in m]}, cell "
+          f"radius {kr:.5f}", flush=True)
+    inputs = {n: k1b_inputs(n, dev, seed=6)
+              for n in (*ODD_POINTS, *K1B_POINTS)}
+
+    def check(sizes, K, kernel):
+        def args(n):
+            p, sd, g = inputs[n]
+            return p, sd, kr, m, K, g
+        return bwd_checks(
+            f"K1b full K={K}" if kernel is None else "K1b full",
+            lambda n: noise3d.noise3d_sum_s_bwd(*args(n)),
+            lambda n: noise3d.noise3d_sum_s_bwd_ref(*args(n)), kernel, sizes,
+            lattice["K1b full"],
+            "(kr, m00, m11, m22, m01, m02, m12)",
+            (K1B_DP_RTOL, K1B_SUM_ULPS), card_line)
+    check(ODD_POINTS, 3, None)
+    check((K1B_LINE_POINTS,), MANY_K, None)
+    p, sd, g = inputs[K1B_LINE_POINTS]
+    leaves = (p.clone().requires_grad_(),
+              torch.tensor(kr, device=dev, requires_grad=True),
+              torch.tensor(m, device=dev, requires_grad=True))
+    out = noise3d.noise3d_sum_s_diff(leaves[0], sd, leaves[1], leaves[2], 3,
+                                     host)
+    backward_kernels("K1b full", lambda: torch.autograd.grad(
+        out, leaves, g, retain_graph=True), "noise3d_sum_s_bwd_kernel<3, "
+        "true>", noise3d, "K1B_FULL_LAUNCHES")
+    k1b = check(K1B_POINTS, 3, "noise3d_sum_s_bwd_kernel")
+    abase = dataclasses.replace(hero_base, aniso_mtx=mtx)
+    m2 = noise3d.form6(abase.splat_form()).tolist()
+    p, seed, kr2, qm = k2_inputs(abase, max(K2_POINTS), dev)
+    g = torch.from_numpy(np.random.default_rng(8).normal(
+        size=max(K2_POINTS)).astype(np.float32)).to(dev)
+
+    def args2(n, K=3):
+        return p[:n], seed[:n], kr2[:n], qm[:n], m2, K, g[:n]
+    bwd_checks("K2b full K=1",
+               lambda n: noise3d.noise3d_sum_bwd(*args2(n, 1)),
+               lambda n: noise3d.noise3d_sum_bwd_ref(*args2(n, 1)), None,
+               K2_POINTS, None, "(m00, m11, m22, m01, m02, m12)",
+               (K2B_RTOL, K2B_SUM_RTOL), card_line, per_point=2)
+    k2b = bwd_checks(
+        "K2b full", lambda n: noise3d.noise3d_sum_bwd(*args2(n)),
+        lambda n: noise3d.noise3d_sum_bwd_ref(*args2(n)),
+        "noise3d_sum_bwd_kernel", K2_POINTS, lattice["K2b full"],
+        "(m00, m11, m22, m01, m02, m12)", (K2B_RTOL, K2B_SUM_RTOL),
+        card_line, per_point=2)
+    return {"K1b full": k1b, "K2b full": k2b}
+
+
+def captured_full_check(noise3d, name, args, card_line):
+    """A full instance against its twin on the arguments a training step's
+    launch handed it: K1b's dp bit for bit and its sums within
+    K1B_SUM_ULPS, K2b within K2B_RTOL (1 + |x|) and its m partials' sums
+    within K2B_SUM_RTOL."""
+    if args is None:
+        raise RuntimeError(f"the training step made no {name} launch")
+    if name == "K1b full":
+        dp, sums = noise3d.noise3d_sum_s_bwd(*args)
+        dp_t, sums_t = noise3d.noise3d_sum_s_bwd_ref(*args)
+        ulps = f32_ulps(sums, sums_t)
+        ok = torch.equal(dp, dp_t) and ulps <= K1B_SUM_ULPS
+        what = (f"dp max |diff| {float((dp - dp_t).abs().max()):.3e}, sums "
+                f"{[round(v, 6) for v in sums.tolist()]} within {ulps:.0f} "
+                "float32 ulps")
+    else:
+        dp, part = noise3d.noise3d_sum_bwd(*args)
+        dp_t, part_t = noise3d.noise3d_sum_bwd_ref(*args)
+        d = torch.cat([dp, part[:, :2]], 1)
+        d_t = torch.cat([dp_t, part_t[:, :2]], 1)
+        rel = float(((d - d_t).abs() / (1 + d_t.abs())).max())
+        s, s_t = (x[:, 2:].sum(0, dtype=torch.float64) for x in (part,
+                                                                 part_t))
+        srel = float(((s - s_t).abs() / s_t.abs().clamp(min=1e-30)).max())
+        ok = rel <= K2B_RTOL and srel <= K2B_SUM_RTOL
+        what = f"within {rel:.2e} * (1 + |x|), the m sums within {srel:.2e}"
+    n = args[0].shape[0]
+    print(f"{name} on a training step's own launch ({n} points, form "
+          f"{[round(v, 4) for v in args[-3]]}): {what} ({card_line})",
+          flush=True)
+    if not ok:
+        raise RuntimeError(f"{name} disagrees with its twin on the training "
+                           "step's launch")
+
+
+def start_grad_references(pool, docs):
+    """{name: future of cpu_lane_grads} of the gradient variants, on the
+    pool of the forward variants' CPU renders (after them)."""
+    return {name: pool.submit(cpu_lane_grads, doc, name)
+            for name, (doc, _, _) in docs.items()
+            if name in GRAD_VARIANTS}
+
+
+def gradient_variants(entry, convert, md, noise3d, counters, load_scene,
+                      dev, docs, cpu_grads, tmp, card_line):
+    """Each variant's training step (GRAD_VARIANTS, `train_steps`, one
+    step, the launch counts set to 0 just before and read just after),
+    with the first full-form launch of box-aniso's (K1b) and hero-aniso's
+    (K2b) held against the twin, then its medium-level gradient against
+    the CPU and FD (`variant_grad_check`); a refused one (GRAD_REFUSED)
+    must raise by name.  Returns ({kernel: launches over the steps},
+    {name: step wall}), and the captured checks' kernels."""
+    totals, walls = {}, {}
+    for name, (doc, spp, res) in docs.items():
+        path = os.path.join(tmp, f"{name}.json")
+        with open(path, "w") as fh:
+            json.dump(doc, fh)
+        if name in GRAD_REFUSED:
+            phase(f"{name}: the gradient is refused by name")
+            scene = load_scene(path, res_override=(8, 8), device=dev)[0]
+            try:
+                entry.fwd_bwd(scene, 0)
+            except NotImplementedError as e:
+                if GRAD_REFUSED[name] not in str(e):
+                    raise
+                print(f"{name}: {e}", flush=True)
+                continue
+            raise RuntimeError(f"{name}'s gradient was not refused")
+        used = GRAD_VARIANTS[name]
+        depth = GRAD_DEPTH.get(name, 2)
+        phase(f"{name}'s training step (128x128, {spp} spp, depth {depth})"
+              " and medium-level gradient")
+        t0 = time.perf_counter()
+        capture = contextlib.nullcontext()
+        full = [k for k in used if k.endswith("full")]
+        if full:
+            capture = BwdCapture(noise3d, "noise3d_sum_s_bwd" if full[0]
+                                 == "K1b full" else "noise3d_sum_bwd", 1024)
+        with capture:
+            counts = train_steps(entry, counters, load_scene, dev, card_line,
+                                 name, path, 1, (128, 128, spp, depth), used,
+                                 res=res, spp=spp)
+        walls[name] = time.perf_counter() - t0
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        if full:
+            captured_full_check(noise3d, full[0], capture.args, card_line)
+        scene = load_scene(path, res_override=res, device=dev)[0]
+        variant_grad_check(md, convert, entry, scene, dev, name,
+                           cpu_grads[name])
+        done_print(t0)
+    return totals, walls
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2855,6 +3269,9 @@ def main():
     variant_tmp = tempfile.mkdtemp()
     variant_docs_, cpu_pool, cpu_refs = start_cpu_references(variant_tmp)
     _POOLS.append(cpu_pool)
+    # and the gradient variants' per-lane CPU gradients, after them
+    grad_docs = grad_variant_docs(variant_tmp)
+    cpu_grads = start_grad_references(cpu_pool, grad_docs)
 
     phase("K1 against its plain twin")
     t0 = time.perf_counter()
@@ -2920,6 +3337,13 @@ def main():
     phase("K2b (K2's backward) against its plain twin (the hero's levels)")
     t0 = time.perf_counter()
     k2b_err, k2b_times = k2b_checks(noise3d, hero_base, lattice["K2b"], dev,
+                                    card_line)
+    done(t0)
+
+    phase("K1b's and K2b's full-form instances (an anisoMtx in world "
+          "space) against their plain twins")
+    t0 = time.perf_counter()
+    full_numbers = full_form_checks(noise3d, cov, hero_base, lattice, dev,
                                     card_line)
     done(t0)
 
@@ -3435,19 +3859,40 @@ def main():
         driver_options(trender, read_pfm, noise3d, tmp, card_line)
     done(t0)
 
-    # last, so that the variants' CPU renders, started after the build, are
-    # done by now
+    # last, so that the variants' CPU renders and gradients, started after
+    # the build, are done by now
     t_variants = time.perf_counter()
     try:
         tag_launches, k8_new, k8_by_n = gp_layer_variants(
             trender, scene_from_dict, wst, searches, counters, psd, gpmod,
             noise3d, lattice, dev, variant_docs_, cpu_refs, variant_tmp,
             card_line)
+        print(f"the GP layer's variants in "
+              f"{time.perf_counter() - t_variants:.1f} s", flush=True)
+        t_grad = time.perf_counter()
+        grad_totals, grad_walls = gradient_variants(
+            entry, convert, md, noise3d, counters, load_scene, dev,
+            grad_docs, cpu_grads, variant_tmp, card_line)
+        print(f"the gradient variants in {time.perf_counter() - t_grad:.1f}"
+              " s: steps " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in grad_walls.items())
+              + "; launches over the steps " + ", ".join(
+                  f"{k} {v}" for k, v in grad_totals.items()), flush=True)
+        rows = trender.MAX_RAYS // 1920
+        path = os.path.join(variant_tmp, "hero-bruteforce.json")
+        phase(f"hero-bruteforce's gradient through the CLI at 1920x1080, 1 "
+              f"spp (bands of {rows} rows): python -m tungsten_tpu_torch."
+              "entry --scene hero-bruteforce.json --spp 1 --steps 1")
+        t0 = time.perf_counter()
+        bf = train_cli(entry, counters, ["--scene", path, "--spp", "1"],
+                       ("K2", "K2b"), card_line)
+        for k, v in bf.items():
+            grad_totals[k] = grad_totals.get(k, 0) + v
+        check_k2_points(noise3d, "hero-bruteforce's CLI step")
+        done(t0)
     finally:
         cpu_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(variant_tmp, ignore_errors=True)
-    print(f"the GP layer's variants in "
-          f"{time.perf_counter() - t_variants:.1f} s", flush=True)
 
     if "jax" in sys.modules or "tungsten_tpu" in sys.modules:
         raise RuntimeError("the port imported jax or the JAX package")
@@ -3455,22 +3900,42 @@ def main():
           flush=True)
     print(card_line, flush=True)
     kernels = []
+    # (the lattice kernels' launches: their BASELINE phases' and the
+    # gradient variants' steps)
+    extra = grad_totals.get
     for name, src, line, launched, err, (t_k, t_p, b_ms, b_by, b_cls) in (
             ("K1 noise3d_sum_s", "noise3d.cu", "sparse_conv_pallas.py:144",
-             k1_launches + k1_ens, k1_err, k1_times[K1_MAIN_POINTS]),
+             k1_launches + k1_ens + extra("K1", 0), k1_err,
+             k1_times[K1_MAIN_POINTS]),
             ("K1b noise3d_sum_s_bwd", "noise3d.cu",
              "sparse_conv_pallas.py:234 _noise3d_sum_s_bwd",
-             k1b_launches + k1b_ens, k1b_err, k1b_times[K1B_LINE_POINTS]),
+             k1b_launches + k1b_ens + extra("K1b", 0), k1b_err,
+             k1b_times[K1B_LINE_POINTS]),
+            ("K1b noise3d_sum_s_bwd (full form: an anisoMtx in world space)",
+             "noise3d.cu", "sparse_conv_pallas.py:234 _noise3d_sum_s_bwd",
+             extra("K1b full", 0), full_numbers["K1b full"][0],
+             full_numbers["K1b full"][1][K1B_LINE_POINTS]),
             ("K2 noise3d_sum", "noise3d.cu", "sparse_conv_pallas.py:136",
-             k2_launches, k2_err, k2_times[K2_LINE_POINTS]),
+             k2_launches + extra("K2", 0), k2_err,
+             k2_times[K2_LINE_POINTS]),
             ("K2b noise3d_sum_bwd", "noise3d.cu",
-             "sparse_conv_pallas.py:179 _noise3d_sum_bwd", k2b_launches,
-             k2b_err, k2b_times[K2B_LINE_POINTS]),
+             "sparse_conv_pallas.py:179 _noise3d_sum_bwd",
+             k2b_launches + extra("K2b", 0), k2b_err,
+             k2b_times[K2B_LINE_POINTS]),
+            ("K2b noise3d_sum_bwd (full form: an anisoMtx in world space)",
+             "noise3d.cu", "sparse_conv_pallas.py:179 _noise3d_sum_bwd",
+             extra("K2b full", 0), full_numbers["K2b full"][0],
+             full_numbers["K2b full"][1][K2B_LINE_POINTS]),
             ("K3 noise1d_sum", "noise1d.cu", "sparse_conv_pallas.py:321",
-             m1d["config 3"], k3_err, k3_times[K3_LINE_POINTS]),
+             m1d["config 3"] + extra("K3", 0), k3_err,
+             k3_times[K3_LINE_POINTS]),
             ("K3b noise1d_sum_bwd", "noise1d.cu",
-             "sparse_conv_pallas.py:340 _noise1d_sum_bwd", k3b_launches,
-             k3b_err, k3b_times[K3B_LINE_POINTS])):
+             "sparse_conv_pallas.py:340 _noise1d_sum_bwd",
+             k3b_launches + extra("K3b", 0), k3b_err,
+             k3b_times[K3B_LINE_POINTS])):
+        if launched <= 0:
+            raise RuntimeError(f"{name} was launched no time on its main "
+                               "paths")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tungsten_tpu_torch/csrc/{src}",

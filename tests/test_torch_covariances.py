@@ -225,13 +225,18 @@ def _scene_doc(name):
 
 
 @pytest.mark.parametrize("edit, what", [
-    (lambda m, g: g.update(covariance=COVS["rq"]), "RationalQuadraticCov"),
-    (lambda m, g: g.update(mean={"type": "linear"}), "LinearMean"),
-    (lambda m, g: m.update(normal_method="ggx"), "'ggx' normal"),
+    (lambda m, g: g.update(covariance=COVS["gabor_aniso"]), "GaborAnisoCov"),
+    (lambda m, g: g.update(covariance=COVS["gabor_iso"]), "GaborIsoCov"),
+    (lambda m, g: g.update(mean={"type": "procedural", "func": "knob"}),
+     "knob mean"),
 ])
 def test_gradient_of_the_new_types_is_refused(edit, what):
     """The gradient entry points raise by name on the GP types whose
-    gradient is not ported (ROADMAP item 16c), before rendering."""
+    gradient JAX's own jax.grad cannot take (the Gabor covariances have no
+    length scale; the knob SDF's gradient is NaN inside its base: ROADMAP
+    queue 3), before rendering.  (The RQ covariance, the linear mean and
+    the ggx normal, refused here before, take the gradient now:
+    tests/test_torch_grad_gp_layer.py.)"""
     from tungsten_tpu_torch import entry
     from tungsten_tpu_torch.scene.parse import scene_from_dict
     doc = _scene_doc("gpis-weight-space.json")
@@ -243,15 +248,22 @@ def test_gradient_of_the_new_types_is_refused(edit, what):
 
 @pytest.mark.parametrize("option", ["isotropic_3D_sampling", "1D_sampling"])
 def test_aniso_mtx_with_1d_or_isotropic_sampling_is_refused(option):
-    """The forward render of anisoMtx with 1D or isotropic sampling is
-    ported (tests/test_torch_sc_branches.py); its gradient is refused by
-    name (ROADMAP item 16c)."""
+    """The gradient of anisoMtx with 1D or isotropic sampling is ported
+    (tests/test_torch_grad_sampling.py); what stays refused there is a
+    mean whose gradient JAX cannot take: with the knob mean it raises by
+    name (ROADMAP queue 3), and with config 1's sphere it is finite."""
     from tungsten_tpu_torch import entry
     from tungsten_tpu_torch.scene.parse import scene_from_dict
     doc = _scene_doc("gpis-sphere-box.json")
+    doc["camera"]["resolution"] = [4, 4]
     med = doc["media"][0]
     med[option] = True
     med["gaussian_process"]["covariance"] = COVS["se_mtx"]
     scene, _ = scene_from_dict(doc, device="cpu")
-    with pytest.raises(NotImplementedError, match="anisoMtx"):
+    _, grads = entry.fwd_bwd(scene, torch.arange(2))
+    assert all(bool(torch.isfinite(g)) for g in grads)
+    med["gaussian_process"]["mean"] = {"type": "procedural",
+                                       "func": "knob_outer"}
+    scene, _ = scene_from_dict(doc, device="cpu")
+    with pytest.raises(NotImplementedError, match="knob mean"):
         entry.fwd_bwd(scene, 0)

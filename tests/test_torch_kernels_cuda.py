@@ -1,5 +1,6 @@
 """Kernels K1, K1b, K2, K2b, K3, K3b, K5, K4 and K8 on the card, against
-their plain PyTorch twins (K2 also on the brute-force nonstationary
+their plain PyTorch twins (K1b and K2b also in their full-form instances,
+on box-aniso's anisoMtx; K2 also on the brute-force nonstationary
 branch's arguments, K8 also at the Global and None contexts' sizes), the
 config-1, config-4a, config-3 and hero renders on the card against the
 same renders on the CPU, the function-space renders (config 4b and its
@@ -41,6 +42,7 @@ on the two devices, and an ulp can flip one ray's crossing).  The 16x16,
 1-spp training steps: loss, new parameters and gradient within 1e-3
 relative of the CPU's.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -90,25 +92,39 @@ def test_k1_kernel_matches_twin_on_the_card(cuda, K):
                                atol=1e-5)
 
 
-def _k1b_on_the_card(cuda, n, K, rng_seed=23):
+def _aniso(cov):
+    """The covariance over the anisoMtx of tools/gp_variants.py's
+    box-aniso (a full splat form in world space)."""
+    from tungsten_tpu_torch.tools.gp_variants import ANISO_MTX
+    return dataclasses.replace(cov, aniso_mtx=torch.tensor(ANISO_MTX))
+
+
+def _k1b_on_the_card(cuda, n, K, rng_seed=23, full=False):
     """K1b at n random points against its twin run on the card: dp bit for
-    bit, the four sums within SUM_ULPS float32 ulps; a second launch must
-    give the same dp and sums bit for bit (the ticket was reset)."""
+    bit, the four sums (full: seven, the full instance on box-aniso's
+    form) within SUM_ULPS float32 ulps; a second launch must give the same
+    dp and sums bit for bit (the ticket was reset)."""
     scene, _ = load_scene(SCENE, device="cpu")
     cov = scene.media[0].gp.cov
-    host = noise3d.host_params(cov.splat_radius(), cov.splat_form())
+    if full:
+        cov = _aniso(cov)
+        host = noise3d.host_params(cov.splat_radius(),
+                                   noise3d.form6(cov.splat_form()))
+    else:
+        host = noise3d.host_params(cov.splat_radius(), cov.splat_form())
     r = np.random.default_rng(rng_seed)
     p = torch.from_numpy(r.uniform(-3.0, 3.0, (n, 3)).astype(np.float32))
     seed = torch.from_numpy(r.integers(0, 2 ** 32, n, dtype=np.uint64)
                             .astype(np.int64))
     g = torch.from_numpy(r.normal(size=n).astype(np.float32))
     args = (p.to(cuda), seed.to(cuda), host[0], host[1:], K, g.to(cuda))
-    before = noise3d.K1B_LAUNCHES
+    counter = "K1B_FULL_LAUNCHES" if full else "K1B_LAUNCHES"
+    before = getattr(noise3d, counter)
     dp, sums = noise3d.noise3d_sum_s_bwd(*args)
     again = noise3d.noise3d_sum_s_bwd(*args)
     torch.cuda.synchronize()
-    assert noise3d.K1B_LAUNCHES == before + 2
-    assert dp.shape == (n, 3) and sums.shape == (4,)
+    assert getattr(noise3d, counter) == before + 2
+    assert dp.shape == (n, 3) and sums.shape == (7 if full else 4,)
     assert sums.dtype == torch.float32
     assert torch.equal(again[0], dp) and torch.equal(again[1], sums)
     dp_t, sums_t = noise3d.noise3d_sum_s_bwd_ref(*args)
@@ -348,10 +364,32 @@ def test_k2_kernel_on_brute_force_arguments_matches_twin_on_the_card(cuda,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [1, 3])
+def test_k1b_full_instance_matches_twin_on_the_card(cuda, K):
+    _k1b_on_the_card(cuda, (1 << 16) + 3, K, full=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
 def test_k2b_kernel_matches_twin_on_the_card(cuda, K):
+    _k2b_on_the_card(cuda, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_k2b_full_instance_matches_twin_on_the_card(cuda, K):
+    _k2b_on_the_card(cuda, K, full=True)
+
+
+def _k2b_on_the_card(cuda, K, full=False):
+    """K2b on the hero's levels against its twin run on the card (full:
+    the full instance, on the hero's base over box-aniso's anisoMtx)."""
     scene, _ = load_scene(HERO_SCENE, device="cpu")
     base = scene.media[0].gp.cov.base
-    m3 = base.splat_form().tolist()
+    if full:
+        base = _aniso(base)
+        m3 = noise3d.form6(base.splat_form()).tolist()
+    else:
+        m3 = base.splat_form().tolist()
     r = np.random.default_rng(31)
     n = (1 << 16) + 5  # a ragged tail
     p = torch.from_numpy(r.uniform(-1.0, 2.0, (n, 3)).astype(np.float32))
@@ -362,12 +400,14 @@ def test_k2b_kernel_matches_twin_on_the_card(cuda, K):
     kr = torch.from_numpy(np.float32(float(base.splat_radius())) * s)
     qm = torch.from_numpy(np.float32(1.0) / (s * s))
     g = torch.from_numpy(r.normal(size=n).astype(np.float32))
-    before = noise3d.K2B_LAUNCHES
+    counter = "K2B_FULL_LAUNCHES" if full else "K2B_LAUNCHES"
+    before = getattr(noise3d, counter)
     dp, part = noise3d.noise3d_sum_bwd(p.to(cuda), seed.to(cuda),
                                        kr.to(cuda), qm.to(cuda), m3, K,
                                        g.to(cuda))
     torch.cuda.synchronize()
-    assert noise3d.K2B_LAUNCHES == before + 1
+    assert getattr(noise3d, counter) == before + 1
+    assert part.shape == (n, 8 if full else 5)
     dp_t, part_t = noise3d.noise3d_sum_bwd_ref(
         p.to(cuda), seed.to(cuda), kr.to(cuda), qm.to(cuda), m3, K,
         g.to(cuda))

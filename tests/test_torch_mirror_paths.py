@@ -12,8 +12,8 @@ runs it), and the port's pixels agree with JAX's within 1e-3 (1 + |ref|)
 on at least 97% of the pixels and in their mean within 1%: config 1's
 single realization is marched by the general evaluator in JAX and by
 K1's twin in the port, whose roundings differ (tests/test_torch_render.py
-holds config 1 itself so).  The gradient of both is refused by name
-(ROADMAP item 16c).
+holds config 1 itself so).  The gradient of both is ported
+(tests/test_torch_grad_mirror.py).
 """
 import dataclasses
 import json
@@ -86,8 +86,19 @@ def test_render_8x8_matches_jax(docs, name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_the_gradient_is_refused_by_name(docs, name):
+    """The gradient through the mirror paths is ported
+    (tests/test_torch_grad_mirror.py holds it to JAX): fwd_bwd runs and is
+    finite.  What stays refused on them is a GP type whose gradient JAX
+    cannot take: with the knob mean, fwd_bwd and train_step raise by name
+    (ROADMAP queue 3)."""
     scene, _ = scene_from_dict(docs[name], device="cpu")
-    with pytest.raises(NotImplementedError, match="mirror.*16c"):
+    _, grads = entry.fwd_bwd(scene, 0)
+    assert all(bool(torch.isfinite(g)) for g in grads)
+    doc = json.loads(json.dumps(docs[name]))
+    doc["media"][0]["gaussian_process"]["mean"] = {"type": "procedural",
+                                                   "func": "knob"}
+    scene, _ = scene_from_dict(doc, device="cpu")
+    with pytest.raises(NotImplementedError, match="knob mean.*queue 3"):
         entry.fwd_bwd(scene, 0)
-    with pytest.raises(NotImplementedError, match="16c"):
+    with pytest.raises(NotImplementedError, match="knob mean"):
         entry.train_step(scene, torch.zeros(8, 8, 3), torch.arange(1))

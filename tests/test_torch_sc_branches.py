@@ -282,8 +282,14 @@ def test_renders_through_the_cli_on_the_cpu(docs, name, tmp_path):
 @pytest.mark.parametrize("name", [n for n in THREE_D + ONE_D
                                   if n != "box-iso"])
 def test_the_gradient_is_refused_by_name(docs, name):
-    """(box-iso, a stationary covariance in isotropic-ray space, has the
-    gradient config 2 has.)"""
-    scene, _ = scene_from_dict(docs[name], device="cpu")
-    with pytest.raises(NotImplementedError, match="16c"):
+    """The gradient through these branches is ported
+    (tests/test_torch_grad_sampling.py holds it to JAX); what stays
+    refused on them is a GP type whose gradient JAX cannot take: with the
+    knob mean in place of the variant's, fwd_bwd raises by name before
+    rendering (ROADMAP queue 3)."""
+    doc = json.loads(json.dumps(docs[name]))
+    doc["media"][0]["gaussian_process"]["mean"] = {"type": "procedural",
+                                                   "func": "knob"}
+    scene, _ = scene_from_dict(doc, device="cpu")
+    with pytest.raises(NotImplementedError, match="knob mean.*queue 3"):
         entry.fwd_bwd(scene, 0)

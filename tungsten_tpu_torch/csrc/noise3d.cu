@@ -14,10 +14,14 @@
 // K2), and the sum is cut off at r^2 < 1 in cell units.  K1b
 // (noise3d_sum_s_bwd_kernel) replaces ::_noise3d_sum_s_bwd, which the JAX
 // package runs as an XLA re-trace (jax.vjp) of the same lattice sum: the
-// partials of K1's sum in p, kr and the diagonal of m6, for a diagonal
-// splat form.  K2b (noise3d_sum_bwd_kernel) replaces ::_noise3d_sum_bwd, the
-// same re-trace for K2: the partials in p, the per-point kr and qm and the
-// diagonal of m6.
+// partials of K1's sum in p, kr and m6.  K2b (noise3d_sum_bwd_kernel)
+// replaces ::_noise3d_sum_bwd, the same re-trace for K2: the partials in p,
+// the per-point kr and qm and m6.  Each backward has two instances: the
+// diagonal form (FULL false: m01 = m02 = m12 = 0, the partials in the
+// diagonal of m6 alone) that every stationary and multi-resolution
+// covariance without an anisoMtx gives, and the full symmetric form (FULL
+// true: an anisoMtx in world space), whose partials take three more sums
+// per point (of ab_x ab_y, ab_x ab_z and ab_y ab_z) and cover all of m6.
 //
 // What bounds them: integer ALU.  A point costs 27 xxhash32_4 cell keys and
 // 27 * 4K xxhash32_2 variates -- about 330 hashes, thousands of 32-bit
@@ -74,6 +78,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "grid_sum.cuh"
 
@@ -203,14 +209,19 @@ noise3d_sum_kernel(const float* __restrict__ p,
 // impulses, with the same hashes and cut-off, and accumulates each in-reach
 // term e = w exp(-q) times the splat's offset ab = kr dd (S), times ab dd
 // (T) and times ab^2 (Q), per axis.  With the diagonal form m (m01 = m02 =
-// m12 = 0, as in every ported covariance) the partials of the sum, scaled by
-// the point's cotangent g, are
+// m12 = 0) the partials of the sum, scaled by the point's cotangent g, are
 //   d/dp_i   = g (-2 m_ii S_i) kr / kr,
 //   d/dkr    = g sum_i -2 m_ii (T_i - S_i p_i / kr),
 //   d/dm_ii  = -g Q_i;
 // dp [N, 3] is written per point, the other four are summed over points in
 // float64 (K1B_PARTS) and written as float32 sums [4] of (kr, m00, m11,
-// m22).
+// m22).  The full instance also sums P_ij = e ab_i ab_j (i < j), so that
+// with c_ij = -2 m_ij
+//   d/dp_i   = g (sum_j c_ij S_j) kr / kr,
+//   d/dkr    = g (sum_i c_ii (T_i - S_i p_i / kr)
+//                 + sum_i<j c_ij (2 P_ij / kr - (S_i p_j + S_j p_i) / kr)),
+//   d/dm_ij  = -g 2 P_ij (i < j),
+// and writes sums [7] of (kr, m00, m11, m22, m01, m02, m12) (K1B_FULL_PARTS).
 // Chosen by timing ring sizes 8-24 at 2-4 blocks per SM on an H100: a ring
 // that seldom fills before the end of a point drains about once a point,
 // which beats a third block per SM.
@@ -218,17 +229,38 @@ constexpr int K1B_THREADS = 256;
 constexpr int K1B_MIN_BLOCKS = 2;
 constexpr int K1B_RING = 24;  // entries per thread: 96 KB a block
 constexpr int K1B_PARTS = 4;
+constexpr int K1B_FULL_PARTS = 7;
 
-// The nine sums of one point.
+// The sums of one point: nine, and for the full form three cross sums.
 struct Sums9 {
   float sx, sy, sz, tx, ty, tz, qx, qy, qz;
 };
+struct Sums12 : Sums9 {
+  float pxy, pxz, pyz;
+};
+template <bool FULL>
+using Sums = std::conditional_t<FULL, Sums12, Sums9>;
+
+// The splat's quadratic form at offset ab, as K1 computes it.
+template <bool FULL>
+__device__ __forceinline__ float quad(float abx, float aby, float abz,
+                                      float m00, float m11, float m22,
+                                      float m01, float m02, float m12) {
+  if (FULL) {
+    return m00 * abx * abx + m11 * aby * aby + m22 * abz * abz
+        + 2.0f * (m01 * abx * aby + m02 * abx * abz + m12 * aby * abz);
+  }
+  return m00 * abx * abx + m11 * aby * aby + m22 * abz * abz;
+}
 
 // Work off this lane's ring (its column `mine`, `count` entries, in append
 // order) into s; every lane of the warp calls it together.
+template <bool FULL>
 __device__ __forceinline__ void k1b_drain(const float4* __restrict__ mine,
                                           int& count, float kr, float m00,
-                                          float m11, float m22, Sums9& s) {
+                                          float m11, float m22, float m01,
+                                          float m02, float m12,
+                                          Sums<FULL>& s) {
   const int most = __reduce_max_sync(FULL_MASK, count);
 #pragma unroll 1
   for (int j = 0; j < most; ++j) {
@@ -239,7 +271,7 @@ __device__ __forceinline__ void k1b_drain(const float4* __restrict__ mine,
       const float abx = kr * e.x;
       const float aby = kr * e.y;
       const float abz = kr * e.z;
-      const float q = m00 * abx * abx + m11 * aby * aby + m22 * abz * abz;
+      const float q = quad<FULL>(abx, aby, abz, m00, m11, m22, m01, m02, m12);
       const float w = uw < 0.5f ? -1.0f : 1.0f;
       const float t = w * expf(-q);
       const float ex = t * abx;
@@ -254,13 +286,23 @@ __device__ __forceinline__ void k1b_drain(const float4* __restrict__ mine,
       s.qx = s.qx + ex * abx;
       s.qy = s.qy + ey * aby;
       s.qz = s.qz + ez * abz;
+      if constexpr (FULL) {
+        s.pxy = s.pxy + ex * aby;
+        s.pxz = s.pxz + ex * abz;
+        s.pyz = s.pyz + ey * abz;
+      }
     }
   }
   count = 0;
 }
 
 // KC > 0: the impulse count, fixed at compile time; KC == 0: k_runtime.
-template <int KC>
+// FULL: the full symmetric form (m01, m02 and m12 read; 7 sums), else the
+// diagonal one (they are ignored; 4 sums).  The off-diagonal entries come
+// last, and the diagonal instance keeps nine sums a point (Sums9) and its
+// four accumulators, so that it compiles to the code of a kernel with no
+// full form (the same SASS, register for register).
+template <int KC, bool FULL>
 __global__ void __launch_bounds__(K1B_THREADS, K1B_MIN_BLOCKS)
 noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
                          const uint32_t* __restrict__ seed,
@@ -268,8 +310,10 @@ noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
                          double* __restrict__ block_sums,
                          unsigned* __restrict__ ticket,
                          float* __restrict__ sums, int n, float kr,
-                         float m00, float m11, float m22, int k_runtime) {
+                         float m00, float m11, float m22, int k_runtime,
+                         float m01, float m02, float m12) {
   static_assert(K1B_RING >= KC, "a cell's impulses must fit the ring");
+  constexpr int PARTS = FULL ? K1B_FULL_PARTS : K1B_PARTS;
   extern __shared__ float4 ring[];  // [K1B_RING][K1B_THREADS]
   const int impulses = KC > 0 ? KC : k_runtime;
   const int tid = threadIdx.x;
@@ -278,7 +322,10 @@ noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
   const float c2x = -2.0f * m00;
   const float c2y = -2.0f * m11;
   const float c2z = -2.0f * m22;
-  double acc[K1B_PARTS] = {0.0, 0.0, 0.0, 0.0};
+  const float c2xy = -2.0f * m01;
+  const float c2xz = -2.0f * m02;
+  const float c2yz = -2.0f * m12;
+  double acc[PARTS] = {};
   // block-uniform trip count: a warp's lanes past n walk with no point
   for (int base = blockIdx.x * K1B_THREADS; base < n;
        base += gridDim.x * K1B_THREADS) {
@@ -301,7 +348,7 @@ noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
     const uint32_t iy = (uint32_t)(int32_t)by;
     const uint32_t iz = (uint32_t)(int32_t)bz;
 
-    Sums9 s = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    Sums<FULL> s = {};
     int count = 0;
     int dx = -1;
     int dy = -1;
@@ -317,7 +364,7 @@ noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
 #pragma unroll
       for (int k = 0; k < impulses; ++k) {
         if (KC == 0 && __any_sync(FULL_MASK, count == K1B_RING)) {
-          k1b_drain(mine, count, kr, m00, m11, m22, s);
+          k1b_drain<FULL>(mine, count, kr, m00, m11, m22, m01, m02, m12, s);
         }
         const uint32_t c = 4u * (uint32_t)k;
         const float ux = u01(xxhash32_2(h, c));
@@ -334,7 +381,7 @@ noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
         }
       }
       if (KC > 0 && __any_sync(FULL_MASK, count > K1B_RING - KC)) {
-        k1b_drain(mine, count, kr, m00, m11, m22, s);
+        k1b_drain<FULL>(mine, count, kr, m00, m11, m22, m01, m02, m12, s);
       }
       // the next cell in (dx, dy, dz) order
       const bool wrap_z = dz == 1;
@@ -343,25 +390,50 @@ noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
       dy = wrap_y ? -1 : (wrap_z ? dy + 1 : dy);
       dx = wrap_y ? dx + 1 : dx;
     }
-    k1b_drain(mine, count, kr, m00, m11, m22, s);
-    if (live) {
-      const float ct = g[i];
-      dp[3 * i + 0] = ct * (c2x * s.sx) * kr * inv_r;
-      dp[3 * i + 1] = ct * (c2y * s.sy) * kr * inv_r;
-      dp[3 * i + 2] = ct * (c2z * s.sz) * kr * inv_r;
-      const float dkr = ct * (c2x * (s.tx - s.sx * gx)
-                              + c2y * (s.ty - s.sy * gy)
-                              + c2z * (s.tz - s.sz * gz));
-      acc[0] += (double)dkr;
-      acc[1] += (double)(-ct * s.qx);
-      acc[2] += (double)(-ct * s.qy);
-      acc[3] += (double)(-ct * s.qz);
+    k1b_drain<FULL>(mine, count, kr, m00, m11, m22, m01, m02, m12, s);
+    if constexpr (FULL) {
+      if (live) {
+        const float ct = g[i];
+        dp[3 * i + 0] =
+            ct * (c2x * s.sx + c2xy * s.sy + c2xz * s.sz) * kr * inv_r;
+        dp[3 * i + 1] =
+            ct * (c2xy * s.sx + c2y * s.sy + c2yz * s.sz) * kr * inv_r;
+        dp[3 * i + 2] =
+            ct * (c2xz * s.sx + c2yz * s.sy + c2z * s.sz) * kr * inv_r;
+        const float dkr =
+            ct * (c2x * (s.tx - s.sx * gx) + c2y * (s.ty - s.sy * gy)
+                  + c2z * (s.tz - s.sz * gz)
+                  + c2xy * (2.0f * s.pxy * inv_r - (s.sx * gy + s.sy * gx))
+                  + c2xz * (2.0f * s.pxz * inv_r - (s.sx * gz + s.sz * gx))
+                  + c2yz * (2.0f * s.pyz * inv_r - (s.sy * gz + s.sz * gy)));
+        acc[0] += (double)dkr;
+        acc[1] += (double)(-ct * s.qx);
+        acc[2] += (double)(-ct * s.qy);
+        acc[3] += (double)(-ct * s.qz);
+        acc[PARTS - 3] += (double)(-ct * (2.0f * s.pxy));
+        acc[PARTS - 2] += (double)(-ct * (2.0f * s.pxz));
+        acc[PARTS - 1] += (double)(-ct * (2.0f * s.pyz));
+      }
+    } else {
+      if (live) {
+        const float ct = g[i];
+        dp[3 * i + 0] = ct * (c2x * s.sx) * kr * inv_r;
+        dp[3 * i + 1] = ct * (c2y * s.sy) * kr * inv_r;
+        dp[3 * i + 2] = ct * (c2z * s.sz) * kr * inv_r;
+        const float dkr = ct * (c2x * (s.tx - s.sx * gx)
+                                + c2y * (s.ty - s.sy * gy)
+                                + c2z * (s.tz - s.sz * gz));
+        acc[0] += (double)dkr;
+        acc[1] += (double)(-ct * s.qx);
+        acc[2] += (double)(-ct * s.qy);
+        acc[3] += (double)(-ct * s.qz);
+      }
     }
   }
 
-  if (grid_sum<K1B_PARTS, K1B_THREADS>(acc, block_sums, ticket)) {
+  if (grid_sum<PARTS, K1B_THREADS>(acc, block_sums, ticket)) {
 #pragma unroll
-    for (int j = 0; j < K1B_PARTS; ++j) sums[j] = (float)acc[j];
+    for (int j = 0; j < PARTS; ++j) sums[j] = (float)acc[j];
   }
 }
 
@@ -374,8 +446,15 @@ noise3d_sum_s_bwd_kernel(const float* __restrict__ p,
 //   d/dqm    = -g sum_i m_ii Q_i,
 //   d/dm_ii  = -g qm Q_i,
 // written as dp [N, 3] and the per-point partials [N, 5] of (kr, qm, m00,
-// m11, m22).  dkr and dqm stay per point (the JAX package's are per lane);
-// the caller sums the three m partials over points.
+// m11, m22).  The full instance (FULL) adds K1b's cross sums P_ij, with
+// c2_ij = -2 qm m_ij: dp_i and dkr take K1b's full-form terms, d/dqm adds
+// -g sum_i<j 2 m_ij P_ij, and d/dm_ij = -g qm 2 P_ij (i < j) are columns 5-7
+// of per-point partials [N, 8].  dkr and dqm stay per point (the JAX
+// package's are per lane); the caller sums the m partials over points.  As
+// in K1b, m01, m02 and m12 come last and the diagonal instance's stores
+// keep their order, so that it compiles to the code of a kernel with no
+// full form.
+template <bool FULL>
 __global__ void __launch_bounds__(256)
 noise3d_sum_bwd_kernel(const float* __restrict__ p,
                        const uint32_t* __restrict__ seed,
@@ -383,7 +462,9 @@ noise3d_sum_bwd_kernel(const float* __restrict__ p,
                        const float* __restrict__ qm_in,
                        const float* __restrict__ g, float* __restrict__ dp,
                        float* __restrict__ part, int n, float m00, float m11,
-                       float m22, int impulse_count) {
+                       float m22, int impulse_count, float m01, float m02,
+                       float m12) {
+  constexpr int PARTS = FULL ? 8 : 5;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float px = p[3 * i + 0];
@@ -409,6 +490,7 @@ noise3d_sum_bwd_kernel(const float* __restrict__ p,
   float sx = 0.0f, sy = 0.0f, sz = 0.0f;
   float tx = 0.0f, ty = 0.0f, tz = 0.0f;
   float qx2 = 0.0f, qy2 = 0.0f, qz2 = 0.0f;
+  float pxy = 0.0f, pxz = 0.0f, pyz = 0.0f;
 #pragma unroll 1
   for (int dx = -1; dx <= 1; ++dx) {
 #pragma unroll 1
@@ -437,8 +519,8 @@ noise3d_sum_bwd_kernel(const float* __restrict__ p,
             const float abx = kr * ddx;
             const float aby = kr * ddy;
             const float abz = kr * ddz;
-            const float q = qm * (m00 * abx * abx + m11 * aby * aby
-                                  + m22 * abz * abz);
+            const float q =
+                qm * quad<FULL>(abx, aby, abz, m00, m11, m22, m01, m02, m12);
             const float w = uw < 0.5f ? -1.0f : 1.0f;
             const float e = w * expf(-q);
             const float ex = e * abx;
@@ -453,6 +535,11 @@ noise3d_sum_bwd_kernel(const float* __restrict__ p,
             qx2 = qx2 + ex * abx;
             qy2 = qy2 + ey * aby;
             qz2 = qz2 + ez * abz;
+            if constexpr (FULL) {
+              pxy = pxy + ex * aby;
+              pxz = pxz + ex * abz;
+              pyz = pyz + ey * abz;
+            }
           }
         }
       }
@@ -462,16 +549,41 @@ noise3d_sum_bwd_kernel(const float* __restrict__ p,
   const float c2x = -2.0f * qm * m00;
   const float c2y = -2.0f * qm * m11;
   const float c2z = -2.0f * qm * m22;
-  dp[3 * i + 0] = ct * (c2x * sx) * kr * inv_r;
-  dp[3 * i + 1] = ct * (c2y * sy) * kr * inv_r;
-  dp[3 * i + 2] = ct * (c2z * sz) * kr * inv_r;
-  part[5 * i + 0] = ct * (c2x * (tx - sx * gx) + c2y * (ty - sy * gy)
-                          + c2z * (tz - sz * gz));
-  part[5 * i + 1] = -ct * (m00 * qx2 + m11 * qy2 + m22 * qz2);
-  const float cq = -ct * qm;
-  part[5 * i + 2] = cq * qx2;
-  part[5 * i + 3] = cq * qy2;
-  part[5 * i + 4] = cq * qz2;
+  if constexpr (!FULL) {
+    dp[3 * i + 0] = ct * (c2x * sx) * kr * inv_r;
+    dp[3 * i + 1] = ct * (c2y * sy) * kr * inv_r;
+    dp[3 * i + 2] = ct * (c2z * sz) * kr * inv_r;
+    part[PARTS * i + 0] = ct * (c2x * (tx - sx * gx) + c2y * (ty - sy * gy)
+                                + c2z * (tz - sz * gz));
+    part[PARTS * i + 1] = -ct * (m00 * qx2 + m11 * qy2 + m22 * qz2);
+    const float cq = -ct * qm;
+    part[PARTS * i + 2] = cq * qx2;
+    part[PARTS * i + 3] = cq * qy2;
+    part[PARTS * i + 4] = cq * qz2;
+  } else {
+    const float c2xy = -2.0f * qm * m01;
+    const float c2xz = -2.0f * qm * m02;
+    const float c2yz = -2.0f * qm * m12;
+    dp[3 * i + 0] = ct * (c2x * sx + c2xy * sy + c2xz * sz) * kr * inv_r;
+    dp[3 * i + 1] = ct * (c2xy * sx + c2y * sy + c2yz * sz) * kr * inv_r;
+    dp[3 * i + 2] = ct * (c2xz * sx + c2yz * sy + c2z * sz) * kr * inv_r;
+    part[PARTS * i + 0] =
+        ct * (c2x * (tx - sx * gx) + c2y * (ty - sy * gy)
+              + c2z * (tz - sz * gz)
+              + c2xy * (2.0f * pxy * inv_r - (sx * gy + sy * gx))
+              + c2xz * (2.0f * pxz * inv_r - (sx * gz + sz * gx))
+              + c2yz * (2.0f * pyz * inv_r - (sy * gz + sz * gy)));
+    part[PARTS * i + 1] =
+        -ct * (m00 * qx2 + m11 * qy2 + m22 * qz2
+               + 2.0f * (m01 * pxy + m02 * pxz + m12 * pyz));
+    const float cq = -ct * qm;
+    part[PARTS * i + 2] = cq * qx2;
+    part[PARTS * i + 3] = cq * qy2;
+    part[PARTS * i + 4] = cq * qz2;
+    part[PARTS * i + 5] = cq * (2.0f * pxy);
+    part[PARTS * i + 6] = cq * (2.0f * pxz);
+    part[PARTS * i + 7] = cq * (2.0f * pyz);
+  }
 }
 
 }  // namespace
@@ -502,16 +614,23 @@ extern "C" int noise3d_sum_s(const void* p, const void* seed, void* out, int n,
   return (int)(err != cudaSuccess ? err : restore);
 }
 
-// K1b's instantiation for an impulse count, allowed its ring of dynamic
-// shared memory (above the default 48 KB).
+// K1b's instantiation for an impulse count and form (full != 0: the full
+// symmetric form), allowed its ring of dynamic shared memory (above the
+// default 48 KB).
 using K1bKernel = void (*)(const float*, const uint32_t*, const float*,
                            float*, double*, unsigned*, float*, int, float,
-                           float, float, float, int);
+                           float, float, float, int, float, float, float);
 constexpr size_t K1B_SMEM = sizeof(float4) * K1B_RING * K1B_THREADS;
 
-static cudaError_t k1b_kernel(int impulse_count, K1bKernel* kernel) {
-  *kernel = noise3d_sum_s_bwd_kernel<0>;
-  if (impulse_count == 3) *kernel = noise3d_sum_s_bwd_kernel<3>;
+static cudaError_t k1b_kernel(int impulse_count, int full,
+                              K1bKernel* kernel) {
+  if (full) {
+    *kernel = impulse_count == 3 ? noise3d_sum_s_bwd_kernel<3, true>
+                                 : noise3d_sum_s_bwd_kernel<0, true>;
+  } else {
+    *kernel = impulse_count == 3 ? noise3d_sum_s_bwd_kernel<3, false>
+                                 : noise3d_sum_s_bwd_kernel<0, false>;
+  }
   return cudaFuncSetAttribute(*kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)K1B_SMEM);
@@ -520,12 +639,12 @@ static cudaError_t k1b_kernel(int impulse_count, K1bKernel* kernel) {
 // K1b's grid for n points on `device` (current on entry and exit): one
 // whole wave, the occupancy query's blocks per SM on every SM, or fewer
 // when n fills fewer blocks; at least 1.
-static cudaError_t k1b_grid(int n, int impulse_count, int device,
+static cudaError_t k1b_grid(int n, int impulse_count, int full, int device,
                             int* blocks) {
   K1bKernel kernel;
   int sms = 0;
   int per_sm = 0;
-  cudaError_t err = k1b_kernel(impulse_count, &kernel);
+  cudaError_t err = k1b_kernel(impulse_count, full, &kernel);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
@@ -540,25 +659,27 @@ static cudaError_t k1b_grid(int n, int impulse_count, int device,
   return err;
 }
 
-extern "C" int noise3d_sum_s_bwd_grid(int n, int impulse_count, int device,
-                                      int* blocks) {
+extern "C" int noise3d_sum_s_bwd_grid(int n, int impulse_count, int full,
+                                      int device, int* blocks) {
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return (int)err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = k1b_grid(n, impulse_count, device, blocks);
+  err = k1b_grid(n, impulse_count, full, device, blocks);
   const cudaError_t restore = cudaSetDevice(prev);
   return (int)(err != cudaSuccess ? err : restore);
 }
 
-// K1b on `blocks` blocks (noise3d_sum_s_bwd_grid): dp [n, 3], and sums [4]
-// through block_sums [blocks, 4] (float64 scratch) and the ticket, a
-// device word at 0 that the launch leaves at 0.
+// K1b on `blocks` blocks (noise3d_sum_s_bwd_grid with the same `full`):
+// dp [n, 3], and sums [4] (full: [7]) through block_sums [blocks, 4] (full:
+// [blocks, 7]; float64 scratch) and the ticket, a device word at 0 that the
+// launch leaves at 0.
 extern "C" int noise3d_sum_s_bwd(const void* p, const void* seed,
                                  const void* g, void* dp, void* block_sums,
                                  void* ticket, void* sums, int n, int blocks,
                                  float kr, float m00, float m11, float m22,
+                                 float m01, float m02, float m12, int full,
                                  int impulse_count, int device,
                                  void* stream) {
   int prev = 0;
@@ -567,12 +688,12 @@ extern "C" int noise3d_sum_s_bwd(const void* p, const void* seed,
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   K1bKernel kernel;
-  err = k1b_kernel(impulse_count, &kernel);
+  err = k1b_kernel(impulse_count, full, &kernel);
   if (err == cudaSuccess) {
     kernel<<<blocks, K1B_THREADS, K1B_SMEM, (cudaStream_t)stream>>>(
         (const float*)p, (const uint32_t*)seed, (const float*)g, (float*)dp,
         (double*)block_sums, (unsigned*)ticket, (float*)sums, n, kr, m00,
-        m11, m22, impulse_count);
+        m11, m22, impulse_count, m01, m02, m12);
     err = cudaGetLastError();
   }
   const cudaError_t restore = cudaSetDevice(prev);
@@ -603,11 +724,12 @@ extern "C" int noise3d_sum(const void* p, const void* seed, const void* kr,
   return (int)(err != cudaSuccess ? err : restore);
 }
 
-// K2b.
+// K2b: part [n, 5], or [n, 8] for the full form (full != 0).
 extern "C" int noise3d_sum_bwd(const void* p, const void* seed,
                                const void* kr, const void* qm, const void* g,
                                void* dp, void* part, int n, float m00,
-                               float m11, float m22, int impulse_count,
+                               float m11, float m22, float m01, float m02,
+                               float m12, int full, int impulse_count,
                                int device, void* stream) {
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -617,10 +739,12 @@ extern "C" int noise3d_sum_bwd(const void* p, const void* seed,
   if (n > 0) {
     const int threads = 256;
     const int blocks = (n + threads - 1) / threads;
-    noise3d_sum_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const auto kernel = full ? noise3d_sum_bwd_kernel<true>
+                             : noise3d_sum_bwd_kernel<false>;
+    kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const float*)p, (const uint32_t*)seed, (const float*)kr,
         (const float*)qm, (const float*)g, (float*)dp, (float*)part, n, m00,
-        m11, m22, impulse_count);
+        m11, m22, impulse_count, m01, m02, m12);
   }
   err = cudaGetLastError();
   const cudaError_t restore = cudaSetDevice(prev);

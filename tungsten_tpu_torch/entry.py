@@ -48,82 +48,51 @@ import torch
 
 from . import convert, render
 from .kernels import noise3d
-from .models.bsdfs import SPECULAR_KINDS as MIRROR_KINDS
 from .models.integrator import render_pass
-from .ops.covariance import SquaredExponentialCov
-from .ops.means import HomogeneousMean, SphericalMean
-from .ops.nonstationary import ProceduralNonstationaryCov
+from .ops.covariance import GaborAnisoCov, GaborIsoCov
+from .ops.means import ProceduralMean
 from .scene.parse import check_device, load_scene
 
+# the procedural SDF means with the knob's base, whose capped cylinder
+# has a NaN gradient inside (ops/sdf.py sd_capped_cylinder)
+NAN_SDFS = ("knob", "knob_outer")
 SCENE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "scenes", "gpis-sphere-box.json")
 
 
 def _check_gradient_scope(scene):
-    """Raise by name on the GP types and options whose gradient is not
-    ported (ROADMAP item 16c): the gradient runs over squared-exponential
-    covariances (alone or as a multi-resolution procedural nonstationary
-    one's base, sampled in 3D world space with no conditioning) with
-    spherical or homogeneous means and the conditioned normal, on
-    renewal or renewal+ stationary realizations (in 1D under renewal+),
-    with lambert, null or forward surfaces."""
+    """Raise by name on what the gradient does not reach: the
+    function-space Global and None contexts, its skip_space and mesh
+    conditioning (they run only on the function-space medium, which the
+    JAX package cannot reverse-differentiate), and the GP types on which
+    JAX's own jax.grad fails: the Gabor covariances, which have no length
+    scale l (the JAX package's set_params fails on them), and the knob
+    SDF means, whose gradient is NaN inside the knob's base (NAN_SDFS).
+    Every other covariance, mean, field, normal method, sampling space,
+    context and material of a sparse-conv or weight-space medium takes the
+    gradient in (sigma, l); the anisotropy is not a parameter
+    (ops/weight_space.py refuses its gradient)."""
     for med in scene.media:
         gp, cfg = med.gp, med.cfg
-        cov = gp.cov if gp.cov.is_stationary else getattr(gp.cov, "base",
-                                                           gp.cov)
-        nonstat = not gp.cov.is_stationary
         what = None
-        if not isinstance(gp.cov, (SquaredExponentialCov,
-                                   ProceduralNonstationaryCov)) or \
-                not isinstance(cov, SquaredExponentialCov):
-            what = f"a {type(gp.cov).__name__}"
-        elif cov.use_aniso_mtx:
-            what = "an anisoMtx"
-        elif not isinstance(gp.mean, (SphericalMean, HomogeneousMean)):
-            what = f"a {type(gp.mean).__name__}"
-        elif gp.mean_additional is not None and med.kind != \
-                "function_space":
-            what = "a CSG union's additional mean"
-        elif gp.color_field is not None or gp.emission_field is not None:
-            what = "a color or emission field"
-        elif med.normal_method in ("beckmann", "ggx"):
-            what = f"the {med.normal_method!r} normal"
-        elif (not cfg.one_d and med.phase_kind == "brdf"
-              and scene.bsdfs.kinds[med.phase_bsdf] in MIRROR_KINDS):
-            what = "a mirror phase function on a 3D-sampled medium"
-        elif med.kind == "function_space" and cfg.ctxt in ("global",
-                                                           "none"):
+        if med.kind == "function_space" and cfg.ctxt in ("global", "none"):
             what = f"the function-space {cfg.ctxt!r} context"
         elif gp.global_cond is not None:
             what = "mesh conditioning (conditioning_data)"
         elif med.kind == "function_space" and med.skip_space > 0.0:
             what = "the function-space skip_space"
-        elif med.kind != "sparse_conv_noise":
-            pass
-        elif nonstat and not gp.cov.use_multi_res_grid:
-            what = "brute-force nonstationary noise"
-        elif nonstat and cfg.one_d:
-            what = "1D sampling of a nonstationary covariance"
-        elif nonstat and cfg.isotropic_3d:
-            what = "isotropic sampling of a nonstationary covariance"
-        elif nonstat and cfg.activate_conditioning:
-            what = "conditioned nonstationary noise"
-        elif cfg.isotropic_3d and not cfg.isotropic_ray_3d:
-            what = "plain isotropic 3D sampling"
-        elif cfg.one_d and cfg.activate_conditioning and \
-                cfg.ctxt == "renewal":
-            what = "renewal conditioning of 1D realizations"
-        elif cfg.surf_vol_phase_separate:
-            what = "surf_vol_phase_separate"
+        elif isinstance(gp.cov, (GaborAnisoCov, GaborIsoCov)):
+            what = (f"a {type(gp.cov).__name__} (it has no length scale "
+                    "l: the JAX package's set_params fails on it)")
+        elif any(isinstance(m, ProceduralMean) and m.fn_name in NAN_SDFS
+                 for m in (gp.mean, gp.mean_additional)):
+            what = ("the procedural knob mean (its SDF's gradient is NaN "
+                    "inside the knob's capped cylinder, 0 * inf, in "
+                    "jax.grad too)")
         if what is not None:
             raise NotImplementedError(
-                f"the gradient through {what} is not ported to "
-                "tungsten_tpu_torch (ROADMAP item 16c)")
-    prim_bsdfs = set(scene.prims.bsdf.tolist())
-    if any(scene.bsdfs.kinds[b] in MIRROR_KINDS for b in prim_bsdfs):
-        raise NotImplementedError(
-            "the gradient through a mirror surface is not ported to "
-            "tungsten_tpu_torch (ROADMAP item 16c)")
+                f"the gradient through {what} is refused by "
+                "tungsten_tpu_torch (ROADMAP queue 3)")
 
 
 def params(scene):

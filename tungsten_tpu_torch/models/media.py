@@ -482,8 +482,11 @@ def _ws_reattach(med, ro, rd, t, hit, grad_k, pss):
     corr = (f - f.detach()) / torch.where(ift_ok, dfdt, 1.0)
     t_r = t_h - torch.where(ift_ok, corr, 0.0)
     p_r = ro_h + t_r[:, None] * rd_h
+    # the gradient of the mean that supplies the value there (a CSG
+    # union's right child's where its mean is the smaller)
+    _, gp_id = gp.mean_and_id(p_r)
     g = (torch.sqrt(gp.cov.cov(p_r, p_r))[:, None]
-         * (gn + mat_vec(hs, p_r - p)) + gp.mean.grad(p_r))
+         * (gn + mat_vec(hs, p_r - p)) + gp.mean_grad_by_id(p_r, gp_id))
     t_out = t.detach().clone()
     t_out[idx] = t_r
     grad = grad_k.detach().clone()

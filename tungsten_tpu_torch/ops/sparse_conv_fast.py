@@ -22,9 +22,12 @@ with their radii, quadratic-form scales and variances.  Under a renewal
 context each step adds the conditioning splat around each ray's
 conditioning origin (per level at its scale).  Under
 `surf_vol_phase_separate` the gp id is the variance threshold's.
-The stationary and world-space multi-resolution steps are differentiable
-in t, the rays, the covariance's parameters and the conditioning
-coefficients: K1's backward is K1b, K2's is K2b.
+Every step is differentiable in t, the rays, the covariance's parameters
+and the conditioning coefficients: K1's backward is K1b, K2's is K2b and
+K3's is K3b.  A full anisoMtx splat form in world space goes to K1 and K2
+as its six unique entries (`noise3d.form6`), differentiable in l, and its
+backward is K1b's or K2b's full instance; in isotropic(-ray) space the
+anisoMtx reaches the sum through the positions alone.
 """
 from __future__ import annotations
 
@@ -37,12 +40,10 @@ from ..utils.vecmath import dot, frame_to_local, normalize, tangent_frame
 from . import sparse_conv as sc
 
 
-def _host_full(kr, m):
-    """(kr, m00, m11, m22, m01, m02, m12) as Python floats from a cell
-    radius and a full [3, 3] splat form: one host read per batch."""
-    return tuple(torch.stack([kr.detach().reshape(()), m[0, 0], m[1, 1],
-                              m[2, 2], m[0, 1], m[0, 2],
-                              m[1, 2]]).detach().tolist())
+def _form(m):
+    """The splat form as K1 and K2 take it: its diagonal [3], or the six
+    unique entries [6] of a full [3, 3] (anisoMtx in world space)."""
+    return m if m.dim() == 1 else noise3d.form6(m)
 
 
 def _iso_space(cov, ray_frame, ro, rd, scale=1.0):
@@ -97,20 +98,18 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed, coeff3=None):
         ro_s, rd_s, to_space = _iso_space(cov, cfg.isotropic_ray_3d, ro, rd)
         kr_f = cov.splat_radius_iso()
         kr = torch.full((), kr_f, dtype=torch.float32, device=ro.device)
-        m3 = cov.splat_form(is_identity=True)
+        m = cov.splat_form(is_identity=True)
         host = (kr_f, 0.5, 0.5, 0.5)
         norm = torch.sqrt(cov.variance3(cfg.impulse_density, kr_f,
                                         is_identity=True))
     else:
         ro_s, rd_s = ro, rd
         kr = cov.splat_radius()
-        # the splat form is diagonal: K1 takes its diagonal and kr as
-        # tensors (differentiable in l) and by value (one host read for
-        # all four per batch); a full anisoMtx form goes by value alone
-        # (forward only)
-        m3 = cov.splat_form()
-        host = (noise3d.host_params(kr, m3) if m3.dim() == 1
-                else _host_full(kr, m3))
+        # K1 takes kr and the splat form (its diagonal, or a full anisoMtx
+        # form's six entries) as tensors, differentiable in l, and by
+        # value (one host read for all of them per batch)
+        m = _form(cov.splat_form())
+        host = noise3d.host_params(kr, m)
         norm = torch.sqrt(cov.variance3(cfg.impulse_density, kr))
     K = cfg.impulse_count
     use_cond = cfg.activate_conditioning
@@ -125,10 +124,7 @@ def make_value_at(cfg, gp, ro, rd, pss, scene_seed, coeff3=None):
     def value_at(t):
         p = ro + t[:, None] * rd
         ps = ro_s + t[:, None] * rd_s if cfg.isotropic_3d else p
-        if m3.dim() == 1:
-            total = noise3d.noise3d_sum_s_diff(ps, seed0, kr, m3, K, host)
-        else:
-            total = noise3d.noise3d_sum_s(ps, seed0, host[0], host[1:], K)
+        total = noise3d.noise3d_sum_s_diff(ps, seed0, kr, m, K, host)
         val = total / norm
         if use_cond:
             val = val + _cond_splat(m_cond, full, ps - o_s, 1.0, coeff3)
@@ -148,12 +144,13 @@ def _make_value_at_multi_res(cfg, gp, ro, rd, seed0, coeff3):
     (through t), in l (through the cell radii and the splat form) and in
     the levels' scales."""
     cov = gp.cov
-    # the base's unit-scale splat form (diagonal: a tensor, differentiable
-    # in l, and its values, read on the host once per batch) and cell radius
+    # the base's unit-scale splat form (its diagonal or a full anisoMtx
+    # form's six entries: a tensor, differentiable in l, and its values,
+    # read on the host once per batch) and cell radius
     m3 = cov.base.splat_form()
-    full = m3.dim() == 2  # anisoMtx: the full form, by value, forward only
-    host = tuple(m3.detach().tolist()) if not full else _host_full(
-        m3.new_zeros(()), m3)[1:]
+    full = m3.dim() == 2
+    m = _form(m3)
+    host = tuple(m.detach().tolist())
     kr_unit = cov.base.splat_radius()
     dens = cfg.impulse_density
     K = cfg.impulse_count
@@ -170,14 +167,9 @@ def _make_value_at_multi_res(cfg, gp, ro, rd, seed0, coeff3):
         s = torch.stack([s_lo, s_hi])  # [2, R]
         kr = kr_unit * s
         qm = 1.0 / (s * s)
-        if full:
-            total = noise3d.noise3d_sum(p.repeat(2, 1), seed.reshape(-1),
-                                        kr.reshape(-1), qm.reshape(-1), host,
-                                        K)
-        else:
-            total = noise3d.noise3d_sum_diff(
-                p.repeat(2, 1), seed.reshape(-1), kr.reshape(-1),
-                qm.reshape(-1), m3, K, host)
+        total = noise3d.noise3d_sum_diff(
+            p.repeat(2, 1), seed.reshape(-1), kr.reshape(-1),
+            qm.reshape(-1), m, K, host)
         vals = total.reshape(s.shape) / torch.sqrt(cov.variance3(dens, kr, s))
         if use_cond:
             dd = p - coeff3.ray_origin
@@ -197,10 +189,14 @@ def _make_value_at_multi_res_iso(cfg, gp, ro, rd, seed0, coeff3):
     over its scale s, with the identity splat at the cell radius
     kernel_scale, so both levels go to K1 (scalar kr and form) as one [2R]
     batch, seeds offset by their levels; under a renewal context each
-    level adds the conditioning splat at its scale."""
+    level adds the conditioning splat at its scale.  l and the levels'
+    scales reach the sum through the positions (K1b's dp)."""
     cov = gp.cov
     ro_s, rd_s, to_space = _iso_space(cov, cfg.isotropic_ray_3d, ro, rd)
     kr_f = cov.splat_radius_iso()
+    kr = torch.full((), kr_f, dtype=torch.float32, device=ro.device)
+    m_id = cov.base.splat_form(is_identity=True)
+    host = (kr_f, 0.5, 0.5, 0.5)
     norm = torch.sqrt(cov.variance3(cfg.impulse_density, kr_f,
                                     is_identity=True))
     K = cfg.impulse_count
@@ -218,9 +214,9 @@ def _make_value_at_multi_res_iso(cfg, gp, ro, rd, seed0, coeff3):
         seed = (seed0 + torch.stack([lvl, lvl + 1])) & rng.MASK32
         inv = torch.stack([1.0 / s_lo, 1.0 / s_hi])[..., None]  # [2, R, 1]
         pl = ps[None] * inv
-        total = noise3d.noise3d_sum_s(pl.reshape(-1, 3), seed.reshape(-1),
-                                      kr_f, (0.5, 0.5, 0.5, 0.0, 0.0, 0.0),
-                                      K)
+        total = noise3d.noise3d_sum_s_diff(pl.reshape(-1, 3),
+                                           seed.reshape(-1), kr, m_id, K,
+                                           host)
         vals = total.reshape(2, -1) / norm
         if use_cond:
             vals = vals + torch.stack([
@@ -242,7 +238,9 @@ def _make_value_at_brute_force(cfg, gp, ro, rd, seed0, coeff3):
     level of max(ls)), or kernel_scale in isotropic(-ray) space at
     positions over max(ls) (no offset); the variance is the base's at
     max(ls) times the splat scale cubed.  Under a renewal context the
-    conditioning splat takes the same qm."""
+    conditioning splat takes the same qm.  The cell radius (world space:
+    differentiable in l), the form and qm go to K2 as tensors, so the
+    backward is K2b."""
     cov = gp.cov
     dev = ro.device
     dens = cfg.impulse_density
@@ -252,18 +250,17 @@ def _make_value_at_brute_force(cfg, gp, ro, rd, seed0, coeff3):
     if iso:
         ro_s, rd_s, to_space = _iso_space(cov.base, cfg.isotropic_ray_3d, ro,
                                           rd, ml)
-        kr_f = cov.splat_radius_iso()
-        host = (0.5, 0.5, 0.5, 0.0, 0.0, 0.0)
+        kr = torch.full((), cov.splat_radius_iso(), dtype=torch.float32,
+                        device=dev)
+        m = cov.base.splat_form(is_identity=True)
         seed = seed0
     else:
         ro_s, rd_s = ro, rd
-        kr_f = float(cov.base.splat_radius() * ml)
-        m3 = cov.base.splat_form()
-        host = (tuple(m3.tolist()) + (0.0, 0.0, 0.0) if m3.dim() == 1
-                else _host_full(m3.new_zeros(()), m3)[1:])
+        kr = cov.base.splat_radius() * ml
+        m = _form(cov.base.splat_form())
         seed = (seed0 + sc._level_word(ml)) & rng.MASK32
-    kr_t = torch.tensor(kr_f, dtype=torch.float32, device=dev)
-    base_var = cov.base.variance3(dens, kr_t, ml, is_identity=iso)
+    host = tuple(m.detach().tolist())
+    base_var = cov.base.variance3(dens, kr, ml, is_identity=iso)
     use_cond = cfg.activate_conditioning
     if use_cond:
         o_s = to_space(coeff3.ray_origin) if iso else coeff3.ray_origin
@@ -276,9 +273,9 @@ def _make_value_at_brute_force(cfg, gp, ro, rd, seed0, coeff3):
         ls = cov.nonstat_splat_kernel_scale(p)
         inv_ls2 = 1.0 / torch.clamp(ls * ls, min=1e-12)
         qm = inv_ls2 if iso else inv_ls2 / (ml * ml)
-        total = noise3d.noise3d_sum(ps.contiguous(), seed,
-                                    torch.full_like(ls, kr_f),
-                                    qm.contiguous(), host, K)
+        total = noise3d.noise3d_sum_diff(ps.contiguous(), seed,
+                                         kr.expand(ls.shape).contiguous(),
+                                         qm.contiguous(), m, K, host)
         val = total / torch.sqrt(base_var * (ls * ls * ls))
         if use_cond:
             val = val + _cond_splat(m_cond, full, ps - o_s, qm, coeff3)

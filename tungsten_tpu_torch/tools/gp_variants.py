@@ -138,6 +138,9 @@ def variant_docs(out_dir):
                               m.update(isotropic_3D_sampling=True),
                               g["covariance"].update(anisoMtx=ANISO_MTX)))
                           , 4),
+        "box-aniso": ("config 1, anisoMtx in world space", _edit(
+            box, lambda m, g: g["covariance"].update(anisoMtx=ANISO_MTX)),
+            4),
         "box-mirror-phase": ("config 1, mirror phase function", _edit(
             box, lambda m, g: m["phase_function"].update(
                 bsdf={"type": "mirror", "albedo": [0.9, 0.9, 0.9]})), 4),
